@@ -1,0 +1,125 @@
+"""Build and load the CUDA kernels of ``chipmunk_torch/csrc``.
+
+Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
+``sm_90a`` into a shared library with a plain C interface, placed in
+``build/chipmunk_torch/`` at the repository root and loaded with
+``ctypes``.  The library's file name carries a hash of the sources (the
+``.cu`` and every shared ``.cuh``), so a library is rebuilt only when its
+sources change.  Nothing here runs at import time.
+
+Each wrapper that launches a kernel adds one to ``LAUNCHES[name]``.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+CSRC = Path(__file__).resolve().parent.parent / 'csrc'
+BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
+NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
+              '-O3', '-shared', '-Xcompiler', '-fPIC']
+LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp')
+
+# kernel launches per wrapper since the last reset
+LAUNCHES: Dict[str, int] = {'dense_attn': 0, 'dense_colsum_attn': 0,
+                            'csp_attn': 0, 'csp_mlp_mm1': 0,
+                            'csp_mlp_mm2': 0}
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    'chipmunk_dense_attn': [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    'chipmunk_dense_colsum_attn': [_P, _P, _P, _P, _P, _P, _P,
+                                   _I, _I, _I, _I, _F, _P],
+    'chipmunk_csp_attn': [_P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _F, _P],
+    'chipmunk_csp_mlp_mm1': [_P, _P, _P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _I, _P],
+    'chipmunk_csp_mlp_mm2': [_P, _P, _P, _P, _P,
+                             _I, _I, _I, _I, _I, _P],
+}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc() -> str:
+    path = shutil.which('nvcc') or '/usr/local/cuda/bin/nvcc'
+    if not os.path.exists(path):
+        raise RuntimeError('nvcc not found: the chipmunk_torch CUDA kernels '
+                           'are built on first use on a machine with the '
+                           'CUDA toolkit')
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha256()
+    for src in [CSRC / f'{name}.cu'] + sorted(CSRC.glob('*.cuh')):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f'{name}-{h.hexdigest()[:16]}.so'
+
+
+def _compile(names: Iterable[str]) -> None:
+    """Compile the missing libraries, one nvcc per source, all at once."""
+    todo = [(n, _lib_path(n)) for n in names]
+    todo = [(n, p) for n, p in todo if not p.exists()]
+    if not todo:
+        return
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    procs = []
+    for name, out in todo:
+        tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+        cmd = [nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(CSRC / f'{name}.cu')]
+        procs.append((name, out, tmp, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    errors = []
+    for name, out, tmp, p in procs:
+        log, _ = p.communicate()
+        if p.returncode != 0:
+            errors.append(f'nvcc failed for {name}.cu:\n{log}')
+            continue
+        os.replace(tmp, out)
+    if errors:
+        raise RuntimeError('\n'.join(errors))
+
+
+def build_all() -> None:
+    """Compile every kernel library that is not built yet, in parallel."""
+    with _lock:
+        _compile(LIBRARIES)
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library ``csrc/<name>.cu``, built first if needed."""
+    lib: Optional[ctypes.CDLL] = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _lock:
+        if name not in _libs:
+            _compile([name])
+            lib = ctypes.CDLL(str(_lib_path(name)))
+            for fn, argtypes in _SIGNATURES.items():
+                if hasattr(lib, fn):
+                    getattr(lib, fn).argtypes = argtypes
+                    getattr(lib, fn).restype = ctypes.c_int
+            _libs[name] = lib
+    return _libs[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a non-zero cudaError_t returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f'{what}: CUDA launch failed with cudaError {err}')

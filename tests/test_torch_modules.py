@@ -1,0 +1,125 @@
+"""SparseDiffAttn / SparseDiffMlp of chipmunk_torch against chipmunk_tpu
+(Pallas kernels in interpret mode) over every step kind, on the same
+numpy inputs; the port is fed the Bernoulli keep mask that JAX drew."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import torch
+
+from chipmunk_tpu.config import AttnConfig as JAttnConfig
+from chipmunk_tpu.config import MlpConfig as JMlpConfig
+from chipmunk_tpu.modules import SparseDiffAttn as JAttn
+from chipmunk_tpu.modules import SparseDiffMlp as JMlp
+from chipmunk_torch.config import AttnConfig, MlpConfig
+from chipmunk_torch.modules import SparseDiffAttn, SparseDiffMlp
+
+# float32 on both sides: differences are summation order only
+TOL = dict(atol=2e-5, rtol=2e-5)
+
+
+def t(a):
+    return torch.from_numpy(np.array(a))
+
+
+def assert_tie_free(scores):
+    s = np.asarray(scores).reshape(-1, np.asarray(scores).shape[-1])
+    assert all(len(np.unique(r)) == len(r) for r in s), 'tied scores'
+
+
+def test_sparse_attn_matches_reference_over_step_kinds():
+    B, H, S, D = 1, 2, 512, 64
+    kw = dict(top_keys=0.4, kv_block=32, counts_multiple_of=32,
+              random_keys=0.0, should_compress_indices=False,
+              max_selected_frac=1.0)
+    jmod = JAttn.build(JAttnConfig(**kw), S, use_kernels=True,
+                       interpret=True)
+    tmod = SparseDiffAttn.build(AttnConfig(**kw), S)
+    assert (tmod.jmax, tmod.sel_blocks, tmod.fully_dense) == \
+        (jmod.jmax, jmod.sel_blocks, jmod.fully_dense)
+    rng = np.random.default_rng(0)
+    base = [rng.standard_normal((B, H, S, D)).astype(np.float32)
+            for _ in range(3)]
+    jst = jmod.init_state(B, H, D, jnp.float32)
+    tst = tmod.init_state(B, H, D, torch.float32, device='cpu')
+    # step: (index, is_full, is_colsum): first, colsum, sparse, plain
+    # full, sparse; the inputs drift a little every step
+    for step, full, colsum in [(0, True, False), (1, True, True),
+                               (2, False, False), (3, True, False),
+                               (4, False, False)]:
+        q, k, v = (x + 0.05 * step * rng.standard_normal(x.shape)
+                   .astype(np.float32) for x in base)
+        if colsum:
+            cs = jmod._colsum(*map(jnp.asarray, (q, k, v)), jst.lse)[1]
+            assert_tie_free(cs)
+        o_j, jst = jmod(*map(jnp.asarray, (q, k, v)), jst, step_index=step,
+                        is_full=full, is_colsum=colsum, layer_is_dense=False,
+                        key=jax.random.PRNGKey(step))
+        o_t, tst = tmod(t(q), t(k), t(v), tst, step_index=step, is_full=full,
+                        is_colsum=colsum, layer_is_dense=False)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+        np.testing.assert_array_equal(tst.inds.numpy(), np.asarray(jst.inds))
+        np.testing.assert_array_equal(tst.counts.numpy(),
+                                      np.asarray(jst.counts))
+        np.testing.assert_allclose(tst.lse.numpy(), np.asarray(jst.lse),
+                                   **TOL)
+        np.testing.assert_allclose(tst.out_cache.numpy(),
+                                   np.asarray(jst.out_cache), **TOL)
+    # a layer in the dense prefix: dense attention, state untouched
+    o_t, st2 = tmod(t(q), t(k), t(v), tst, step_index=5, is_full=False,
+                    is_colsum=False, layer_is_dense=True)
+    assert st2 is tst
+    o_j, _ = jmod(*map(jnp.asarray, (q, k, v)), jst, step_index=5,
+                  is_full=False, is_colsum=False, layer_is_dense=True)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+
+
+def test_sparse_mlp_matches_reference_over_step_kinds():
+    T, C, N = 256, 64, 512
+    kw = dict(top_keys=0.5, random_keys=0.25, neuron_block=128, bm=128,
+              mbm=128, counts_multiple_of=128, max_selected_frac=1.0)
+    jmod = JMlp.build(JMlpConfig(**kw), T, C, N, use_kernels=True,
+                      interpret=True)
+    tmod = SparseDiffMlp.build(MlpConfig(**kw), T, C, N)
+    assert (tmod.jmax, tmod.sel_blocks, tmod.n_tokens) == \
+        (jmod.jmax, jmod.sel_blocks, jmod.n_tokens)
+    rng = np.random.default_rng(1)
+    w1t = (rng.standard_normal((N, C)) * 0.1).astype(np.float32)
+    b1 = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((N, C)) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    W = (w1t, b1, w2, b2)
+    jst = jmod.init_state(jnp.float32)
+    tst = tmod.init_state(torch.float32, device='cpu')
+    x0 = rng.standard_normal((T, C)).astype(np.float32) * 0.5
+    M, nb = T // kw['bm'], N // kw['neuron_block']
+    # full, sparse+reselect, sparse (cached selection), sparse+reselect
+    for step, (full, recompute) in enumerate([(True, False), (False, True),
+                                              (False, False), (False, True)]):
+        x = x0 + 0.1 * step * rng.standard_normal(x0.shape).astype(np.float32)
+        key = jax.random.PRNGKey(10 + step)
+        # the draw the reference module makes inside _recompute_indices
+        keep = np.asarray(jax.random.bernoulli(key, kw['random_keys'],
+                                               (M, nb)))
+        if recompute:   # the selection scores of _recompute_indices
+            bmx = x.reshape(M, kw['bm'], C).mean(1)       # mbm == bm
+            mdiff = np.abs(bmx @ w1t.T + b1 - np.asarray(jst.bm_mid))
+            assert_tie_free(mdiff.reshape(M, nb, -1).sum(-1))
+        o_j, jst = jmod(jnp.asarray(x), *map(jnp.asarray, W), jst,
+                        is_full=full, recompute_mask=recompute,
+                        layer_is_dense=False, key=key)
+        o_t, tst = tmod(t(x), *map(t, W), tst, is_full=full,
+                        recompute_mask=recompute, layer_is_dense=False,
+                        keep_mask=t(keep))
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+        np.testing.assert_array_equal(tst.inds.numpy(), np.asarray(jst.inds))
+        np.testing.assert_array_equal(tst.counts.numpy(),
+                                      np.asarray(jst.counts))
+        for name in ('out_cache', 'act_cache', 'bm_mid'):
+            np.testing.assert_allclose(getattr(tst, name).numpy(),
+                                       np.asarray(getattr(jst, name)), **TOL)
+    np.testing.assert_allclose(
+        tmod(t(x), *map(t, W), tst, is_full=False, recompute_mask=False,
+             layer_is_dense=True)[0].numpy(),
+        np.asarray(jmod(jnp.asarray(x), *map(jnp.asarray, W), jst,
+                        is_full=False, recompute_mask=False,
+                        layer_is_dense=True)[0]), **TOL)
