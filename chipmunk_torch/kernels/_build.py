@@ -24,12 +24,18 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp')
+LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe')
 
 # kernel launches per wrapper since the last reset
-LAUNCHES: Dict[str, int] = {'dense_attn': 0, 'dense_colsum_attn': 0,
-                            'csp_attn': 0, 'csp_mlp_mm1': 0,
-                            'csp_mlp_mm2': 0}
+LAUNCHES: Dict[str, int] = {
+    'dense_attn': 0, 'dense_colsum_attn': 0, 'csp_attn': 0,
+    'csp_mlp_mm1': 0, 'csp_mlp_mm2': 0,              # bf16 weights
+    'csp_mlp_mm1_wq': 0, 'csp_mlp_mm2_wq': 0,        # int8 weights, bf16 x
+    'csp_mlp_mm1_w4': 0, 'csp_mlp_mm2_w4': 0,        # int4 weights, bf16 x
+    'quant_rows': 0, 'csp_mlp_mm1_a8': 0,            # int8 weights and x
+    'csp_mlp_mm2_a8': 0,
+    'csp_mlp_mm1_a8w4': 0, 'csp_mlp_mm2_a8w4': 0,    # int4 weights, int8 x
+    'int8_probe_s8': 0, 'int8_probe_bf16': 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -45,6 +51,13 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _P],
     'chipmunk_csp_mlp_mm2': [_P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _P],
+    'chipmunk_csp_mlp_mm1_wq': [_P] * 8 + [_I] * 7 + [_P],
+    'chipmunk_csp_mlp_mm2_wq': [_P] * 6 + [_I] * 6 + [_P],
+    'chipmunk_quant_rows': [_P] * 3 + [_I] * 2 + [_P],
+    'chipmunk_csp_mlp_mm1_a8': [_P] * 11 + [_I] * 7 + [_P],
+    'chipmunk_csp_mlp_mm2_a8': [_P] * 6 + [_I] * 6 + [_P],
+    'chipmunk_int8_probe_s8': [_P] * 3 + [_I] * 3 + [_P],
+    'chipmunk_int8_probe_bf16': [_P] * 3 + [_I] * 3 + [_P],
 }
 
 

@@ -11,7 +11,7 @@ into qkv/fc1 and o_proj/fc2.  txt_len and S must be multiples of 128.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -22,6 +22,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.csp_mlp import gelu_tanh
 from ..modules import AttnState, MlpState, SparseDiffAttn, SparseDiffMlp
 from ..schedule import StepKind
+from ..utils.quant import QTensor, materialize
 from .layers import (apply_rope, layernorm, linear, mlp_embedder, modulation,
                      rmsnorm, timestep_embedding)
 
@@ -54,23 +55,11 @@ class FluxModelConfig:
 
 # ------------------------------------------------------------------ params
 
-def init_flux_params(generator: torch.Generator, cfg: FluxModelConfig,
-                     device: DeviceLike = 'cuda') -> Dict:
-    """Random weights with the reference's shapes and scales (normal /
-    sqrt(d_in), zero biases, unit norms), drawn from ``generator`` (which
-    must live on ``device``)."""
-    dev = resolve_device(device)
-    h, mh, dt = cfg.hidden_size, cfg.mlp_hidden, cfg.dtype
-
-    def normal(*shape, scale):
-        return (torch.randn(shape, generator=generator, device=dev)
-                * scale).to(dt)
-
-    def zeros(n):
-        return torch.zeros(n, dtype=dt, device=dev)
-
-    def ones(n):
-        return torch.ones(n, dtype=dt, device=dev)
+def _flux_tree(cfg: FluxModelConfig, normal: Callable, zeros: Callable,
+               ones: Callable, n_double: int, n_single: int) -> Dict:
+    """The FLUX param tree built from leaf makers normal(*shape, scale=),
+    zeros(n), ones(n), with n_double/n_single per-layer dicts."""
+    h, mh = cfg.hidden_size, cfg.mlp_hidden
 
     def lin(d_in, d_out, bias=True):
         p = {'w': normal(d_in, d_out, scale=d_in ** -0.5)}
@@ -107,14 +96,46 @@ def init_flux_params(generator: torch.Generator, cfg: FluxModelConfig,
         'txt_in': lin(cfg.context_in_dim, h),
         'time_in': embedder(256),
         'vector_in': embedder(cfg.vec_in_dim),
-        'double': [dbl() for _ in range(cfg.depth)],
-        'single': [sgl() for _ in range(cfg.depth_single_blocks)],
+        'double': [dbl() for _ in range(n_double)],
+        'single': [sgl() for _ in range(n_single)],
         'final_mod': lin(h, 2 * h),
         'final_proj': lin(h, cfg.in_channels),
     }
     if cfg.guidance_embed:
         params['guidance_in'] = embedder(256)
     return params
+
+
+def init_flux_params(generator: torch.Generator, cfg: FluxModelConfig,
+                     device: DeviceLike = 'cuda') -> Dict:
+    """Random weights with the reference's shapes and scales (normal /
+    sqrt(d_in), zero biases, unit norms), drawn from ``generator`` (which
+    must live on ``device``)."""
+    dev, dt = resolve_device(device), cfg.dtype
+
+    def normal(*shape, scale):
+        return (torch.randn(shape, generator=generator, device=dev)
+                * scale).to(dt)
+
+    return _flux_tree(cfg, normal,
+                      lambda n: torch.zeros(n, dtype=dt, device=dev),
+                      lambda n: torch.ones(n, dtype=dt, device=dev),
+                      cfg.depth, cfg.depth_single_blocks)
+
+
+def flux_param_shapes(cfg: FluxModelConfig) -> Dict:
+    """The reference's param tree as shapes: ``double``/``single`` stacked
+    along a leading layer axis ([L, ...]), as ``jax.eval_shape`` of its
+    ``init_flux_params`` gives them."""
+    tree = _flux_tree(cfg, lambda *s, scale: s, lambda n: (n,),
+                      lambda n: (n,), 1, 1)
+
+    def stack(t, n):
+        return ({k: stack(v, n) for k, v in t.items()}
+                if isinstance(t, dict) else (n,) + t)
+
+    return dict(tree, double=stack(tree['double'][0], cfg.depth),
+                single=stack(tree['single'][0], cfg.depth_single_blocks))
 
 
 def _np_to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -134,21 +155,32 @@ def params_from_jax(np_params: Dict, device: DeviceLike = 'cuda') -> Dict:
     """The reference's FLUX param tree (numpy arrays, e.g. via
     ``jax.tree_util.tree_map(np.asarray, params)``) as the port's params.
     The layouts are the same, so this copies leaves and splits the stacked
-    ``[L, ...]`` ``double``/``single`` subtrees into per-layer dicts."""
+    ``[L, ...]`` ``double``/``single`` subtrees into per-layer dicts.
+    Quantized leaves (anything with ``q``/``scale``/``pack_axis``, as the
+    reference's QTensor has) become the port's QTensor, with ``q`` and
+    ``scale`` split per layer and ``pack_axis`` kept."""
     dev = resolve_device(device)
 
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
+        if all(hasattr(tree, a) for a in ('q', 'scale', 'pack_axis')):
+            return QTensor(_np_to_torch(tree.q, dev),
+                           _np_to_torch(tree.scale, dev), tree.pack_axis)
         return _np_to_torch(tree, dev)
 
     def layer(tree, i):
-        return {k: layer(v, i) if isinstance(v, dict) else v[i]
-                for k, v in tree.items()}
+        if isinstance(tree, dict):
+            return {k: layer(v, i) for k, v in tree.items()}
+        if isinstance(tree, QTensor):
+            return QTensor(tree.q[i], tree.scale[i], tree.pack_axis)
+        return tree[i]
 
     def n_layers(tree):
         v = next(iter(tree.values()))
-        return n_layers(v) if isinstance(v, dict) else v.shape[0]
+        if isinstance(v, dict):
+            return n_layers(v)
+        return (v.q if isinstance(v, QTensor) else v).shape[0]
 
     out = {}
     for k, v in np_params.items():
@@ -295,9 +327,11 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
 
     txt_mod2 = (1 + tt1[1]) * layernorm(txt) + tt1[0]
     dt = txt.dtype
-    tmid = txt_mod2 @ p['txt_w1t'].to(dt).t() + p['txt_b1'].to(dt)
+    tmid = (txt_mod2 @ materialize(p['txt_w1t'], dt).t()
+            + p['txt_b1'].to(dt))
     tact = gelu_tanh(tmid.float()).to(dt)
-    txt = txt + tt1[2] * (tact @ p['txt_w2'].to(dt) + p['txt_b2'].to(dt))
+    txt = txt + tt1[2] * (tact @ materialize(p['txt_w2'], dt)
+                          + p['txt_b2'].to(dt))
     return img, txt, ast, mst
 
 

@@ -8,9 +8,12 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..utils.quant import materialize
+
 
 def linear(p: Dict, x: torch.Tensor) -> torch.Tensor:
-    y = x @ p['w'].to(x.dtype)
+    """x @ w (+ b); a QTensor weight is dequantized in x's dtype first."""
+    y = x @ materialize(p['w'], x.dtype)
     if 'b' in p:
         y = y + p['b'].to(y.dtype)
     return y

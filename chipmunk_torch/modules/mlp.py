@@ -1,5 +1,7 @@
 """Sparse delta MLP (torch), the counterpart of
-``chipmunk_tpu/modules/mlp.py`` with bf16 (non-quantized) weights.
+``chipmunk_tpu/modules/mlp.py``.  Weights are tensors or QTensors
+(``utils/quant.py``): dense products dequantize them in x's dtype, the
+sparse step hands them to the kernels as they are.
 
   full steps   -> dense fc1/act/fc2; cache the post-activations, the output
                   and the block means of the pre-activations
@@ -25,10 +27,21 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.csp_mlp import gelu_tanh
 from ..ops import fp8, indexing
 from ..ops.mlp_ref import block_mean
+from ..utils.quant import QTensor, materialize
+
+_SAID = set()      # the int8_act message, once per weight type
 
 
 def _fc1(x, w1t, b1):
-    return x @ w1t.t() + b1.to(x.dtype)
+    return x @ materialize(w1t, x.dtype).t() + b1.to(x.dtype)
+
+
+def _int8_weights(w1t, w2) -> bool:
+    """The reference's condition for int8 activations: both weights are
+    int8 or int4-packed QTensors (``modules/mlp.py:169-171``)."""
+    return all(isinstance(w, QTensor)
+               and (w.pack_axis is not None or w.q.dtype == torch.int8)
+               for w in (w1t, w2))
 
 
 class MlpState(NamedTuple):
@@ -52,11 +65,6 @@ class SparseDiffMlp:
     @staticmethod
     def build(cfg: MlpConfig, n_tokens: int, d_model: int, d_hidden: int
               ) -> "SparseDiffMlp":
-        if cfg.int8_act:
-            # same rule as the reference: the int8 path needs int8/int4
-            # QTensor weights, which the port does not have yet
-            print("chipmunk: mlp.int8_act ignored - MLP weights are Tensor, "
-                  "not int8/int4 QTensor (quantized residency)")
         n_tokens = -(-n_tokens // cfg.bm) * cfg.bm
         if d_hidden % cfg.neuron_block:
             raise ValueError(f'MLP width {d_hidden} must be a multiple of '
@@ -77,9 +85,10 @@ class SparseDiffMlp:
 
     # ---------------------------------------------------------------- steps
     def dense(self, x, w1t, b1, w2, b2):
-        """x: [T, C]; w1t, w2: [N, C]."""
+        """x: [T, C]; w1t, w2: [N, C] (tensors or QTensors)."""
         mid = _fc1(x, w1t, b1)
-        return gelu_tanh(mid.float()).to(x.dtype) @ w2 + b2.to(x.dtype)
+        return (gelu_tanh(mid.float()).to(x.dtype) @ materialize(w2, x.dtype)
+                + b2.to(x.dtype))
 
     def _pad(self, x):
         t = x.shape[0]
@@ -92,7 +101,7 @@ class SparseDiffMlp:
         x, t = self._pad(x)
         mid = _fc1(x, w1t, b1)
         pa = gelu_tanh(mid.float()).to(x.dtype)
-        out = pa @ w2 + b2.to(x.dtype)
+        out = pa @ materialize(w2, x.dtype) + b2.to(x.dtype)
         return out[:t], state._replace(
             out_cache=fp8.cast(out, state.out_cache.dtype),
             act_cache=fp8.cast(pa, state.act_cache.dtype),
@@ -147,9 +156,19 @@ class SparseDiffMlp:
         if recompute:
             state = self._recompute_indices(x, w1t, b1, state, keep_mask,
                                             generator)
+        a8 = self.cfg.int8_act
+        if a8 and not _int8_weights(w1t, w2):
+            # as the reference: without int8/int4 weights there is nothing
+            # to pair int8 activations with, so the bf16 kernels run
+            kind = type(w1t).__name__
+            if kind not in _SAID:
+                _SAID.add(kind)
+                print(f"chipmunk: mlp.int8_act ignored - MLP weights are "
+                      f"{kind}, not int8/int4 QTensor (quantized residency)")
+            a8 = False
         new_out, new_act = kernels.csp_mlp(
             x, w1t, b1, w2, state.act_cache, state.out_cache, state.inds,
-            state.counts, bn=self.cfg.neuron_block, bm=self.cfg.bm)
+            state.counts, bn=self.cfg.neuron_block, bm=self.cfg.bm, a8=a8)
         return new_out[:t].to(x.dtype), state._replace(out_cache=new_out,
                                                        act_cache=new_act)
 

@@ -11,7 +11,9 @@ Tolerances: bf16 attention outputs to 4e-3 + 2^-6 |ref| (the kernel
 rounds p to bf16 against a running max, the plain version against the
 row max), the log2-domain lse to 1e-3, column sums to 1e-4 + 1e-3 |ref|,
 fp8 caches within one e4m3 ulp (sums in another order may round a value
-at a boundary to its neighbour)."""
+at a boundary to its neighbour); the int8-activation kernels' row
+quantization and quantized deltas bit-equal where their inputs agree, the
+probe's int8 product exact."""
 import importlib
 
 import pytest
@@ -23,6 +25,8 @@ from chipmunk_torch.ops.attn_ref import PAD_LSE
 FA = importlib.import_module('chipmunk_torch.kernels.flash_attention')
 CA = importlib.import_module('chipmunk_torch.kernels.csp_attention')
 CM = importlib.import_module('chipmunk_torch.kernels.csp_mlp')
+PR = importlib.import_module('chipmunk_torch.kernels.int8_probe')
+QT = importlib.import_module('chipmunk_torch.utils.quant')
 ATOL, RTOL = 4e-3, 2 ** -6
 
 
@@ -125,3 +129,115 @@ def test_cuda_csp_mlp_fused_matches_plain(gen, bm, bn):
     # an act-cache entry one ulp apart moves the output by |d act| @ |w2|
     dact = torch.nan_to_num((act_k.float() - act_p.float()).abs())
     assert_fp8_close(out_k, out_p, dact @ w2.float().abs())
+
+
+def int8_qt(gen, N, C, scale, kind='int8'):
+    """An int8 (or int4, packed along C) QTensor [N, C] with per-row
+    scales, as quantize makes."""
+    return QT.quantize(randn(gen, N, C, scale=scale).float(), kind,
+                       keep_axes=(0,), pack_axis=1 if kind == 'int4' else None)
+
+
+def mlp_case(gen, T, C, N, bm, bn, jmax=3):
+    x = randn(gen, T, C)
+    b1 = randn(gen, N, scale=0.1)
+    act = fp8.to_fp8(torch.randn((T, N), generator=gen, device='cuda') * 0.3)
+    out = fp8.to_fp8(torch.randn((T, C), generator=gen, device='cuda'))
+    M = T // bm
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    return x, b1, act, out, inds, counts
+
+
+@pytest.mark.cuda
+def test_cuda_quant_rows_matches_plain(gen):
+    x = randn(gen, 384, 3072)
+    x[5] = 0.0                           # the 1e-6 floor of the scale
+    n0 = CM._build.LAUNCHES['quant_rows']
+    x8, sx = CM.quant_rows(x)
+    torch.cuda.synchronize()
+    assert CM._build.LAUNCHES['quant_rows'] == n0 + 1
+    x8_p, sx_p = CM.quant_rows_plain(x)
+    assert torch.equal(sx, sx_p) and torch.equal(x8, x8_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['int8', 'int4'])
+@pytest.mark.parametrize('bm,bn', [(128, 128), (256, 256), (64, 256)])
+def test_cuda_csp_mlp_a8_matches_plain(gen, bm, bn, kind):
+    """The int8-activation chain: x8/sx bit-equal; the act cache within
+    one e4m3 ulp; d8/sd bit-equal wherever the acts of that (row, block)
+    agree; mm2 on the same d8/sd within one e4m3 ulp."""
+    T, C, N = 512, 256, 1024
+    x, b1, act, out, inds, counts = mlp_case(gen, T, C, N, bm, bn)
+    w1 = int8_qt(gen, N, C, C ** -0.5, kind)
+    w2 = int8_qt(gen, N, C, N ** -0.5, kind)
+    x8, sx = CM.quant_rows(x)
+    d8, sd, act_k = CM.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(),
+                                      inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    pinds = CA.pad_block_indices(inds, counts)
+    d8_p, sd_p, act_p = CM.csp_mlp_mm1_a8_plain(x8, sx, w1, b1, w2.scale,
+                                                act, pinds, counts, bn, bm)
+    assert_fp8_close(act_k, act_p)
+    M, jmax = inds.shape
+    cols = (pinds.long()[:, :, None] * bn
+            + torch.arange(bn, device='cuda')).reshape(M, -1)
+    cols = cols.repeat_interleave(bm, 0)
+    agree = (act_k.float().gather(1, cols) == act_p.float().gather(1, cols)
+             ).reshape(T, jmax, bn).all(-1)              # [T, jmax]
+    assert agree.float().mean().item() > 0.9
+    assert torch.equal(sd[agree], sd_p[agree])
+    assert torch.equal(d8.reshape(T, jmax, bn)[agree],
+                       d8_p.reshape(T, jmax, bn)[agree])
+    out_k = CM.csp_mlp_mm2_a8(d8_p, sd_p, w2, out.clone(), inds, counts,
+                              bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    out_p = CM.csp_mlp_mm2_a8_plain(d8_p, sd_p, w2, out, pinds, counts, bn,
+                                    bm)
+    assert_fp8_close(out_k, out_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['int8', 'int4'])
+@pytest.mark.parametrize('bm,bn', [(128, 128), (256, 256)])
+def test_cuda_csp_mlp_wq_matches_plain(gen, bm, bn, kind):
+    """int8 or int4 QTensor weights with bf16 activations: the act cache
+    within one e4m3 ulp; the out cache within one ulp plus what act flips
+    move."""
+    T, C, N = 512, 256, 1024
+    x, b1, act, out, inds, counts = mlp_case(gen, T, C, N, bm, bn)
+    w1 = int8_qt(gen, N, C, C ** -0.5, kind)
+    w2 = int8_qt(gen, N, C, N ** -0.5, kind)
+    n0 = dict(CM._build.LAUNCHES)
+    out_k, act_k = CM.csp_mlp_fused(x, w1, b1, w2, act.clone(), out.clone(),
+                                    inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    tag = 'w4' if kind == 'int4' else 'wq'
+    for k in (f'csp_mlp_mm1_{tag}', f'csp_mlp_mm2_{tag}'):
+        assert CM._build.LAUNCHES[k] == n0[k] + 1
+    assert CM._build.LAUNCHES['csp_mlp_mm1'] == n0['csp_mlp_mm1']
+    pinds = CA.pad_block_indices(inds, counts)
+    pk, act_p = CM.csp_mlp_mm1_plain(x, w1, b1, act, pinds, counts, bn, bm)
+    out_p = CM.csp_mlp_mm2_plain(pk, w2, out, pinds, counts, bn, bm)
+    assert_fp8_close(act_k, act_p)
+    dact = torch.nan_to_num((act_k.float() - act_p.float()).abs())
+    assert_fp8_close(out_k, out_p,
+                     dact @ QT.dequant(w2, torch.float32).abs())
+
+
+@pytest.mark.cuda
+def test_cuda_int8_probe_matches_plain(gen):
+    a = torch.randint(-127, 128, (256, 512), generator=gen, device='cuda',
+                      dtype=torch.int8)
+    b = torch.randint(-127, 128, (512, 384), generator=gen, device='cuda',
+                      dtype=torch.int8)
+    c = PR.int8_probe(a, b)
+    torch.cuda.synchronize()
+    assert torch.equal(c, PR.int8_probe_plain(a, b))
+    assert torch.equal(c, torch._int_mm(a, b))
+    af, bf = randn(gen, 256, 512), randn(gen, 512, 384)
+    torch.testing.assert_close(PR.int8_probe(af, bf),
+                               PR.int8_probe_plain(af, bf), atol=1e-3,
+                               rtol=1e-4)

@@ -14,10 +14,12 @@ from chipmunk_tpu.models.flux import FluxStep as JStep
 from chipmunk_tpu.models.flux import flux_forward as j_flux_forward
 from chipmunk_tpu.models.sampling import FluxSampler as JSampler
 from chipmunk_tpu.models.sampling import get_schedule as j_get_schedule
+from chipmunk_tpu.utils import quant as jq
 from chipmunk_torch.config import config_from_dict
 from chipmunk_torch.models import (FluxModelConfig, FluxSampler, FluxSparse,
                                    FluxStep, flux_forward, get_schedule,
                                    params_from_jax)
+from chipmunk_torch.utils.quant import QTensor
 
 H_IMG, W_IMG, TXT = 16, 24, 128
 SEQ = TXT + H_IMG * W_IMG
@@ -127,3 +129,66 @@ def test_denoise_matches_reference_kernels_in_interpret_mode():
     assert calls == [i in (3, 7, 8) for i in range(12)]
     assert out_t.shape == img.shape and torch.isfinite(out_t).all()
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+def quantized_setup(cfg_dict):
+    """setup() with the weights quantized as the JAX package ships them
+    (QuantSpec(attn='int4', mod='int4', mlp_sparse='int8',
+    mlp_dense='int4')), carried over by params_from_jax."""
+    (jm, jck, params), (tm, ck, _), inputs = setup(cfg_dict)
+    qparams = jq.quantize_flux_params(params, jq.QuantSpec(
+        attn='int4', mod='int4', mlp_sparse='int8', mlp_dense='int4'))
+    tparams = params_from_jax(jax.tree_util.tree_map(np.asarray, qparams),
+                              device='cpu')
+    return (jm, jck, qparams), (tm, ck, tparams), inputs
+
+
+def test_params_from_jax_carries_quantized_leaves():
+    (_, _, qparams), (_, _, tparams), _ = quantized_setup(SPARSE)
+    for i in range(2):
+        w = tparams['double'][i]['img_qkv']['w']
+        ref = qparams['double']['img_qkv']['w']
+        assert isinstance(w, QTensor) and w.pack_axis == ref.pack_axis == -2
+        np.testing.assert_array_equal(w.q.numpy(), np.asarray(ref.q[i]))
+        np.testing.assert_array_equal(w.scale.numpy(),
+                                      np.asarray(ref.scale[i]))
+        w1 = tparams['single'][i]['w1t']
+        assert w1.q.dtype == torch.int8 and w1.pack_axis is None
+        np.testing.assert_array_equal(
+            w1.q.numpy(), np.asarray(qparams['single']['w1t'].q[i]))
+        assert tparams['double'][i]['txt_w2'].pack_axis == -1
+    assert not isinstance(tparams['img_in']['w'], QTensor)
+
+
+def test_quantized_int8_act_denoise_matches_reference_kernels():
+    """The shipped quantization with int8 activations: 12 steps as in
+    test_denoise_matches_reference_kernels_in_interpret_mode, the
+    reference running its a8 Pallas kernel in interpret mode.  The two
+    sides' float32 activations differ in the last bits (summation order,
+    tanh), and per-row int8 rounding turns such a difference into a whole
+    quantization step wherever x / sx lies near a half; each sparse MLP
+    step flips a few of them, and the loop carries them on.  Measured
+    here: relative (Frobenius) norm difference 6.9e-3 after 12 steps (per
+    step 2e-4 to 6e-4; 2e-6 without int8_act); the bound is 2e-2."""
+    cfg = dict(SPARSE, steps=12,
+               attn=dict(SPARSE['attn'], full_step_every=5,
+                         recompute_mask=True),
+               mlp=dict(SPARSE['mlp'], full_step_every=5, int8_act=True),
+               step_caching={'is_enabled': True,
+                             'skip_step_schedule': {3, 7, 8}})
+    (jm, jck, params), (tm, ck, tparams), (img, txt, y) = \
+        quantized_setup(cfg)
+    assert jck.mlp.int8_act and ck.mlp.int8_act
+    jsp = JSparse.build(jck, jm, SEQ, use_kernels=True, interpret=True)
+    js = JSampler(cfg=jm, ck=jck, sp=jsp, h_img=H_IMG, w_img=W_IMG)
+    ts = j_get_schedule(12, H_IMG * W_IMG)
+    out_j = np.asarray(js.denoise(params, *map(jnp.asarray, (img, txt, y)),
+                                  ts))
+    sampler = FluxSampler(cfg=tm, ck=ck, sp=FluxSparse.build(ck, tm, SEQ),
+                          h_img=H_IMG, w_img=W_IMG, device='cpu')
+    out_t = sampler.denoise(tparams, *map(torch.from_numpy, (img, txt, y)),
+                            torch.from_numpy(np.array(ts))).numpy()
+    assert out_t.shape == img.shape and np.isfinite(out_t).all()
+    rel = np.linalg.norm(out_t - out_j) / np.linalg.norm(out_j)
+    print(f'quantized int8-act denoise: relative difference {rel:.3e}')
+    assert rel < 2e-2, rel

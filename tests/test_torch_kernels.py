@@ -17,11 +17,16 @@ from chipmunk_tpu.kernels import dense_colsum_attn as j_colsum
 from chipmunk_tpu.kernels.csp_mlp import csp_mlp_fused as j_csp_mlp_fused
 from chipmunk_tpu.kernels.csp_mlp import csp_mlp_mm1 as j_csp_mlp_mm1
 from chipmunk_tpu.kernels.csp_mlp import csp_mlp_mm2 as j_csp_mlp_mm2
+from chipmunk_tpu.utils import quant as jq
+from chipmunk_torch.kernels.csp_mlp import _codes, gelu_tanh
 from chipmunk_torch.kernels import (csp_attn, csp_mlp_fused, csp_mlp_mm1,
-                                    csp_mlp_mm2, dense_attn,
-                                    dense_colsum_attn)
+                                    csp_mlp_mm1_a8, csp_mlp_mm2,
+                                    csp_mlp_mm2_a8, dense_attn,
+                                    dense_colsum_attn, int8_probe,
+                                    quant_rows)
 from chipmunk_torch.ops import fp8
 from chipmunk_torch.ops.attn_ref import PAD_LSE
+from chipmunk_torch.utils.quant import QTensor
 
 
 def to_torch(a):
@@ -154,17 +159,32 @@ def test_csp_mlp_fused_matches_reference():
     _fp8_close(out_t, out_j, _out_slack(act_t, act_j, w2))
 
 
-def test_csp_mlp_mm1_mm2_match_reference():
+def _qt(w, kind='int8'):
+    """The reference's int8 or int4 (packed along C) QTensor of an [N, C]
+    weight, and the port's copy of it."""
+    qj = jq.quantize(jnp.asarray(np.asarray(w, np.float32)), kind,
+                     keep_axes=(0,), pack_axis=1 if kind == 'int4' else None)
+    return qj, QTensor(to_torch(qj.q), to_torch(qj.scale), qj.pack_axis)
+
+
+def _mm1_mm2_against_reference(seed, kind):
     """The two passes behind csp_mlp_fused against the reference's unfused
-    kernels (_mm1_kernel, _mm2_kernel), which compute the same functions.
-    The packed delta bf16(act - cache) is bit-equal where the two acts are,
-    elsewhere apart by the acts' difference plus bf16 rounding."""
+    kernels (_mm1_kernel, _mm2_kernel), which compute the same functions,
+    with bf16 (kind None), int8 or int4 QTensor weights.  The packed delta
+    bf16(act - cache) is bit-equal where the two acts are, elsewhere apart
+    by the acts' difference plus bf16 rounding."""
     bm = bn = 128
-    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(7)
-    pk_j, act_j = j_csp_mlp_mm1(*map(jnp.asarray, (x, w1t, b1, act, inds,
-                                                   counts)),
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed)
+    if kind:
+        (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
+    else:
+        w1_j, w2_j = jnp.asarray(w1t), jnp.asarray(w2)
+        w1_t, w2_t = to_torch(w1t), to_torch(w2)
+    pk_j, act_j = j_csp_mlp_mm1(jnp.asarray(x), w1_j,
+                                *map(jnp.asarray, (b1, act, inds, counts)),
                                 bn=bn, bm=bm, interpret=True)
-    pk_t, act_t = csp_mlp_mm1(*map(to_torch, (x, w1t, b1, act, inds, counts)),
+    pk_t, act_t = csp_mlp_mm1(to_torch(x), w1_t,
+                              *map(to_torch, (b1, act, inds, counts)),
                               bn=bn, bm=bm)
     _fp8_close(act_t, act_j)
     M, jmax = inds.shape
@@ -182,11 +202,192 @@ def test_csp_mlp_mm1_mm2_match_reference():
     assert (np.abs(g - r)[d] <= np.abs(a_t - a_j)[d] * 1.001
             + np.maximum(np.abs(g), np.abs(r))[d] * 2.0 ** -8).all()
     # mm2 on the same packed delta: summation order only
-    out_j = j_csp_mlp_mm2(*map(jnp.asarray, (pk_j, w2, out, inds, counts)),
+    out_j = j_csp_mlp_mm2(pk_j, w2_j,
+                          *map(jnp.asarray, (out, inds, counts)),
                           bn=bn, bm=bm, interpret=True)
-    out_t = csp_mlp_mm2(*map(to_torch, (pk_j, w2, out, inds, counts)), bn=bn,
-                        bm=bm)
+    out_t = csp_mlp_mm2(to_torch(np.asarray(pk_j)), w2_t,
+                        *map(to_torch, (out, inds, counts)), bn=bn, bm=bm)
     _fp8_close(out_t, out_j)
+
+
+def test_csp_mlp_mm1_mm2_match_reference():
+    """bf16 weights."""
+    _mm1_mm2_against_reference(7, None)
+
+
+def test_csp_mlp_mm1_mm2_wq_match_reference():
+    """int8 QTensor weights with bf16 activations (the ``wq`` variants):
+    mm1 folds the row scale in after the product, mm2 scales the delta
+    in bf16 before it."""
+    _mm1_mm2_against_reference(8, 'int8')
+
+
+def test_csp_mlp_mm1_mm2_w4_match_reference():
+    """int4 QTensor weights (plane-packed along C) with bf16 activations
+    (the ``w4`` variants); the reference contracts each nibble plane with
+    its half of x (mm1) or writes its half of the output (mm2)."""
+    _mm1_mm2_against_reference(13, 'int4')
+
+
+def _a8_chain_against_reference(kind, cases):
+    """quant_rows, csp_mlp_mm1_a8 and csp_mlp_mm2_a8 (plain versions)
+    against the reference's ``csp_mlp_fused(..., a8=True)`` in interpret
+    mode.  Integer products are exact on both sides and every scalar step
+    runs in the same order, so on tie-free inputs (seeded; checked below)
+    the act cache is bit-equal; x8/sx and d8/sd match the kernel's
+    formulas (csp_mlp.py:362-368, 413-419) applied to the reference's acts
+    bit for bit; the out cache is within one e4m3 ulp."""
+    for T, bm, bn, seed in cases:
+        x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed, T=T, bm=bm,
+                                                            bn=bn)
+        (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
+        out_j, act_j = j_csp_mlp_fused(
+            jnp.asarray(x), w1_j, jnp.asarray(b1), w2_j,
+            *map(jnp.asarray, (act, out, inds, counts)), bn=bn, bm=bm,
+            interpret=True, a8=True)
+        xt = to_torch(x)
+        x8, sx = quant_rows(xt)
+        _assert_no_fp8_ties(x8, sx, w1_t, b1, inds, counts, bn, bm)
+        d8, sd, act_t = csp_mlp_mm1_a8(
+            x8, sx, w1_t, to_torch(b1), w2_t.scale, to_torch(act),
+            *map(to_torch, (inds, counts)), bn=bn, bm=bm)
+        out_t = csp_mlp_mm2_a8(d8, sd, w2_t, to_torch(out),
+                               *map(to_torch, (inds, counts)), bn=bn, bm=bm)
+        # the reference's formulas, in jnp
+        xf = jnp.asarray(x).astype(jnp.float32)
+        sx_r = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True),
+                           1e-6) * (1.0 / 127.0)
+        x8_r = jnp.clip(jnp.round(xf / sx_r), -127, 127).astype(jnp.int8)
+        np.testing.assert_array_equal(sx.numpy(), np.asarray(sx_r)[:, 0])
+        np.testing.assert_array_equal(x8.numpy(), np.asarray(x8_r))
+        act_r = np.asarray(act_j, np.float32)
+        np.testing.assert_array_equal(act_t.float().numpy(), act_r)
+        M, jmax = inds.shape
+        T = x.shape[0]
+        cols = np.repeat((inds[..., None] * bn + np.arange(bn))
+                         .reshape(M, -1), bm, 0)            # [T, jmax*bn]
+        old = np.take_along_axis(np.asarray(act, np.float32), cols, 1)
+        new = np.take_along_axis(act_r, cols, 1)
+        w2s = np.asarray(w2_j.scale, np.float32)[:, 0][cols]
+        ds = jnp.asarray(new - old) * jnp.asarray(w2s)
+        ds = ds.reshape(T, jmax, bn)
+        sd_r = jnp.maximum(jnp.max(jnp.abs(ds), axis=-1, keepdims=True),
+                           1e-12) * (1.0 / 127.0)
+        d8_r = np.asarray(jnp.clip(jnp.round(ds / sd_r), -127, 127)
+                          .astype(jnp.int8))
+        live = np.repeat(np.arange(jmax) < counts[:, None], bm, 0)
+        np.testing.assert_array_equal(sd.numpy()[live],
+                                      np.asarray(sd_r)[..., 0][live])
+        np.testing.assert_array_equal(d8.numpy().reshape(T, jmax, bn)[live],
+                                      d8_r[live])
+        assert not d8.numpy().reshape(T, jmax, bn)[~live].any()
+        assert not sd.numpy()[~live].any()
+        _fp8_close(out_t, out_j)
+        # the wrapper runs the same chain
+        out_f, act_f = csp_mlp_fused(xt, w1_t, to_torch(b1), w2_t,
+                                     to_torch(act), to_torch(out),
+                                     *map(to_torch, (inds, counts)), bn=bn,
+                                     bm=bm, a8=True)
+        np.testing.assert_array_equal(raw(out_f), raw(out_t))
+        np.testing.assert_array_equal(raw(act_f), raw(act_t))
+
+
+def test_csp_mlp_a8_chain_matches_reference():
+    """int8 weights and int8 activations, bm = bn = 128 and bm = 256,
+    bn = 128 (T = 512)."""
+    _a8_chain_against_reference('int8', ((256, 128, 128, 10),
+                                         (512, 256, 128, 9)))
+
+
+def test_csp_mlp_a8w4_chain_matches_reference():
+    """int4 weights (plane-packed along C) and int8 activations; the
+    reference widens each nibble plane to int8 and sums the planes'
+    int32 products (exactly the product with the unpacked codes)."""
+    _a8_chain_against_reference('int4', ((256, 128, 128, A8W4_SEEDS[0]),
+                                         (512, 256, 128, A8W4_SEEDS[1])))
+
+
+A8W4_SEEDS = (11, 12)    # tie-free inputs for the int4 a8 chain
+
+
+def raw(t):
+    return t.view(torch.uint8).numpy()
+
+
+def _assert_no_fp8_ties(x8, sx, w1, b1, inds, counts, bn, bm):
+    """Tie-free inputs: no act of a selected block lies within 2^-22
+    (relative, two float32 ulps) of an e4m3 rounding boundary, where the
+    two sides' tanh, a float32 ulp apart, could round to different fp8
+    codes."""
+    M, jmax = inds.shape
+    rows = (inds[..., None] * bn + np.arange(bn)).reshape(M, -1)
+    prod = x8.numpy().reshape(M, bm, -1).astype(np.float64) @ \
+        _codes(w1).numpy()[rows].astype(np.float64).transpose(0, 2, 1)
+    s = sx.numpy().reshape(M, bm, 1) * w1.scale.numpy()[rows][:, None, :, 0]
+    g = torch.from_numpy((prod * s + np.asarray(b1, np.float32)[rows][
+        :, None, :]).astype(np.float32))
+    g = gelu_tanh(g)
+    lo, hi = fp8.to_fp8(g * (1 - 2.0 ** -22)), fp8.to_fp8(g * (1 + 2.0 ** -22))
+    live = torch.from_numpy(np.repeat(np.arange(jmax) < counts[:, None], bn,
+                                      1))[:, None, :].expand_as(g)
+    assert torch.equal(lo.view(torch.uint8)[live], hi.view(torch.uint8)[live]
+                       ), 'inputs at an fp8 rounding tie'
+
+
+def test_csp_mlp_refuses_what_the_reference_refuses():
+    """fp8 QTensor weights (both sides: ValueError), a8 with bf16 weights
+    (reference: assertion; port: ValueError), int4 weights packed along N
+    instead of C, one weight quantized and the other not, one int4 and
+    the other int8."""
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(11)
+    f1 = jq.quantize(jnp.asarray(np.asarray(w1t, np.float32)), 'fp8',
+                     keep_axes=(0,))
+    f2 = jq.quantize(jnp.asarray(np.asarray(w2, np.float32)), 'fp8',
+                     keep_axes=(0,))
+    jargs = (jnp.asarray(b1),)
+    with pytest.raises(ValueError, match='fp8'):
+        j_csp_mlp_fused(jnp.asarray(x), f1, *jargs, f2,
+                        *map(jnp.asarray, (act, out, inds, counts)),
+                        interpret=True)
+    with pytest.raises(AssertionError, match='a8'):
+        j_csp_mlp_fused(*map(jnp.asarray, (x, w1t, b1, w2, act, out, inds,
+                                           counts)), interpret=True, a8=True)
+    targs = [to_torch(a) for a in (x, w1t, b1, w2, act, out, inds, counts)]
+    t1 = QTensor(to_torch(f1.q), to_torch(f1.scale))
+    t2 = QTensor(to_torch(f2.q), to_torch(f2.scale))
+    for a8 in (False, True):
+        with pytest.raises(ValueError, match='fp8'):
+            csp_mlp_fused(targs[0], t1, targs[2], t2, *targs[4:], a8=a8)
+    with pytest.raises(ValueError, match='a8'):
+        csp_mlp_fused(*targs, a8=True)
+    q4n = QTensor(torch.zeros((256, 256), dtype=torch.uint8),
+                  torch.ones((512, 1)), -2)          # packed along N
+    with pytest.raises(ValueError, match='packed along C'):
+        csp_mlp_fused(targs[0], q4n, targs[2], q4n, *targs[4:], a8=True)
+    with pytest.raises(ValueError, match='both'):
+        csp_mlp_fused(targs[0], _qt(w1t)[1], *targs[2:])
+    with pytest.raises(ValueError, match='int4-pack both'):
+        csp_mlp_fused(targs[0], _qt(w1t, 'int4')[1], targs[2],
+                      _qt(w2)[1], *targs[4:])
+
+
+def test_int8_probe_plain_is_the_product():
+    """The probe's plain version is the exact product (int8 -> int32) or
+    the float32 product (bf16), as the reference's _pk computes."""
+    rng = np.random.default_rng(12)
+    a = rng.integers(-127, 128, (128, 192)).astype(np.int8)
+    b = rng.integers(-127, 128, (192, 256)).astype(np.int8)
+    got = int8_probe(torch.from_numpy(a), torch.from_numpy(b))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(),
+                                  a.astype(np.int64) @ b.astype(np.int64))
+    af, bf = (rng.standard_normal(s).astype(ml_dtypes.bfloat16)
+              for s in ((128, 64), (64, 128)))
+    got = int8_probe(to_torch(af), to_torch(bf))
+    np.testing.assert_allclose(got.numpy(), af.astype(np.float32)
+                               @ bf.astype(np.float32), rtol=1e-6, atol=1e-5)
+    with pytest.raises(ValueError):
+        int8_probe(torch.from_numpy(a), to_torch(bf))
 
 
 def test_fp8_rounding_matches_jax():

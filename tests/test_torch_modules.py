@@ -1,17 +1,25 @@
 """SparseDiffAttn / SparseDiffMlp of chipmunk_torch against chipmunk_tpu
 (Pallas kernels in interpret mode) over every step kind, on the same
 numpy inputs; the port is fed the Bernoulli keep mask that JAX drew."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from chipmunk_tpu.config import AttnConfig as JAttnConfig
 from chipmunk_tpu.config import MlpConfig as JMlpConfig
 from chipmunk_tpu.modules import SparseDiffAttn as JAttn
 from chipmunk_tpu.modules import SparseDiffMlp as JMlp
+from chipmunk_tpu.utils import quant as jq
 from chipmunk_torch.config import AttnConfig, MlpConfig
+from chipmunk_torch.kernels import csp_mlp_fused
 from chipmunk_torch.modules import SparseDiffAttn, SparseDiffMlp
+from chipmunk_torch.utils.quant import QTensor, quantize
+
+mlp_mod = importlib.import_module('chipmunk_torch.modules.mlp')
 
 # float32 on both sides: differences are summation order only
 TOL = dict(atol=2e-5, rtol=2e-5)
@@ -123,3 +131,122 @@ def test_sparse_mlp_matches_reference_over_step_kinds():
         np.asarray(jmod(jnp.asarray(x), *map(jnp.asarray, W), jst,
                         is_full=False, recompute_mask=False,
                         layer_is_dense=True)[0]), **TOL)
+
+
+def _qt(w, kind):
+    """The reference's int8 or int4 QTensor of an [N, C] weight and the
+    port's."""
+    qj = jq.quantize(jnp.asarray(w), kind, keep_axes=(0,),
+                     pack_axis=1 if kind == 'int4' else None)
+    return qj, QTensor(t(qj.q), t(qj.scale), qj.pack_axis)
+
+
+@pytest.mark.parametrize('kind', ['int8', 'int4'])
+@pytest.mark.parametrize('int8_act', [False, True])
+def test_sparse_mlp_quantized_weights_match_reference(int8_act, kind):
+    """int8 or int4 QTensor weights over every step kind: full steps and
+    the selection dequantize (the scale applied in x's dtype), sparse steps
+    take the ``wq``/``w4`` path or, with ``int8_act``, the int8-activation
+    path.
+    inds/counts are equal.  Without int8_act outputs and caches agree to
+    2e-5 (float32 on both sides, summation order only).  With it a
+    last-bit difference of a float32 cache left by the full step can move
+    one quantized delta d8 by one step, which moves that row's outputs by
+    sd * |w2q| (measured: largest difference 5.4e-4 on outputs of order
+    1, from step 1 on), so the bound is 1e-3 absolute + 2e-5 relative."""
+    T, C, N = 256, 128, 512
+    kw = dict(top_keys=0.5, random_keys=0.25, neuron_block=128, bm=128,
+              mbm=128, counts_multiple_of=128, max_selected_frac=1.0,
+              int8_act=int8_act)
+    jmod = JMlp.build(JMlpConfig(**kw), T, C, N, use_kernels=True,
+                      interpret=True)
+    tmod = SparseDiffMlp.build(MlpConfig(**kw), T, C, N)
+    rng = np.random.default_rng(2)
+    w1t = (rng.standard_normal((N, C)) * 0.1).astype(np.float32)
+    b1 = (rng.standard_normal(N) * 0.1).astype(np.float32)
+    w2 = (rng.standard_normal((N, C)) * 0.1).astype(np.float32)
+    b2 = (rng.standard_normal(C) * 0.1).astype(np.float32)
+    (q1j, q1t), (q2j, q2t) = _qt(w1t, kind), _qt(w2, kind)
+    JW = (q1j, jnp.asarray(b1), q2j, jnp.asarray(b2))
+    TW = (q1t, t(b1), q2t, t(b2))
+    tol = dict(atol=1e-3, rtol=2e-5) if int8_act else TOL
+    jst = jmod.init_state(jnp.float32)
+    tst = tmod.init_state(torch.float32, device='cpu')
+    x0 = rng.standard_normal((T, C)).astype(np.float32) * 0.5
+    M, nb = T // kw['bm'], N // kw['neuron_block']
+    w1d = np.asarray(jq.dequant(q1j, jnp.float32))
+    for step, (full, recompute) in enumerate([(True, False), (False, True),
+                                              (False, False), (False, True)]):
+        x = x0 + 0.1 * step * rng.standard_normal(x0.shape).astype(np.float32)
+        key = jax.random.PRNGKey(20 + step)
+        keep = np.asarray(jax.random.bernoulli(key, kw['random_keys'],
+                                               (M, nb)))
+        if recompute:
+            bmx = x.reshape(M, kw['bm'], C).mean(1)
+            mdiff = np.abs(bmx @ w1d.T + b1 - np.asarray(jst.bm_mid))
+            assert_tie_free(mdiff.reshape(M, nb, -1).sum(-1))
+        o_j, jst = jmod(jnp.asarray(x), *JW, jst, is_full=full,
+                        recompute_mask=recompute, layer_is_dense=False,
+                        key=key)
+        o_t, tst = tmod(t(x), *TW, tst, is_full=full,
+                        recompute_mask=recompute, layer_is_dense=False,
+                        keep_mask=t(keep))
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **tol)
+        np.testing.assert_array_equal(tst.inds.numpy(), np.asarray(jst.inds))
+        np.testing.assert_array_equal(tst.counts.numpy(),
+                                      np.asarray(jst.counts))
+        for name in ('out_cache', 'act_cache', 'bm_mid'):
+            np.testing.assert_allclose(getattr(tst, name).numpy(),
+                                       np.asarray(getattr(jst, name)), **tol)
+    np.testing.assert_allclose(
+        tmod(t(x), *TW, tst, is_full=False, recompute_mask=False,
+             layer_is_dense=True)[0].numpy(),
+        np.asarray(jmod(jnp.asarray(x), *JW, jst, is_full=False,
+                        recompute_mask=False, layer_is_dense=True)[0]), **TOL)
+
+
+def test_int8_act_is_decided_per_call_from_the_weights(capsys):
+    """As the reference (modules/mlp.py:165-182): with tensor weights the
+    module says int8_act is ignored and runs the bf16 path; with int8 or
+    int4 QTensors it runs the int8-activation chain; with fp8 QTensors it
+    says int8_act is ignored and hands them on, where the kernels refuse
+    them."""
+    T, C, N = 256, 128, 512
+    kw = dict(top_keys=0.5, random_keys=0.0, neuron_block=128, bm=128,
+              mbm=128, counts_multiple_of=128, max_selected_frac=1.0)
+    on = SparseDiffMlp.build(MlpConfig(**kw, int8_act=True), T, C, N)
+    off = SparseDiffMlp.build(MlpConfig(**kw, int8_act=False), T, C, N)
+    rng = np.random.default_rng(3)
+    x = t(rng.standard_normal((T, C)).astype(np.float32))
+    w1t, w2 = (t(rng.standard_normal((N, C)).astype(np.float32) * 0.1)
+               for _ in range(2))
+    b1 = t(rng.standard_normal(N).astype(np.float32) * 0.1)
+    q1, q2 = (quantize(w, 'int8', keep_axes=(0,)) for w in (w1t, w2))
+    st = off.init_state(torch.float32, device='cpu')._replace(
+        inds=torch.tensor([[0, 2], [1, 3]], dtype=torch.int32),
+        counts=torch.tensor([2, 1], dtype=torch.int32))
+
+    def sparse(mod, a, b):
+        return mod.sparse_step(x, a, b1, b, st._replace(
+            out_cache=st.out_cache.clone(), act_cache=st.act_cache.clone()),
+            recompute=False)[0]
+
+    mlp_mod._SAID.clear()
+    assert torch.equal(sparse(on, w1t, w2), sparse(off, w1t, w2))
+    assert 'mlp.int8_act ignored - MLP weights are Tensor' in \
+        capsys.readouterr().out
+    q4a, q4b = (quantize(w, 'int4', keep_axes=(0,), pack_axis=1)
+                for w in (w1t, w2))
+    for a, b in ((q1, q2), (q4a, q4b)):
+        got = sparse(on, a, b)
+        assert capsys.readouterr().out == ''
+        out, _ = csp_mlp_fused(x, a, b1, b, st.act_cache.clone(),
+                               st.out_cache.clone(), st.inds, st.counts,
+                               bn=128, bm=128, a8=True)
+        assert torch.equal(got, out)
+        assert not torch.equal(got, sparse(off, a, b))
+    f1, f2 = (quantize(w, 'fp8', keep_axes=(0,)) for w in (w1t, w2))
+    with pytest.raises(ValueError, match='fp8'):
+        sparse(on, f1, f2)
+    assert 'int8_act ignored - MLP weights are QTensor' in \
+        capsys.readouterr().out

@@ -44,6 +44,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert r.stdout.strip() == f'ok {len(MODULES)}'
     assert 'chipmunk_torch.kernels.csp_mlp' in MODULES
     assert 'chipmunk_torch.models.sampling' in MODULES
+    assert 'chipmunk_torch.utils.quant' in MODULES
+    assert 'chipmunk_torch.kernels.int8_probe' in MODULES
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -60,6 +62,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     from chipmunk_torch.models import (FluxModelConfig, FluxSampler,
                                        FluxSparse, init_flux_params,
                                        params_from_jax)
+    from chipmunk_torch.utils.quant import synth_quantized_flux_params
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     tiny = FluxModelConfig(hidden_size=128, num_heads=2, depth=1,
                            depth_single_blocks=1, txt_len=128,
@@ -74,6 +77,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
                  lambda: params_from_jax({}),
                  lambda: FluxSampler(cfg=tiny, ck=ck, sp=sp, h_img=16,
                                      w_img=24),
+                 lambda: synth_quantized_flux_params(0, tiny),
                  lambda: resolve_device()):
         with pytest.raises(RuntimeError, match='CUDA'):
             call()
