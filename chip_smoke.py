@@ -24,7 +24,18 @@
    caching off) on the same weights.  A small full-width model is also run
    through each loop on the card and, with the plain versions, on the
    CPU, and the two must agree.
-4. Prints the card line, one JSON line with the kernels' numbers, and as
+4. The HunyuanVideo slice: the csp kernels and the dense kernels at the
+   video shapes (544x960x129 frames: 67,584 tokens, keys cut at 67,576,
+   the 384-row dense tail, PAD_LSE rows; and 720p, 119,168 tokens, where
+   a head's K+V exceeds the L2), each against its plain version on a
+   slice; then the main path ``hunyuan_denoise`` over the 50-step
+   schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
+   the full-width model cut to 2 double + 4 single blocks, random bf16
+   weights from a seed, with its launch counts, a trace of a window of
+   sparse steps and its dense loop; and a small full-width video model on
+   the card (csp mode 'auto' and 'hbm') against the plain versions on the
+   CPU.
+5. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
@@ -47,8 +58,8 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
 OUR_KERNELS = ('dense_attn_kernel', 'dense_colsum_attn_kernel',
-               'csp_attn_kernel', 'csp_mlp_mm1', 'csp_mlp_mm2',
-               'quant_rows_kernel')
+               'csp_attn_kernel', 'csp_hbm_attn_kernel', 'csp_mlp_mm1',
+               'csp_mlp_mm2', 'quant_rows_kernel')
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -59,6 +70,18 @@ GEMM_NAMES = ('nvjet', 'gemm', 'cutlass', 'xmma', 'gemv')
 B, H, S, D = 1, 24, 4352, 128          # FLUX.1-dev at 1280x768
 H_IMG, W_IMG = 48, 80                  # latent patch grid: 3840 img tokens
 T_SINGLE, C, N = 4608, 3072, 12288     # single-block MLP tokens (padded to bm)
+# HunyuanVideo: latent (t, h, w) of 544x960 and 720x1280 at 129 frames,
+# depth cut to 2 double + 4 single blocks (scripts/bench_hunyuan.py)
+V540 = dict(latent_t=33, latent_h=68, latent_w=120)
+V720 = dict(latent_t=33, latent_h=90, latent_w=160)
+V_DEPTH = dict(depth_double=2, depth_single=4)
+LIB_HEADS = 4     # heads of the 540p scaled_dot_product_attention yardstick
+VIDEO_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn_hbm')
+# the schedule's count: 25 computed steps; step 0 runs 6 dense layers;
+# steps 1, 10, 40 run 2 dense + 4 colsum (+ 4 csp); the 21 sparse steps
+# run 2 dense layers, 4 csp and 4 dense tails
+VIDEO_LAUNCHES = {'dense_attn': 138, 'dense_colsum_attn': 12,
+                  'csp_attn_hbm': 96}
 
 
 def fail(msg):
@@ -189,6 +212,7 @@ def kernel_phases(torch, mods):
     bnd, by = bound_ms(4.0 * 128 * 128 * D * counts.sum().item(),
                        kv_bytes + 2 * B * H * S * D * 2
                        + inds.numel() * 4 + counts.numel() * 4)
+    mask = block_mask(torch, pinds, counts, 128, nb)
     rows.append(dict(
         name='csp_attn', source='chipmunk_torch/csrc/csp_attention.cu',
         replaces='chipmunk_tpu/kernels/csp_attention.py:102',
@@ -196,8 +220,11 @@ def kernel_phases(torch, mods):
         ms=time_ms(torch, lambda: ca.csp_attn(q, k, v, inds, counts), 20),
         plain_ms=time_ms(torch, lambda: ca.csp_attn_plain(
             q, k, v, pinds, counts), 3),
-        bound_ms=bnd, bound_by=by, library_ms=None))
-    del q, k, v, o, o_p, cs, cs_p
+        bound_ms=bnd, bound_by=by,
+        library_ms=time_ms(torch, lambda: torch.nn.functional
+                           .scaled_dot_product_attention(
+                               q, k, v, attn_mask=mask), 5)))
+    del q, k, v, o, o_p, cs, cs_p, mask
 
     # ---- csp_mlp_mm1 / csp_mlp_mm2 at the single-block MLP shape:
     # bm = 512, bn = 256, jmax = 22, counts 1 .. jmax (mostly ~15)
@@ -278,6 +305,211 @@ def kernel_phases(torch, mods):
         bound_ms=bnd, bound_by=by, library_ms=None))
     print_rows(rows)
     return rows
+
+
+def block_mask(torch, pinds, counts, kv_block, nb, kv_valid=None):
+    """bool [B,H,Sq,Sk]: true where a query's group selected the key's
+    block (and the key lies before kv_valid): the mask with which one
+    scaled_dot_product_attention call computes csp_attn's function."""
+    from chipmunk_torch.ops.attn_ref import gather_mask_from_indices
+    m = gather_mask_from_indices(pinds, counts, nb)
+    m = m.repeat_interleave(128, 2).repeat_interleave(kv_block, 3)
+    if kv_valid is not None:
+        m[..., kv_valid:] = False
+    return m
+
+
+def csp_bound(torch, pinds, counts, q, kv_block=128):
+    """(bound ms, by) of a csp call: 4*128*kv_block*D FLOP per selected
+    (group, block); bytes: q and o once, each block some group of its
+    head selected once (K and V), the index lists."""
+    B, H, Sq, D = q.shape
+    nb = int(pinds.max().item()) + 1
+    sel = torch.zeros((B, H, nb), dtype=torch.bool, device=q.device)
+    sel.scatter_(-1, pinds.long().reshape(B, H, -1), True)
+    nbytes = (int(sel.sum().item()) * kv_block * D * 2 * 2
+              + 2 * B * H * Sq * D * 2 + pinds.numel() * 4
+              + counts.numel() * 4)
+    return bound_ms(4.0 * 128 * kv_block * D * counts.sum().item(), nbytes)
+
+
+def video_selection(torch, mod, H, gen):
+    """The main path's selection (SparseDiffAttn._select_mask and
+    _mask_to_inds: top-k, random keep, static text blocks, dense tail)
+    over random column sums: padded block ids and counts [1,H,G,jmax]."""
+    from chipmunk_torch.kernels.csp_attention import pad_block_indices
+    G, nb = mod.seq_len // 128, mod.seq_len // mod.cfg.kv_block
+    cs = torch.rand((1, H, G, nb), generator=gen, device='cuda')
+    inds, counts = mod._mask_to_inds(mod._select_mask(cs, generator=gen))
+    return pad_block_indices(inds, counts).to(torch.int32), counts
+
+
+def video_kernel_phases(torch, mods, tm, ck):
+    """The kernels of the video path at its shapes, against their plain
+    versions on slices (a full-shape plain version would need tens of GB):
+      540p (67,584 tokens, valid 67,576, jmax 44, selection as the main
+        path makes it from random column sums): csp_attn_hbm on all 24
+        heads, held against csp_attn_hbm_plain on head 0; dense_attn with
+        the cut keys (rows 0-127 and the last 256, pad rows included), the
+        384-row dense tail as a view of q, dense_colsum_attn with PAD_LSE
+        on the pad rows (groups 0-1 and the tail groups), each to the
+        tolerances of kernel_phases; csp_attn (the 'vmem' kernel) on the
+        same inputs, and the pack;
+      720p (119,168 tokens, valid 119,056, jmax 77): csp_attn_hbm against
+        the 'vmem' kernel on all heads and against the plain version on
+        head 0, groups 0-511; times of csp_attn_hbm, the pack, csp_attn
+        and dense_attn.
+    library_ms of the csp_attn_hbm row: scaled_dot_product_attention with
+    the boolean block mask on LIB_HEADS heads (a [67584, 67584] mask is
+    4.6 GB per head, and the call makes a bf16 bias of it, 9.1 GB; all 24
+    heads would not fit); plain_ms on head 0."""
+    fa, ca = mods[0], mods[1]
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 3)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda').to(
+            torch.bfloat16)
+
+    out = {}
+    # ------------------------------------------------------------- 540p
+    m540 = tm.HunyuanModel(cfg=tm.HunyuanModelConfig(**V540, **V_DEPTH),
+                           ck=ck)
+    mod = m540.sp.attn_s
+    S, n, jmax = mod.seq_len, mod.valid_len, mod.jmax
+    t0, nb = mod.dense_tail_g * 128, S // 128
+    q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
+    pinds, counts = video_selection(torch, mod, H, gen)
+    mode = ca.auto_mode(S, S, D, jmax, 128, 2)
+    print(f'video 540p: seq {S} (valid {n}), jmax {jmax}, dense tail from '
+          f'row {t0}, auto csp mode {mode!r}, selected blocks per group '
+          f'mean {counts.float().mean().item():.2f} max '
+          f'{counts.max().item()}', flush=True)
+    if (S, n, jmax, t0, mode) != (67584, 67576, 44, 67200, 'hbm'):
+        fail(f'540p shape is not the expected one: {(S, n, jmax, t0, mode)}')
+    kv = ca.pack_kv(k, v, 128)
+    o = ca.csp_attn_hbm(q, kv, pinds, counts, kv_valid=n)
+    torch.cuda.synchronize()
+    o_p = ca.csp_attn_hbm_plain(q[:, :1], kv[:1], pinds[:, :1],
+                                counts[:, :1], kv_valid=n)
+    err = check_close('csp_attn_hbm o (540p, head 0)', o[:, :1], o_p, 4e-3,
+                      2 ** -6)
+    del o_p
+    o_v = ca.csp_attn(q, k, v, pinds, counts, kv_valid=n, mode='vmem')
+    torch.cuda.synchronize()
+    check_close('csp_attn_hbm vs csp_attn (540p)', o, o_v, 4e-3, 2 ** -6)
+    del o_v
+    bnd, by = csp_bound(torch, pinds, counts, q)
+    plain_ms = time_ms(torch, lambda: ca.csp_attn_hbm_plain(
+        q[:, :1], kv[:1], pinds[:, :1], counts[:, :1], kv_valid=n), 1)
+    torch.cuda.empty_cache()
+    mask = block_mask(torch, pinds[:, :LIB_HEADS], counts[:, :LIB_HEADS],
+                      128, nb, n)
+    q1, k1, v1 = (x[:, :LIB_HEADS] for x in (q, k, v))
+    lib_ms = time_ms(torch, lambda: torch.nn.functional
+                     .scaled_dot_product_attention(q1, k1, v1,
+                                                   attn_mask=mask), 3)
+    del mask, q1, k1, v1
+    torch.cuda.empty_cache()
+    row = dict(name='csp_attn_hbm',
+               source='chipmunk_torch/csrc/csp_hbm_attention.cu',
+               replaces='chipmunk_tpu/kernels/csp_attention.py:193',
+               max_abs_err=err,
+               ms=time_ms(torch, lambda: ca.csp_attn_hbm(
+                   q, kv, pinds, counts, kv_valid=n), 10),
+               plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
+               library_ms=lib_ms, plain_scope='head 0 of 24',
+               library_scope=f'heads 0-{LIB_HEADS - 1} of 24')
+    out['540 pack_kv ms'] = time_ms(torch, lambda: ca.pack_kv(k, v, 128), 10)
+    out['540 csp_attn (vmem kernel) ms'] = time_ms(
+        torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
+                                   mode='vmem'), 10)
+    del kv
+
+    kc, vc = k[..., :n, :], v[..., :n, :]      # views: no copy
+    od, lse = fa.dense_attn(q, kc, vc)
+    torch.cuda.synchronize()
+    for r in (slice(0, 128), slice(S - 256, S)):
+        o_p, lse_p = fa.dense_attn_plain(q[..., r, :], kc, vc)
+        err_d = check_close('dense_attn o (540p)', od[..., r, :], o_p, 4e-3,
+                            2 ** -6)
+        check_close('dense_attn lse (540p)', lse[..., r], lse_p, 1e-3, 0.0)
+    ot, _ = fa.dense_attn(q[..., t0:, :], kc, vc)
+    torch.cuda.synchronize()
+    if not torch.equal(ot, od[..., t0:, :]):
+        fail('dense_attn: the 384-row tail differs from the same rows of '
+             'the full call')
+    o_p, _ = fa.dense_attn_plain(q[..., t0:, :], kc, vc)
+    check_close('dense_attn tail o (540p)', ot, o_p, 4e-3, 2 ** -6)
+    out['540 dense_attn max_abs_err'] = err_d
+    out['540 dense_attn ms'] = time_ms(torch, lambda: fa.dense_attn(
+        q, kc, vc), 3)
+    out['540 dense_attn bound ms'] = bound_ms(4.0 * B * H * S * n * D,
+                                              B * H * (2 * S + 2 * n) * D
+                                              * 2)[0]
+    out['540 dense tail (384 rows) ms'] = time_ms(
+        torch, lambda: fa.dense_attn(q[..., t0:, :], kc, vc), 10)
+    from chipmunk_torch.ops.attn_ref import PAD_LSE
+    prev = lse.clone()
+    prev[..., n:] = PAD_LSE
+    oc, cs, lc = fa.dense_colsum_attn(q, kc, vc, prev)
+    torch.cuda.synchronize()
+    for r in (slice(0, 256), slice(t0, S)):
+        o_p, cs_p, lse_p = fa.dense_colsum_attn_plain(q[..., r, :], kc, vc,
+                                                      prev[..., r])
+        check_close('dense_colsum_attn o (540p)', oc[..., r, :], o_p, 4e-3,
+                    2 ** -6)
+        check_close('dense_colsum_attn lse (540p)', lc[..., r], lse_p, 1e-3,
+                    0.0)
+        check_close('dense_colsum_attn colsums (540p)',
+                    cs[:, :, r.start // 128:r.stop // 128], cs_p, 1e-4, 1e-3)
+    out['540 dense_colsum_attn ms'] = time_ms(
+        torch, lambda: fa.dense_colsum_attn(q, kc, vc, prev), 3)
+    del q, k, v, kc, vc, o, od, ot, o_p, oc, cs, lc, lse, prev, m540
+    torch.cuda.empty_cache()
+
+    # ------------------------------------------------------------- 720p
+    m720 = tm.HunyuanModel(cfg=tm.HunyuanModelConfig(**V720, **V_DEPTH),
+                           ck=ck)
+    mod = m720.sp.attn_s
+    S, n, jmax = mod.seq_len, mod.valid_len, mod.jmax
+    print(f'video 720p: seq {S} (valid {n}), jmax {jmax}', flush=True)
+    if (S, n, jmax) != (119168, 119056, 77):
+        fail(f'720p shape is not the expected one: {(S, n, jmax)}')
+    q, k, v = randn(B, H, S, D), randn(B, H, S, D), randn(B, H, S, D)
+    pinds, counts = video_selection(torch, mod, H, gen)
+    kv = ca.pack_kv(k, v, 128)
+    o = ca.csp_attn_hbm(q, kv, pinds, counts, kv_valid=n)
+    o_v = ca.csp_attn(q, k, v, pinds, counts, kv_valid=n, mode='vmem')
+    torch.cuda.synchronize()
+    check_close('csp_attn_hbm vs csp_attn (720p)', o, o_v, 4e-3, 2 ** -6)
+    del o_v
+    R = 512 * 128
+    o_p = ca.csp_attn_hbm_plain(q[:, :1, :R], kv[:1], pinds[:, :1, :512],
+                                counts[:, :1, :512], kv_valid=n)
+    out['720 csp_attn_hbm max_abs_err (head 0, groups 0-511)'] = \
+        check_close('csp_attn_hbm o (720p)', o[:, :1, :R], o_p, 4e-3,
+                    2 ** -6)
+    del o_p
+    out['720 csp_attn_hbm bound ms'] = csp_bound(torch, pinds, counts, q)[0]
+    out['720 csp_attn_hbm ms'] = time_ms(torch, lambda: ca.csp_attn_hbm(
+        q, kv, pinds, counts, kv_valid=n), 5)
+    out['720 pack_kv ms'] = time_ms(torch, lambda: ca.pack_kv(k, v, 128), 5)
+    out['720 csp_attn (vmem kernel) ms'] = time_ms(
+        torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
+                                   mode='vmem'), 5)
+    del kv
+    out['720 dense_attn ms'] = time_ms(torch, lambda: fa.dense_attn(
+        q, k[..., :n, :], v[..., :n, :]), 2)
+    out['720 dense_attn bound ms'] = bound_ms(4.0 * B * H * S * n * D,
+                                              B * H * (2 * S + 2 * n) * D
+                                              * 2)[0]
+    del q, k, v, o, m720
+    torch.cuda.empty_cache()
+    for key, val in out.items():
+        print(f'video kernels: {key} {val:.4f}', flush=True)
+    print_rows([row])
+    return row, out
 
 
 def print_rows(rows):
@@ -548,22 +780,20 @@ def window_marks(torch, marks, then=None):
     return step_done
 
 
-def trace_sparse_steps(torch, tm, ck, model, plain_window_ms, tag,
-                       params=None):
-    """torch.profiler over steps 2-9 of the sparse loop (seven computed
-    sparse steps, one skipped): device time by kernel group, and the
-    device-busy share of the same window timed without the profiler
-    (plain_window_ms).  Device time is the sum of CUDA kernel durations;
-    one stream, so kernels do not overlap."""
+def trace_sparse_steps(torch, run, plain_window_ms, tag):
+    """torch.profiler over steps 2-9 of a sparse loop (seven computed
+    sparse steps, one skipped, on both schedules): device time by kernel
+    group, and the device-busy share of the same window timed without the
+    profiler (plain_window_ms).  ``run(callback)`` runs the loop (at least
+    its first ten steps).  Device time is the sum of CUDA kernel
+    durations; one stream, so kernels do not overlap."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, schedule
     marks = {}
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=8)) as prof:
-        run_loop(torch, tm, ck, model, H_IMG, W_IMG, 'cuda',
-                 callback=window_marks(torch, marks, lambda: prof.step()),
-                 params=params)
+        run(window_marks(torch, marks, lambda: prof.step()))
     wall_ms = (marks[9] - marks[1]) * 1e3
     groups, names = {}, {}
     for e in prof.key_averages():
@@ -618,8 +848,10 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None):
         fail(f'{tag}: kernels of another path launched: {extra}')
     del out
     torch.cuda.empty_cache()
-    trace_sparse_steps(torch, tm, ck, model, (marks[9] - marks[1]) * 1e3,
-                       tag, params)
+    trace_sparse_steps(
+        torch, lambda cb: run_loop(torch, tm, ck, model, H_IMG, W_IMG,
+                                   'cuda', callback=cb, params=params),
+        (marks[9] - marks[1]) * 1e3, tag)
     torch.cuda.empty_cache()
     dense_ck = ck.replace(
         attn=dataclasses.replace(ck.attn, is_enabled=False),
@@ -664,6 +896,164 @@ def agree_small(torch, tm, kern, ck, model, tag, expect, params_cpu=None):
         fail(f'{tag} small run: kernels not launched: {missing}')
 
 
+def run_video(torch, tm, model, params, inputs, steps=None, callback=None):
+    """One hunyuan_denoise over the config's schedule (unshifted, as the
+    reference's video bench), the first ``steps`` steps only if given,
+    guidance 6.0, random keeps from a seeded generator on the model's
+    device.  Returns (latent, seconds)."""
+    dev = model.device
+    ts = tm.get_schedule(model.ck.steps, model.cfg.img_len, shift=False)
+    if steps is not None:
+        ts = ts[:steps + 1]
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tm.hunyuan_denoise(model, params, *inputs, ts, guidance=6.0,
+                             generator=gen, callback=callback)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def video_inputs(torch, cfg, device):
+    """Latent noise, random text states [1,256,4096] and pooled text
+    [1,768] (as scripts/bench_hunyuan.py:100-106 draws them), bf16, from
+    a seeded generator on ``device``."""
+    gen = torch.Generator(device)
+    gen.manual_seed(SEED + 4)
+    shapes = ((1, cfg.in_channels, cfg.latent_t, cfg.latent_h, cfg.latent_w),
+              (1, cfg.txt_len, cfg.text_dim), (1, cfg.vec_in_dim))
+    return tuple(torch.randn(sh, generator=gen, device=device).to(cfg.dtype)
+                 for sh in shapes)
+
+
+def dense_config(ck):
+    return ck.replace(
+        attn=dataclasses.replace(ck.attn, is_enabled=False),
+        mlp=dataclasses.replace(ck.mlp, is_enabled=False),
+        step_caching=dataclasses.replace(ck.step_caching, is_enabled=False))
+
+
+def drive_video_path(torch, kern, tm, ck):
+    """The video main path: hunyuan_denoise at 544x960x129 frames (67,584
+    tokens), full width, 2 double + 4 single blocks, random bf16 weights
+    from a seed, the shipped config unchanged: launch counts set to 0 just
+    before and read just after (each must equal the schedule's count,
+    VIDEO_LAUNCHES, and no other kernel may run), output finite and of
+    the latent's shape; a trace of steps 2-9; the dense loop on the same
+    weights.  Returns (launches, sparse s, dense s)."""
+    cfg = tm.HunyuanModelConfig(**V540, **V_DEPTH)
+    t0 = time.perf_counter()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED)
+    params = tm.init_hunyuan_params(gen, cfg, 'cuda')
+    inputs = video_inputs(torch, cfg, 'cuda')
+    model = tm.HunyuanModel(cfg=cfg, ck=ck)
+    a = model.sp.attn_s
+    print(f'video model: latent {tuple(inputs[0].shape)}, {cfg.img_len} '
+          f'image + {cfg.txt_len} text + {cfg.seq_pad} pad = '
+          f'{model.seq_padded} tokens, depth {cfg.depth_double}+'
+          f'{cfg.depth_single}, jmax {a.jmax}, dense tail from group '
+          f'{a.dense_tail_g}, materialize_indices '
+          f'{model.ck.attn.materialize_indices}; weights and model built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    kern.reset_launches()
+    marks = {}
+    out, sparse_s = run_video(torch, tm, model, params, inputs,
+                              callback=window_marks(torch, marks))
+    launches = dict(kern.LAUNCHES)
+    print(f'video sparse loop: {ck.steps} steps, {sparse_s:.3f} s',
+          flush=True)
+    print(json.dumps({'path': 'video', 'launches': launches}), flush=True)
+    if out.shape != inputs[0].shape:
+        fail(f'video: output shape {tuple(out.shape)}')
+    if not bool(torch.isfinite(out).all()):
+        fail('video: non-finite values in the sparse loop output')
+    missing = [k for k in VIDEO_PATH if launches[k] == 0]
+    if missing:
+        fail(f'video: kernels not launched on the main path: {missing}')
+    wrong = {k: n for k, n in launches.items()
+             if n != VIDEO_LAUNCHES.get(k, 0)}
+    if wrong:
+        fail(f'video: launches differ from the schedule\'s count '
+             f'{VIDEO_LAUNCHES}: {wrong}')
+    del out
+    torch.cuda.empty_cache()
+    trace_sparse_steps(
+        torch, lambda cb: run_video(torch, tm, model, params, inputs,
+                                    steps=10, callback=cb),
+        (marks[9] - marks[1]) * 1e3, 'video')
+    torch.cuda.empty_cache()
+    dmodel = tm.HunyuanModel(cfg=cfg, ck=dense_config(ck))
+    kern.reset_launches()
+    out_d, dense_s = run_video(torch, tm, dmodel, params, inputs)
+    if not bool(torch.isfinite(out_d).all()):
+        fail('video: non-finite values in the dense loop output')
+    if kern.LAUNCHES['dense_attn'] != 6 * ck.steps:
+        fail(f'video dense loop: {kern.LAUNCHES["dense_attn"]} dense_attn '
+             f'launches, expected {6 * ck.steps}')
+    print(f'video dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
+          f'{sparse_s:.3f} s; sparse speedup {dense_s / sparse_s:.3f}x',
+          flush=True)
+    del out_d, params
+    torch.cuda.empty_cache()
+    return launches, sparse_s, dense_s
+
+
+def agree_small_video(torch, tm, kern, ck):
+    """A small full-width video model (depth 1+2, latent (5, 16, 30): 600
+    image + 256 text + 40 pad tokens, voxel tails on t and w) for 4 steps
+    (first, colsum, two sparse), random_keys 0: the same weights (drawn on
+    the CPU) through the kernels on the card, once with csp mode 'auto'
+    (the 'vmem' kernel at this size) and once 'hbm', each against the
+    plain versions on the CPU.  Mean relative difference <= 2e-2 (bf16
+    model) and the mode's csp kernel must have launched."""
+    from chipmunk_torch.config import config_from_dict
+    small_ck = config_from_dict({
+        'steps': 4,
+        'attn': {'full_step_schedule': [0, 1], 'first_n_dense_layers': 1,
+                 'top_keys': 0.3, 'random_keys': 0.0,
+                 'dense_fallback_frac': 1.0},
+        'step_caching': {'is_enabled': False}}, ck)
+    cfg = tm.HunyuanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                                depth_double=1, depth_single=2)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params_cpu = tm.init_hunyuan_params(gen, cfg, 'cpu')
+    inputs = video_inputs(torch, cfg, 'cpu')
+    cpu_model = tm.HunyuanModel(cfg=cfg, ck=small_ck, device='cpu')
+    cpu_out, cpu_s = run_video(torch, tm, cpu_model, params_cpu, inputs)
+
+    def move(t):
+        return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
+                else [move(v) for v in t] if isinstance(t, list)
+                else t.to('cuda'))
+
+    params = move(params_cpu)
+    for mode, csp in (('auto', 'csp_attn'), ('hbm', 'csp_attn_hbm')):
+        model = tm.HunyuanModel(cfg=cfg, ck=small_ck, csp_mode=mode)
+        kern.reset_launches()
+        out, _ = run_video(torch, tm, model, params,
+                           tuple(x.to('cuda') for x in inputs))
+        launches = {k: n for k, n in kern.LAUNCHES.items() if n}
+        rel = ((out.cpu() - cpu_out).abs().mean()
+               / cpu_out.abs().mean()).item()
+        print(f'video small-input agreement, csp mode {mode!r} (card '
+              f'kernels vs CPU plain versions): mean relative difference '
+              f'{rel:.3e}, launches {launches}, CPU run {cpu_s:.1f} s',
+              flush=True)
+        if not math.isfinite(rel) or rel > 2e-2:
+            fail(f'video small-input output (csp mode {mode!r}) differs '
+                 f'from the plain versions: {rel}')
+        missing = [k for k in ('dense_attn', 'dense_colsum_attn', csp)
+                   if not launches.get(k)]
+        if missing:
+            fail(f'video small run (csp mode {mode!r}): kernels not '
+                 f'launched: {missing}')
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -703,6 +1093,9 @@ def main():
     prows = probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
     torch.cuda.empty_cache()
+    vck = cfgmod.load_config(os.path.join(ROOT, 'configs',
+                                          'hunyuan-chipmunk.yml'))
+    vrow, _ = video_kernel_phases(torch, mods, tm, vck)
 
     # ---- the main paths: FLUX.1-dev sparse denoise loop, 50 steps, the
     # shipped config unchanged (mlp.int8_act: true); with bf16 weights the
@@ -738,6 +1131,18 @@ def main():
     del qparams
     torch.cuda.empty_cache()
 
+    # ---- the video path: HunyuanVideo 540p, configs/hunyuan-chipmunk.yml
+    # unchanged (compressed indices, packed-only states as its offloading
+    # block decides, top_keys 0.05, random_keys 0.01)
+    print(f'config: configs/hunyuan-chipmunk.yml unchanged (attn.top_keys='
+          f'{vck.attn.top_keys}, random_keys={vck.attn.random_keys}, '
+          f'should_compress_indices='
+          f'{str(vck.attn.should_compress_indices).lower()}, '
+          f'first_n_dense_layers={vck.attn.first_n_dense_layers}, mlp '
+          f'{"on" if vck.mlp.is_enabled else "off"})', flush=True)
+    vlaunches, v_sparse_s, v_dense_s = drive_video_path(torch, kern, tm, vck)
+    agree_small_video(torch, tm, kern, vck)
+
     # ---- agreement on small inputs, each path
     small_ck = cfgmod.config_from_dict(
         {'steps': 4,
@@ -772,11 +1177,15 @@ def main():
     for r in qrows + prows:             # this slice's path (wq, probe: 0)
         r['route'] = 'cuda'
         r['launches'] = qlaunches[r['name']]
-    rows += qrows + prows
+    vrow['route'] = 'cuda'
+    vrow['launches'] = vlaunches[vrow['name']]
+    rows += qrows + prows + [vrow]
     keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms')
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'plain_scope', 'library_scope')
     print(smi)
-    print(json.dumps({'kernels': [{k: r[k] for k in keys} for r in rows]}))
+    print(json.dumps({'kernels': [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}))
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

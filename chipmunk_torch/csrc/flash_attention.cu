@@ -11,6 +11,11 @@
 // the tensor cores, not the 3.35 TB/s of HBM, set the floor (~0.24 ms at
 // 989 TFLOP/s).
 //
+// q, k and v are read at a head stride of their own (q_hs, kv_hs
+// elements), so a slice along S of a larger tensor -- the keys cut at a
+// model's valid length, the query rows of a dense tail -- needs no copy;
+// o and lse are fresh and contiguous.
+//
 // Design: the TPU kernel walks KV blocks as a sequential grid axis with
 // (m, l, acc) in VMEM scratch; here that axis is a loop inside the block,
 // and the state lives in registers of the warp that owns the rows
@@ -39,14 +44,14 @@ dense_attn_kernel(const __nv_bfloat16* __restrict__ q,
                   const __nv_bfloat16* __restrict__ k,
                   const __nv_bfloat16* __restrict__ v,
                   __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
-                  int Sq, int Sk, float tau) {
+                  int Sq, int Sk, int q_hs, int kv_hs, float tau) {
   extern __shared__ __align__(16) unsigned char smem[];
   KVStage<KT>* ring = reinterpret_cast<KVStage<KT>*>(smem);
   const int bh = blockIdx.y, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * NW * 16 + warp * 16;
-  q += (size_t)bh * Sq * HD;
-  k += (size_t)bh * Sk * HD;
-  v += (size_t)bh * Sk * HD;
+  q += (size_t)bh * q_hs;
+  k += (size_t)bh * kv_hs;
+  v += (size_t)bh * kv_hs;
   WarpRows w;
   init_rows(w, q, row0, Sq);
   attend<KT, NW * 32>(w, ring, k, v, Sk, (Sk + KT - 1) / KT,
@@ -64,7 +69,8 @@ dense_colsum_attn_kernel(const __nv_bfloat16* __restrict__ q,
                          const float* __restrict__ prev_lse,
                          __nv_bfloat16* __restrict__ o,
                          float* __restrict__ lse, float* __restrict__ cs,
-                         int Sq, int Sk, int score_block, float tau) {
+                         int Sq, int Sk, int q_hs, int kv_hs, int score_block,
+                         float tau) {
   constexpr int NW = 8;
   extern __shared__ __align__(16) unsigned char smem[];
   KVStage<KT>* ring = reinterpret_cast<KVStage<KT>*>(smem);
@@ -73,9 +79,9 @@ dense_colsum_attn_kernel(const __nv_bfloat16* __restrict__ q,
   const int lane = threadIdx.x & 31, g = lane >> 2;
   const int G = gridDim.x, nb = (Sk + score_block - 1) / score_block;
   const int row0 = grp * NW * 16 + warp * 16;
-  q += (size_t)bh * Sq * HD;
-  k += (size_t)bh * Sk * HD;
-  v += (size_t)bh * Sk * HD;
+  q += (size_t)bh * q_hs;
+  k += (size_t)bh * kv_hs;
+  v += (size_t)bh * kv_hs;
   prev_lse += (size_t)bh * Sq;
   // padded query rows carry PAD_LSE, so they add exactly 0
   const float pl0 = row0 + g < Sq ? prev_lse[row0 + g] : PAD_LSE;
@@ -115,7 +121,8 @@ dense_colsum_attn_kernel(const __nv_bfloat16* __restrict__ q,
 
 extern "C" int chipmunk_dense_attn(const void* q, const void* k, const void* v,
                                    void* o, void* lse, int BH, int Sq, int Sk,
-                                   float tau, void* stream) {
+                                   int q_hs, int kv_hs, float tau,
+                                   void* stream) {
   constexpr int NW = 4;
   constexpr int SMEM = kv_ring_bytes<KT>();
   static const int attr = allow_smem(dense_attn_kernel<NW>, SMEM);
@@ -123,15 +130,17 @@ extern "C" int chipmunk_dense_attn(const void* q, const void* k, const void* v,
   dim3 grid((Sq + NW * 16 - 1) / (NW * 16), BH);
   dense_attn_kernel<NW><<<grid, NW * 32, SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, Sq, Sk, tau);
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)o, (float*)lse, Sq, Sk, q_hs,
+      kv_hs, tau);
   return (int)cudaGetLastError();
 }
 
 extern "C" int chipmunk_dense_colsum_attn(const void* q, const void* k,
                                           const void* v, const void* prev_lse,
                                           void* o, void* lse, void* cs, int BH,
-                                          int Sq, int Sk, int score_block,
-                                          float tau, void* stream) {
+                                          int Sq, int Sk, int q_hs, int kv_hs,
+                                          int score_block, float tau,
+                                          void* stream) {
   constexpr int SMEM = kv_ring_bytes<KT>();
   static const int attr = allow_smem(dense_colsum_attn_kernel, SMEM);
   if (attr != 0) return attr;
@@ -139,6 +148,6 @@ extern "C" int chipmunk_dense_colsum_attn(const void* q, const void* k,
   dense_colsum_attn_kernel<<<grid, 256, SMEM, (cudaStream_t)stream>>>(
       (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
       (const __nv_bfloat16*)v, (const float*)prev_lse, (__nv_bfloat16*)o,
-      (float*)lse, (float*)cs, Sq, Sk, score_block, tau);
+      (float*)lse, (float*)cs, Sq, Sk, q_hs, kv_hs, score_block, tau);
   return (int)cudaGetLastError();
 }

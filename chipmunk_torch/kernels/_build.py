@@ -24,11 +24,13 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe')
+LIBRARIES = ('flash_attention', 'csp_attention', 'csp_hbm_attention',
+             'csp_mlp', 'int8_probe')
 
 # kernel launches per wrapper since the last reset
 LAUNCHES: Dict[str, int] = {
     'dense_attn': 0, 'dense_colsum_attn': 0, 'csp_attn': 0,
+    'csp_attn_hbm': 0,
     'csp_mlp_mm1': 0, 'csp_mlp_mm2': 0,              # bf16 weights
     'csp_mlp_mm1_wq': 0, 'csp_mlp_mm2_wq': 0,        # int8 weights, bf16 x
     'csp_mlp_mm1_w4': 0, 'csp_mlp_mm2_w4': 0,        # int4 weights, bf16 x
@@ -42,11 +44,13 @@ _lock = threading.Lock()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    'chipmunk_dense_attn': [_P, _P, _P, _P, _P, _I, _I, _I, _F, _P],
+    'chipmunk_dense_attn': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
+                            _P],
     'chipmunk_dense_colsum_attn': [_P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _F, _P],
+                                   _I, _I, _I, _I, _I, _I, _F, _P],
     'chipmunk_csp_attn': [_P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _F, _P],
+    'chipmunk_csp_hbm_attn': [_P] * 5 + [_I] * 6 + [_F, _P],
     'chipmunk_csp_mlp_mm1': [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],
     'chipmunk_csp_mlp_mm2': [_P, _P, _P, _P, _P,

@@ -1,11 +1,20 @@
-"""Column-sparse (gathered-KV) attention: wrapper over
-``csrc/csp_attention.cu`` with its plain PyTorch version.
+"""Column-sparse (gathered-KV) attention: wrappers over
+``csrc/csp_attention.cu`` and ``csrc/csp_hbm_attention.cu`` with their
+plain PyTorch versions.
 
-Counterpart of ``chipmunk_tpu/kernels/csp_attention.py`` (``csp_attn``,
-VMEM mode).  Each ``qg``-row query group attends, with an exact softmax,
-only over its ``block_counts[g]`` selected ``kv_block``-key blocks
-``block_inds[g, :]``; the output is fresh and the caller adds the delta
-cache.
+Counterpart of ``chipmunk_tpu/kernels/csp_attention.py`` (``csp_attn``).
+Each ``qg``-row query group attends, with an exact softmax, only over its
+``block_counts[g]`` selected ``kv_block``-key blocks ``block_inds[g, :]``;
+the output is fresh and the caller adds the delta cache.  Two modes, as in
+the reference, and ``mode='auto'`` picks between them by the reference's
+own rule, so every call takes the counterpart of the kernel JAX would:
+
+  * ``'vmem'`` (image-scale sequences): ``csp_attn`` kernel, counterpart
+    of ``_csp_vmem_kernel``; reads K and V where they lie.
+  * ``'hbm'`` (video-scale sequences): K and V are packed per block into
+    ``[B*H, nb, 2*kv_block, D]`` (one torch copy, as the reference's XLA
+    concat), then ``csp_attn_hbm`` gathers each selected block in one
+    copy: counterpart of ``_csp_hbm_packed_kernel``.
 
 Layout contract: q [B,H,Sq,D] with Sq % qg == 0; k, v [B,H,Sk,D] with
 Sk % kv_block == 0; block_inds int [B,H,G,jmax] in [0, Sk/kv_block);
@@ -21,6 +30,10 @@ from ..ops.attn_ref import attn_scale
 from . import _build
 from .flash_attention import _check_qkv, _stream, check_cuda_attn
 
+# The reference's scoped-VMEM cap (chipmunk_tpu/kernels/csp_attention.py:57);
+# 'auto' applies its footprint rule with its constants.
+VMEM_LIMIT = 100 * 1024 * 1024
+
 
 def pad_block_indices(inds: torch.Tensor, counts: torch.Tensor
                       ) -> torch.Tensor:
@@ -30,22 +43,31 @@ def pad_block_indices(inds: torch.Tensor, counts: torch.Tensor
     return torch.where(pos < counts[..., None], inds, last)
 
 
-def csp_attn_plain(q, k, v, block_inds, block_counts, qg: int = 128,
-                   kv_block: int = 128, kv_valid: Optional[int] = None):
-    """Plain version of the kernel: gather each group's jmax blocks, mask
-    the positions past its count (and keys past kv_valid), exact softmax."""
+def auto_mode(Sq: int, Sk: int, D: int, jmax: int, kv_block: int,
+              itemsize: int) -> str:
+    """The reference's choice (csp_attention.py:353-359): 'vmem' when the
+    double-buffered whole-head q/k/v/o plus the gather scratch fit
+    VMEM_LIMIT, else 'hbm'."""
+    resident = (2 * Sk + 2 * Sq) * D * itemsize
+    scratch = 4 * jmax * kv_block * D * itemsize
+    return 'vmem' if 2 * resident + scratch + (4 << 20) <= VMEM_LIMIT \
+        else 'hbm'
+
+
+def pack_kv(k: torch.Tensor, v: torch.Tensor, kv_block: int) -> torch.Tensor:
+    """[B,H,Sk,D] K and V -> [B*H, Sk/kv_block, 2*kv_block, D]: each
+    block's K rows, then its V rows."""
+    B, H, Sk, D = k.shape
+    nb = Sk // kv_block
+    return torch.cat([k.reshape(B * H, nb, kv_block, D),
+                      v.reshape(B * H, nb, kv_block, D)], 2)
+
+
+def _gathered_attn(q, kg, vg, valid, qg):
+    """Exact softmax of each group's rows over its gathered keys.
+    q [B,H,Sq,D]; kg, vg [B,H,G,JT,D]; valid bool [B,H,G,JT]."""
     B, H, Sq, D = q.shape
-    Sk = k.shape[-2]
-    G, jmax = Sq // qg, block_inds.shape[-1]
-    tok = (block_inds.long()[..., None] * kv_block
-           + torch.arange(kv_block, device=q.device)).reshape(B, H, G, -1)
-    idx = tok.reshape(B, H, -1, 1).expand(-1, -1, -1, D)
-    kg = torch.gather(k, 2, idx).reshape(B, H, G, -1, D)
-    vg = torch.gather(v, 2, idx).reshape(B, H, G, -1, D)
-    valid = (torch.arange(jmax, device=q.device) < block_counts[..., None]
-             ).repeat_interleave(kv_block, -1)                 # [B,H,G,JT]
-    if kv_valid is not None and kv_valid < Sk:
-        valid = valid & (tok < kv_valid)
+    G = Sq // qg
     s = torch.einsum('bhgid,bhgjd->bhgij', q.reshape(B, H, G, qg, D).float(),
                      kg.float()) * attn_scale(D)
     valid = valid[:, :, :, None, :]
@@ -54,23 +76,60 @@ def csp_attn_plain(q, k, v, block_inds, block_counts, qg: int = 128,
     p = torch.where(valid, torch.exp2(s - m), torch.zeros_like(s))
     l = p.sum(-1, keepdim=True)
     l = torch.where(l == 0, torch.ones_like(l), l)
-    o = torch.einsum('bhgij,bhgjd->bhgid', p.to(v.dtype).float(),
+    o = torch.einsum('bhgij,bhgjd->bhgid', p.to(vg.dtype).float(),
                      vg.float()) / l
     return o.reshape(B, H, Sq, D).to(q.dtype)
 
 
-def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             block_inds: torch.Tensor, block_counts: torch.Tensor,
-             qg: int = 128, kv_block: int = 128,
-             kv_valid: Optional[int] = None) -> torch.Tensor:
-    """Column-sparse attention.  Returns o [B,H,Sq,D] (q.dtype)."""
-    _check_qkv(q, k, v)
+def _valid(block_inds, block_counts, kv_block, kv_valid, Sk):
+    """bool [B,H,G,jmax*kv_block]: positions before the count, and keys
+    before kv_valid; also the gathered token ids."""
+    B, H, G, jmax = block_inds.shape
+    tok = (block_inds.long()[..., None] * kv_block
+           + torch.arange(kv_block, device=block_inds.device)
+           ).reshape(B, H, G, -1)
+    valid = (torch.arange(jmax, device=block_inds.device)
+             < block_counts[..., None]).repeat_interleave(kv_block, -1)
+    if kv_valid is not None and kv_valid < Sk:
+        valid = valid & (tok < kv_valid)
+    return valid, tok
+
+
+def csp_attn_plain(q, k, v, block_inds, block_counts, qg: int = 128,
+                   kv_block: int = 128, kv_valid: Optional[int] = None):
+    """Plain version of the 'vmem' kernel: gather each group's jmax blocks,
+    mask the positions past its count (and keys past kv_valid), exact
+    softmax."""
     B, H, Sq, D = q.shape
-    Sk = k.shape[-2]
-    if Sq % qg or Sk % kv_block:
-        raise ValueError(f'Sq={Sq} must divide by qg={qg} and Sk={Sk} by '
-                         f'kv_block={kv_block}')
-    G, jmax = Sq // qg, block_inds.shape[-1]
+    valid, tok = _valid(block_inds, block_counts, kv_block, kv_valid,
+                        k.shape[-2])
+    idx = tok.reshape(B, H, -1, 1).expand(-1, -1, -1, D)
+    kg = torch.gather(k, 2, idx).reshape(B, H, Sq // qg, -1, D)
+    vg = torch.gather(v, 2, idx).reshape(B, H, Sq // qg, -1, D)
+    return _gathered_attn(q, kg, vg, valid, qg)
+
+
+def csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg: int = 128,
+                       kv_block: int = 128, kv_valid: Optional[int] = None):
+    """Plain version of the 'hbm' kernel over the packed layout kv
+    [B*H, nb, 2*kv_block, D] (see pack_kv)."""
+    B, H, Sq, D = q.shape
+    nb = kv.shape[1]
+    G, jmax = block_inds.shape[-2:]
+    valid, _ = _valid(block_inds, block_counts, kv_block, kv_valid,
+                      nb * kv_block)
+    kvr = kv.reshape(B, H, nb, 2, kv_block, D)
+    bi = torch.arange(B, device=q.device)[:, None, None, None]
+    hi = torch.arange(H, device=q.device)[None, :, None, None]
+    blk = kvr[bi, hi, block_inds.long()]          # [B,H,G,jmax,2,kvb,D]
+    kg = blk[..., 0, :, :].reshape(B, H, G, jmax * kv_block, D)
+    vg = blk[..., 1, :, :].reshape(B, H, G, jmax * kv_block, D)
+    return _gathered_attn(q, kg, vg, valid, qg)
+
+
+def _check_inds(q, block_inds, block_counts, G):
+    B, H = q.shape[:2]
+    jmax = block_inds.shape[-1]
     if block_inds.shape != (B, H, G, jmax) or block_counts.shape != (B, H, G):
         raise ValueError(f'block_inds {tuple(block_inds.shape)} / '
                          f'block_counts {tuple(block_counts.shape)} do not '
@@ -78,8 +137,75 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if not (block_inds.device == block_counts.device == q.device):
         raise ValueError('csp_attn: block_inds/block_counts must be on q\'s '
                          'device')
+
+
+def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
+                 block_counts: torch.Tensor, qg: int = 128,
+                 kv_block: int = 128, kv_valid: Optional[int] = None
+                 ) -> torch.Tensor:
+    """Column-sparse attention over packed K+V (``pack_kv``): kv
+    [B*H, nb, 2*kv_block, D].  block_counts must lie in [1, jmax] and
+    block_inds hold a valid block id at every position (as csp_attn makes
+    them).  Returns o [B,H,Sq,D] (q.dtype)."""
+    B, H, Sq, D = q.shape
+    BH, nb, rows, Dk = kv.shape
+    if BH != B * H or rows != 2 * kv_block or Dk != D or Sq % qg:
+        raise ValueError(f'csp_attn_hbm: q {tuple(q.shape)} and packed kv '
+                         f'{tuple(kv.shape)} do not match (kv_block '
+                         f'{kv_block}, qg {qg})')
+    if kv.device != q.device or kv.dtype != q.dtype:
+        raise ValueError('csp_attn_hbm: q and kv on different devices or '
+                         'of different dtypes')
+    _check_inds(q, block_inds, block_counts, Sq // qg)
+    if q.device.type == 'cpu':
+        return csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg,
+                                  kv_block, kv_valid)
+    check_cuda_attn('csp_attn_hbm', q, kv)
+    if qg != 128 or kv_block not in (32, 64, 128):
+        raise ValueError('csp_attn_hbm kernel: qg must be 128 and kv_block '
+                         f'32, 64 or 128 (got {qg}, {kv_block})')
+    inds = block_inds.to(torch.int32).contiguous()
+    counts = block_counts.to(torch.int32).contiguous()
+    Sk = nb * kv_block
+    o = torch.empty_like(q)
+    lib = _build.library('csp_hbm_attention')
+    _build.check(lib.chipmunk_csp_hbm_attn(
+        q.data_ptr(), kv.data_ptr(), inds.data_ptr(), counts.data_ptr(),
+        o.data_ptr(), B * H, Sq, nb, block_inds.shape[-1], kv_block,
+        Sk if kv_valid is None else min(kv_valid, Sk), attn_scale(D),
+        _stream(q)), 'csp_attn_hbm')
+    _build.LAUNCHES['csp_attn_hbm'] += 1
+    return o
+
+
+def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             block_inds: torch.Tensor, block_counts: torch.Tensor,
+             qg: int = 128, kv_block: int = 128,
+             kv_valid: Optional[int] = None, mode: str = 'auto'
+             ) -> torch.Tensor:
+    """Column-sparse attention.  Returns o [B,H,Sq,D] (q.dtype).
+    mode: 'auto' | 'vmem' | 'hbm' (see the module docstring); kv_valid:
+    keys at positions >= kv_valid are excluded from every softmax."""
+    _check_qkv(q, k, v)
+    B, H, Sq, D = q.shape
+    Sk = k.shape[-2]
+    if Sq % qg or Sk % kv_block:
+        raise ValueError(f'Sq={Sq} must divide by qg={qg} and Sk={Sk} by '
+                         f'kv_block={kv_block}')
+    G, jmax = Sq // qg, block_inds.shape[-1]
+    _check_inds(q, block_inds, block_counts, G)
+    if mode == 'auto':
+        mode = auto_mode(Sq, Sk, D, jmax, kv_block, k.element_size())
+    if mode not in ('vmem', 'hbm'):
+        raise ValueError(f"csp_attn: mode must be 'auto', 'vmem' or 'hbm', "
+                         f'got {mode!r}')
     counts = block_counts.clamp(1, jmax).to(torch.int32)
     inds = pad_block_indices(block_inds, counts).to(torch.int32)
+    if mode == 'hbm':
+        if q.device.type != 'cpu':
+            check_cuda_attn('csp_attn', q, k, v)
+        return csp_attn_hbm(q, pack_kv(k, v, kv_block), inds, counts, qg,
+                            kv_block, kv_valid)
     if q.device.type == 'cpu':
         return csp_attn_plain(q, k, v, inds, counts, qg, kv_block, kv_valid)
     check_cuda_attn('csp_attn', q, k, v)

@@ -29,8 +29,11 @@ def _check_qkv(q, k, v):
         raise ValueError('q, k, v of different dtypes')
 
 
-def check_cuda_attn(name: str, *tensors: torch.Tensor) -> None:
-    """The kernels take contiguous bf16 [B,H,S,128] CUDA tensors."""
+def check_cuda_attn(name: str, *tensors: torch.Tensor,
+                    strided: bool = False) -> None:
+    """The kernels take bf16 [B,H,S,128] CUDA tensors, contiguous or, with
+    ``strided``, with contiguous rows and any stride between heads (a
+    slice along S of a contiguous tensor, see head_stride)."""
     for t in tensors:
         if t.device.type != 'cuda':
             raise ValueError(f'{name}: tensors must be on one CUDA device '
@@ -38,8 +41,23 @@ def check_cuda_attn(name: str, *tensors: torch.Tensor) -> None:
         if t.dtype != torch.bfloat16 or t.shape[-1] != HEAD_DIM:
             raise ValueError(f'{name}: the kernel takes bf16 with head dim '
                              f'{HEAD_DIM}, got {t.dtype} {tuple(t.shape)}')
-        if not t.is_contiguous():
+        if strided:
+            head_stride(name, t)
+        elif not t.is_contiguous():
             raise ValueError(f'{name}: inputs must be contiguous')
+
+
+def head_stride(name: str, t: torch.Tensor) -> int:
+    """Elements from one head's first row to the next head's of a
+    [B,H,S,D] tensor whose rows are contiguous and whose heads are evenly
+    spaced across B and H (``x[..., a:b, :]`` of a contiguous x)."""
+    B, H, S, D = t.shape
+    hs = t.stride(1)
+    if t.stride(-1) != 1 or (S > 1 and t.stride(-2) != D) \
+            or (B > 1 and t.stride(0) != H * hs) or hs < S * D:
+        raise ValueError(f'{name}: rows must be contiguous and heads evenly '
+                         f'spaced, got strides {t.stride()}')
+    return hs
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -86,24 +104,35 @@ def dense_colsum_attn_plain(q, k, v, prev_lse, qg: int = 128,
     return o, cs, lse
 
 
+def _kv_strides(name, q, k, v):
+    """Head strides of q and of k/v (which must share theirs)."""
+    check_cuda_attn(name, q, k, v, strided=True)
+    if k.stride() != v.stride():
+        raise ValueError(f'{name}: k and v must have the same strides')
+    return head_stride(name, q), head_stride(name, k)
+
+
 def dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward.  q,k,v: [B,H,S,D] -> (o [B,H,Sq,D],
     lse fp32 [B,H,Sq] in log2 domain).  Ragged Sq and Sk are handled
-    inside the kernel (keys past Sk are masked with -1e30)."""
+    inside the kernel (keys past Sk are masked with -1e30).  q, k and v
+    may be slices along S of larger tensors (``k[..., :n, :]``,
+    ``q[..., t0:, :]``): the kernel takes their head strides, so nothing
+    is copied."""
     _check_qkv(q, k, v)
     if q.device.type == 'cpu':
         return dense_attn_plain(q, k, v)
-    check_cuda_attn('dense_attn', q, k, v)
+    q_hs, kv_hs = _kv_strides('dense_attn', q, k, v)
     B, H, Sq, D = q.shape
     Sk = k.shape[-2]
-    o = torch.empty_like(q)
+    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     lib = _build.library('flash_attention')
     _build.check(lib.chipmunk_dense_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        lse.data_ptr(), B * H, Sq, Sk, attn_scale(D), _stream(q)),
-        'dense_attn')
+        lse.data_ptr(), B * H, Sq, Sk, q_hs, kv_hs, attn_scale(D),
+        _stream(q)), 'dense_attn')
     _build.LAUNCHES['dense_attn'] += 1
     return o, lse
 
@@ -114,7 +143,8 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Flash attention that also emits per-query-group column sums of the
     prev-lse-normalised probabilities, summed within ``score_block``-key
-    blocks.  Padded query rows must carry prev_lse = PAD_LSE.
+    blocks.  Padded query rows must carry prev_lse = PAD_LSE.  q, k, v
+    may be slices along S, as for dense_attn.
 
     Returns (o [B,H,Sq,D], colsums fp32 [B,H,Sq/qg,ceil(Sk/score_block)],
     lse fp32 [B,H,Sq])."""
@@ -127,25 +157,25 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f'prev_lse {tuple(prev_lse.shape)} does not match q')
     if q.device.type == 'cpu':
         return dense_colsum_attn_plain(q, k, v, prev_lse, qg, score_block)
-    check_cuda_attn('dense_colsum_attn', q, k, v)
+    q_hs, kv_hs = _kv_strides('dense_colsum_attn', q, k, v)
     if qg != 128 or score_block % 64:
         raise ValueError('dense_colsum_attn kernel: qg must be 128 and '
                          f'score_block a multiple of 64 (got {qg}, '
                          f'{score_block})')
     prev_lse = prev_lse.float().contiguous()
     nb = -(-Sk // score_block)
-    o = torch.empty_like(q)
+    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     cs = torch.empty((B, H, Sq // qg, nb), dtype=torch.float32,
                      device=q.device)
     lib = _build.library('flash_attention')
     _build.check(lib.chipmunk_dense_colsum_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), prev_lse.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), cs.data_ptr(), B * H, Sq, Sk,
-        score_block, attn_scale(D), _stream(q)), 'dense_colsum_attn')
+        o.data_ptr(), lse.data_ptr(), cs.data_ptr(), B * H, Sq, Sk, q_hs,
+        kv_hs, score_block, attn_scale(D), _stream(q)), 'dense_colsum_attn')
     _build.LAUNCHES['dense_colsum_attn'] += 1
     return o, cs, lse
 
 
 __all__ = ['dense_attn', 'dense_colsum_attn', 'dense_attn_plain',
-           'dense_colsum_attn_plain']
+           'dense_colsum_attn_plain', 'head_stride']

@@ -4,9 +4,12 @@ of ``chipmunk_tpu/models/flux.py``.
 Params are a dict whose ``double``/``single`` entries are lists of
 per-layer dicts (the reference stacks them along a leading layer axis and
 scans; here a Python loop walks the layers and their per-layer states).
-Double blocks run SparseDiffAttn on the joint [txt, img] sequence and
+Double blocks run SparseDiffAttn on the joint sequence -- [txt, img] for
+FLUX, [img, txt] with ``txt_first=False`` as HunyuanVideo has it -- and
 SparseDiffMlp on the image MLP; single blocks keep linear1/linear2 split
 into qkv/fc1 and o_proj/fc2.  txt_len and S must be multiples of 128.
+The forward's ``generator`` draws every random keep (attention, with
+compressed indices, and MLP).
 """
 from __future__ import annotations
 
@@ -42,6 +45,8 @@ class FluxModelConfig:
     qkv_bias: bool = True
     guidance_embed: bool = True
     txt_len: int = 512
+    # sequence order: FLUX concatenates [txt, img]; HunyuanVideo [img, txt]
+    txt_first: bool = True
     dtype: torch.dtype = torch.bfloat16
 
     @property
@@ -158,12 +163,15 @@ def params_from_jax(np_params: Dict, device: DeviceLike = 'cuda') -> Dict:
     ``[L, ...]`` ``double``/``single`` subtrees into per-layer dicts.
     Quantized leaves (anything with ``q``/``scale``/``pack_axis``, as the
     reference's QTensor has) become the port's QTensor, with ``q`` and
-    ``scale`` split per layer and ``pack_axis`` kept."""
+    ``scale`` split per layer and ``pack_axis`` kept.  Lists (the
+    HunyuanVideo text refiner's ``blocks``) stay lists."""
     dev = resolve_device(device)
 
     def conv(tree):
         if isinstance(tree, dict):
             return {k: conv(v) for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [conv(v) for v in tree]
         if all(hasattr(tree, a) for a in ('q', 'scale', 'pack_axis')):
             return QTensor(_np_to_torch(tree.q, dev),
                            _np_to_torch(tree.scale, dev), tree.pack_axis)
@@ -215,9 +223,15 @@ class FluxSparse:
 
     @staticmethod
     def build(ck: ChipmunkConfig, model: FluxModelConfig, seq_len: int,
-              batch: int = 1) -> "FluxSparse":
+              batch: int = 1, static_mask_tokens=None,
+              valid_len: Optional[int] = None, csp_mode: str = 'auto'
+              ) -> "FluxSparse":
+        """static_mask_tokens / valid_len / csp_mode: see
+        SparseDiffAttn.build."""
         img_len = seq_len - model.txt_len
-        attn = SparseDiffAttn.build(ck.attn, seq_len)
+        attn = SparseDiffAttn.build(ck.attn, seq_len,
+                                    static_mask_tokens=static_mask_tokens,
+                                    valid_len=valid_len, csp_mode=csp_mode)
         # MLP caches fold batch into the token axis ([B*T, ...])
         mlp_d = SparseDiffMlp.build(ck.mlp, batch * img_len,
                                     model.hidden_size, model.mlp_hidden)
@@ -276,10 +290,11 @@ def _merge_heads(x):
 
 
 def _attn_call(mod: SparseDiffAttn, q, k, v, st, step: FluxStep,
-               is_dense: bool):
+               is_dense: bool, generator):
     return mod(q.contiguous(), k.contiguous(), v.contiguous(), st,
                step_index=step.index, is_full=step.full_attn,
-               is_colsum=step.colsum, layer_is_dense=is_dense)
+               is_colsum=step.colsum, layer_is_dense=is_dense,
+               generator=generator)
 
 
 def _mlp_call(mod: SparseDiffMlp, x2d, w1t, b1, w2, b2, st, step: FluxStep,
@@ -307,14 +322,18 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
     ik = rmsnorm(ik, p['img_knorm'])
     tq = rmsnorm(tq, p['txt_qnorm'])
     tk = rmsnorm(tk, p['txt_knorm'])
-    q = apply_rope(torch.cat([tq, iq], 2), cos, sin)
-    k = apply_rope(torch.cat([tk, ik], 2), cos, sin)
-    v = torch.cat([tv, iv], 2)
+    first, second = ((tq, tk, tv), (iq, ik, iv)) if cfg.txt_first \
+        else ((iq, ik, iv), (tq, tk, tv))
+    q, k, v = (torch.cat([a, b], 2) for a, b in zip(first, second))
+    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     o, ast = _attn_call(sp.attn_d, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_double)
+                        idx < sp.n_dense_attn_double, generator)
     o = _merge_heads(o)
-    txt_o, img_o = o[:, :cfg.txt_len], o[:, cfg.txt_len:]
+    if cfg.txt_first:
+        txt_o, img_o = o[:, :cfg.txt_len], o[:, cfg.txt_len:]
+    else:
+        img_o, txt_o = o[:, :-cfg.txt_len], o[:, -cfg.txt_len:]
     img = img + im1[2] * linear(p['img_proj'], img_o)
     txt = txt + tm1[2] * linear(p['txt_proj'], txt_o)
 
@@ -348,7 +367,7 @@ def single_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
     k = apply_rope(rmsnorm(k, p['knorm']), cos, sin)
 
     o, ast = _attn_call(sp.attn_s, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_single)
+                        idx < sp.n_dense_attn_single, generator)
     attn_out = linear(p['o_proj'], _merge_heads(o))
     mo, mst = _mlp_call(sp.mlp_s, x_mod.reshape(-1, x_mod.shape[-1]),
                         p['w1t'], p['b1'], p['w2'],
@@ -376,7 +395,7 @@ def flux_embed(params: Dict, cfg: FluxModelConfig, img, txt, timesteps, y,
 
 def flux_final(params: Dict, cfg: FluxModelConfig, x, vec):
     """Final adaLN + projection."""
-    img = x[:, cfg.txt_len:]
+    img = x[:, cfg.txt_len:] if cfg.txt_first else x[:, :-cfg.txt_len]
     shift, scale = linear(params['final_mod'], F.silu(vec))[:, None, :] \
         .chunk(2, -1)
     return linear(params['final_proj'], (1 + scale) * layernorm(img) + shift)
@@ -392,7 +411,8 @@ def flux_forward(params: Dict, cfg: FluxModelConfig, sp: FluxSparse,
                  ) -> Tuple[torch.Tensor, FluxState]:
     """One model evaluation.  img: [B, S_img, in_ch] (patch-reordered),
     txt: [B, txt_len, ctx_dim], y: [B, vec_in], pe: (cos, sin) for the
-    joint sequence.  ``generator`` draws the MLP random keeps.
+    joint sequence.  ``generator`` draws the random keeps (attention with
+    compressed indices, MLP).
     Returns (prediction [B, S_img, in_ch], new state)."""
     img, txt, vec = flux_embed(params, cfg, img, txt, timesteps, y, guidance)
     cos, sin = pe
@@ -401,7 +421,7 @@ def flux_forward(params: Dict, cfg: FluxModelConfig, sp: FluxSparse,
         img, txt, d_attn[i], d_mlp[i] = double_block(
             cfg, sp, p, img, txt, vec, cos, sin, d_attn[i], d_mlp[i], i,
             step, generator)
-    x = torch.cat([txt, img], 1)
+    x = torch.cat([txt, img] if cfg.txt_first else [img, txt], 1)
     s_attn, s_mlp = list(state.single_attn), list(state.single_mlp)
     for i, p in enumerate(params['single']):
         x, s_attn[i], s_mlp[i] = single_block(

@@ -89,8 +89,9 @@ class FluxSampler:
                 callback: Optional[Callable] = None) -> torch.Tensor:
         """Euler flow-matching loop with chipmunk scheduling and step
         caching.  img: [B, S_img, C_in].  ``generator`` (on the sampler's
-        device) draws the MLP random keeps.  The latent is carried in
-        float32.  Returns the denoised latent [B, S_img, C_in] (float32)."""
+        device; seed 0 if None) draws the random keeps.  The latent is
+        carried in float32.  Returns the denoised latent [B, S_img, C_in]
+        (float32)."""
         dev = self.device
         B = img.shape[0]
         img = self.patchify_img(img.to(dev)).float()
@@ -101,9 +102,8 @@ class FluxSampler:
         ts = torch.as_tensor(timesteps, dtype=torch.float32).tolist()
         g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
             if self.cfg.guidance_embed else None
-        if generator is None and self.ck.mlp.random_keys > 0:
-            generator = torch.Generator(dev)
-            generator.manual_seed(0)
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
 
         pred = None
         for i in range(min(len(plan), len(ts) - 1)):

@@ -1,6 +1,7 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
-(ragged Sq/Sk, kv_block 32 and 64, kv_valid, bm/bn of 256).  The kernels
+(ragged Sq/Sk, kv_block 32 and 64, kv_valid, bm/bn of 256, the
+packed-KV csp kernel, keys and query rows passed as sliced views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -103,6 +104,68 @@ def test_cuda_csp_attn_matches_plain(gen, kv_block, kv_valid):
     o_p = CA.csp_attn_plain(q, k, v, CA.pad_block_indices(inds, counts),
                             counts, kv_block=kv_block, kv_valid=kv_valid)
     torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_block,kv_valid', [(128, None), (32, None),
+                                               (64, 300), (128, 470)])
+def test_cuda_csp_attn_hbm_matches_plain(gen, kv_block, kv_valid):
+    """The packed-KV kernel against its plain version on the same packed
+    tensor, and through csp_attn(mode='hbm') against the 'vmem' kernel."""
+    q, k, v = (randn(gen, 1, 2, 512, 128) for _ in range(3))
+    nb, jmax = 512 // kv_block, 3
+    inds = torch.rand((1, 2, 4, nb), generator=gen, device='cuda') \
+        .argsort(-1)[..., :jmax].to(torch.int32)
+    inds[..., 0] = 0                     # a block before kv_valid
+    counts = torch.tensor([1, jmax, 2, jmax], device='cuda',
+                          dtype=torch.int32).expand(1, 2, 4).contiguous()
+    pinds = CA.pad_block_indices(inds, counts)
+    kv = CA.pack_kv(k, v, kv_block)
+    n0 = CA._build.LAUNCHES['csp_attn_hbm']
+    o = CA.csp_attn_hbm(q, kv, pinds, counts, kv_block=kv_block,
+                        kv_valid=kv_valid)
+    torch.cuda.synchronize()
+    assert CA._build.LAUNCHES['csp_attn_hbm'] == n0 + 1
+    o_p = CA.csp_attn_hbm_plain(q, kv, pinds, counts, kv_block=kv_block,
+                                kv_valid=kv_valid)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    o_h = CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block,
+                      kv_valid=kv_valid, mode='hbm')
+    o_v = CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block,
+                      kv_valid=kv_valid, mode='vmem')
+    torch.cuda.synchronize()
+    assert torch.equal(o_h, o)
+    torch.testing.assert_close(o_h.float(), o_v.float(), atol=ATOL,
+                               rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_take_sliced_views(gen):
+    """Keys cut at a valid length and the query rows of a dense tail,
+    passed as views: the kernels read them at their head strides and give
+    what they give on contiguous copies."""
+    q, k, v = (randn(gen, 1, 2, 640, 128) for _ in range(3))
+    n, t0 = 600, 384
+    o, lse = FA.dense_attn(q[..., t0:, :], k[..., :n, :], v[..., :n, :])
+    o_c, lse_c = FA.dense_attn(q[..., t0:, :].contiguous(),
+                               k[..., :n, :].contiguous(),
+                               v[..., :n, :].contiguous())
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_c) and torch.equal(lse, lse_c)
+    o_p, lse_p = FA.dense_attn_plain(q[..., t0:, :], k[..., :n, :],
+                                     v[..., :n, :])
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+    torch.testing.assert_close(lse, lse_p, atol=1e-3, rtol=0)
+    prev = lse_c.new_full((1, 2, 640), 9.0)
+    prev[..., n:] = PAD_LSE
+    out = FA.dense_colsum_attn(q, k[..., :n, :], v[..., :n, :], prev)
+    out_c = FA.dense_colsum_attn(q, k[..., :n, :].contiguous(),
+                                 v[..., :n, :].contiguous(), prev)
+    torch.cuda.synchronize()
+    for a, b in zip(out, out_c):
+        assert torch.equal(a, b)
+    ref = FA.dense_colsum_attn_plain(q, k[..., :n, :], v[..., :n, :], prev)
+    torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=1e-3)
 
 
 @pytest.mark.cuda

@@ -19,11 +19,12 @@ from chipmunk_tpu.kernels.csp_mlp import csp_mlp_mm1 as j_csp_mlp_mm1
 from chipmunk_tpu.kernels.csp_mlp import csp_mlp_mm2 as j_csp_mlp_mm2
 from chipmunk_tpu.utils import quant as jq
 from chipmunk_torch.kernels.csp_mlp import _codes, gelu_tanh
+from chipmunk_torch.kernels.csp_attention import auto_mode
 from chipmunk_torch.kernels import (csp_attn, csp_mlp_fused, csp_mlp_mm1,
                                     csp_mlp_mm1_a8, csp_mlp_mm2,
                                     csp_mlp_mm2_a8, dense_attn,
                                     dense_colsum_attn, int8_probe,
-                                    quant_rows)
+                                    pack_kv, quant_rows)
 from chipmunk_torch.ops import fp8
 from chipmunk_torch.ops.attn_ref import PAD_LSE
 from chipmunk_torch.utils.quant import QTensor
@@ -106,6 +107,95 @@ def test_csp_attn_matches_reference(kv_block, kv_valid):
                    kv_block=kv_block, kv_valid=kv_valid)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
                                rtol=1e-5)
+
+
+@pytest.mark.parametrize('kv_block,kv_valid,jmax', [
+    (128, None, 3), (32, None, 6), (32, 470, 6), (64, 300, 4)])
+def test_csp_attn_hbm_matches_reference(kv_block, kv_valid, jmax):
+    """The packed-KV mode against the reference's _csp_hbm_packed_kernel in
+    interpret mode: counts from 1 to jmax (positions past the count never
+    visited), kv_valid cutting a block; the port's pack is the reference's
+    layout, and the mode is the same function as 'vmem'."""
+    q, k, v = qkv(14, 512, 512)
+    rng = np.random.default_rng(15)
+    inds, counts = random_blocks(rng, (1, 2, 4), 512 // kv_block, jmax)
+    if kv_valid is not None:
+        # every group keeps a block before kv_valid: no row without keys
+        inds[..., 0] = rng.integers(0, kv_valid // kv_block, (1, 2, 4))
+        inds[..., 1] = kv_valid // kv_block      # the block kv_valid cuts
+        counts = np.maximum(counts, 2)
+    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=128,
+                     kv_block=kv_block, mode='hbm', kv_valid=kv_valid,
+                     interpret=True)
+    args = [to_torch(a) for a in (q, k, v, inds, counts)]
+    o_t = csp_attn(*args, qg=128, kv_block=kv_block, kv_valid=kv_valid,
+                   mode='hbm')
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_array_equal(
+        csp_attn(*args, qg=128, kv_block=kv_block, kv_valid=kv_valid,
+                 mode='vmem').numpy(), o_t.numpy())
+    # the reference's pack (csp_attention.py:410-413)
+    nb = 512 // kv_block
+    ref_pack = jnp.concatenate(
+        [jnp.asarray(k).reshape(2, nb, kv_block, 64),
+         jnp.asarray(v).reshape(2, nb, kv_block, 64)], axis=2)
+    np.testing.assert_array_equal(
+        pack_kv(to_torch(k), to_torch(v), kv_block).numpy(),
+        np.asarray(ref_pack))
+
+
+def test_csp_attn_auto_mode_follows_the_reference_rule():
+    """'auto' applies the reference's footprint rule with its constants:
+    the FLUX shape takes 'vmem', HunyuanVideo at 540p 'hbm' (the switch
+    is near 47k tokens at D = 128 in bf16)."""
+    assert auto_mode(4352, 4352, 128, 6, 128, 2) == 'vmem'
+    assert auto_mode(67584, 67584, 128, 44, 128, 2) == 'hbm'
+    assert auto_mode(46080, 46080, 128, 40, 128, 2) == 'vmem'
+    assert auto_mode(48128, 48128, 128, 40, 128, 2) == 'hbm'
+    q, k, v = (torch.zeros(1, 1, 256, 64) for _ in range(3))
+    inds = torch.zeros(1, 1, 2, 1, dtype=torch.int32)
+    with pytest.raises(ValueError, match='mode'):
+        csp_attn(q, k, v, inds, torch.ones(1, 1, 2, dtype=torch.int32),
+                 mode='direct')
+
+
+def test_dense_kernels_take_sliced_views():
+    """The video path hands dense_attn/dense_colsum_attn keys cut at
+    valid_len and the query rows of the dense tail as views (no copy);
+    the result equals that of the same data made contiguous, and the
+    reference's at those shapes (Sq != Sk, Sk not a tile multiple, pad
+    queries at PAD_LSE)."""
+    q, k, v = qkv(16, 512, 512)
+    tq, tk, tv = map(to_torch, (q, k, v))
+    n, t0 = 470, 384
+    o_t, lse_t = dense_attn(tq[..., t0:, :], tk[..., :n, :], tv[..., :n, :])
+    o_j, lse_j = j_dense_attn(jnp.asarray(q[..., t0:, :]),
+                              jnp.asarray(k[..., :n, :]),
+                              jnp.asarray(v[..., :n, :]), bq=128, bk=128,
+                              interpret=True)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(lse_t.numpy(), np.asarray(lse_j), atol=1e-5,
+                               rtol=1e-5)
+    prev = np.asarray(lse_j)
+    prev = np.concatenate([np.full((1, 2, 384), 9.0, np.float32), prev], -1)
+    prev[..., n:] = PAD_LSE
+    o_t, cs_t, _ = dense_colsum_attn(tq, tk[..., :n, :], tv[..., :n, :],
+                                     to_torch(prev), qg=128, score_block=128)
+    o_j, cs_j, _ = j_colsum(jnp.asarray(q), jnp.asarray(k[..., :n, :]),
+                            jnp.asarray(v[..., :n, :]), jnp.asarray(prev),
+                            qg=128, bk=128, score_block=128, interpret=True)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
+                               rtol=1e-5)
+    np.testing.assert_allclose(cs_t.numpy(), np.asarray(cs_j), atol=1e-5,
+                               rtol=1e-5)
+    assert not cs_t[:, :, 3].sum().item() == 0      # group 3 holds rows < n
+    # strides the kernels refuse: rows not contiguous
+    from chipmunk_torch.kernels.flash_attention import head_stride
+    assert head_stride('x', tk[..., :n, :]) == 512 * 64
+    with pytest.raises(ValueError, match='contiguous'):
+        head_stride('x', tk.transpose(2, 3))
 
 
 def _fp8_close(got, ref, extra=0.0):

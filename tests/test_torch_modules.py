@@ -17,6 +17,7 @@ from chipmunk_tpu.utils import quant as jq
 from chipmunk_torch.config import AttnConfig, MlpConfig
 from chipmunk_torch.kernels import csp_mlp_fused
 from chipmunk_torch.modules import SparseDiffAttn, SparseDiffMlp
+from chipmunk_torch.ops.attn_ref import PAD_LSE
 from chipmunk_torch.utils.quant import QTensor, quantize
 
 mlp_mod = importlib.import_module('chipmunk_torch.modules.mlp')
@@ -79,6 +80,109 @@ def test_sparse_attn_matches_reference_over_step_kinds():
     o_j, _ = jmod(*map(jnp.asarray, (q, k, v)), jst, step_index=5,
                   is_full=False, is_colsum=False, layer_is_dense=True)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+
+
+@pytest.mark.parametrize('materialize', [True, False])
+def test_compressed_static_mask_attn_matches_reference(materialize):
+    """Compressed indices (materialized, or packed-only and rebuilt on
+    every consuming step), a static mask whose last query group covers
+    every key (the exact-dense tail), valid_len 470 of 512 (pad keys cut
+    inside a block, pad queries' lse = PAD_LSE) and a random keep: the
+    port is fed the Bernoulli mask jax.random drew for the reference."""
+    B, H, S, D, kvb = 1, 2, 512, 64, 32
+    kw = dict(top_keys=0.25, kv_block=kvb, counts_multiple_of=32,
+              random_keys=0.1, should_compress_indices=True,
+              materialize_indices=materialize, max_selected_frac=1.0,
+              dense_fallback_frac=1.0)
+    rng = np.random.default_rng(5)
+    static = np.repeat(rng.random((S // 128, S // kvb)) < 0.1, kvb, 1)
+    static[:, 440:470] = True            # the text columns
+    static[-1, :] = True                  # the dense tail
+    jmod = JAttn.build(JAttnConfig(**kw), S,
+                       static_mask_tokens=jnp.asarray(static),
+                       use_kernels=True, valid_len=470, interpret=True)
+    tmod = SparseDiffAttn.build(AttnConfig(**kw), S,
+                                static_mask_tokens=static, valid_len=470)
+    assert (tmod.jmax, tmod.sel_blocks, tmod.dense_tail_g, tmod.valid_len) \
+        == (jmod.jmax, jmod.sel_blocks, jmod.dense_tail_g, jmod.valid_len)
+    assert tmod.dense_tail_g == 3 and tmod.materialized == materialize
+    base = [rng.standard_normal((B, H, S, D)).astype(np.float32)
+            for _ in range(3)]
+    jst = jmod.init_state(B, H, D, jnp.float32)
+    tst = tmod.init_state(B, H, D, torch.float32, device='cpu')
+    nb = S // kvb
+    for step, full, colsum in [(0, True, False), (1, True, True),
+                               (2, False, False), (3, True, False),
+                               (4, False, False), (5, True, True),
+                               (6, False, False)]:
+        q, k, v = (x + 0.05 * step * rng.standard_normal(x.shape)
+                   .astype(np.float32) for x in base)
+        key = jax.random.PRNGKey(step)
+        keep = None
+        if colsum:
+            cs = jmod._colsum(*map(jnp.asarray, (q, k, v)), jst.lse)[1]
+            assert_tie_free(cs)
+            keep = t(np.asarray(jax.random.bernoulli(key, 0.1,
+                                                     (B, H, S // 128, nb))))
+        o_j, jst = jmod(*map(jnp.asarray, (q, k, v)), jst, step_index=step,
+                        is_full=full, is_colsum=colsum, layer_is_dense=False,
+                        key=key)
+        o_t, tst = tmod(t(q), t(k), t(v), tst, step_index=step, is_full=full,
+                        is_colsum=colsum, layer_is_dense=False,
+                        keep_mask=keep)
+        np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), **TOL)
+        np.testing.assert_array_equal(tst.packed.numpy(),
+                                      np.asarray(jst.packed))
+        if materialize:
+            np.testing.assert_array_equal(tst.inds.numpy(),
+                                          np.asarray(jst.inds))
+            np.testing.assert_array_equal(tst.counts.numpy(),
+                                          np.asarray(jst.counts))
+        else:
+            assert tst.inds is None and tst.counts is None
+        # the rebuild from the packed mask gives the reference's lists
+        np.testing.assert_array_equal(
+            tmod._stored_inds(tst)[0].numpy(),
+            np.asarray(jmod._stored_inds(jst)[0]))
+        np.testing.assert_allclose(tst.lse.numpy(), np.asarray(jst.lse),
+                                   **TOL)
+        assert (tst.lse.numpy()[..., 470:] == PAD_LSE).all()
+        np.testing.assert_allclose(tst.out_cache.numpy(),
+                                   np.asarray(jst.out_cache), **TOL)
+
+
+def test_random_and_topk_mask_matches_reference():
+    """With the keep mask jax.random drew injected: equal masks, with and
+    without the per-group gate and the static mask; a generator draws a
+    keep of the same rate."""
+    from chipmunk_tpu.ops import indexing as jidx
+    from chipmunk_torch.ops import indexing
+    rng = np.random.default_rng(4)
+    cs = rng.random((1, 2, 4, 64)).astype(np.float32)
+    assert_tie_free(cs)
+    sqg = np.array([[True], [True], [False], [True]])
+    static = rng.random((4, 64)) < 0.1
+    key = jax.random.PRNGKey(9)
+    keep = np.asarray(jax.random.bernoulli(key, 0.05, cs.shape))
+    for g, sm in ((None, None), (sqg, None), (sqg, static)):
+        ref = jidx.random_and_topk_mask(
+            jnp.asarray(cs), 7, key,
+            sparse_query_groups=None if g is None else jnp.asarray(g),
+            static_mask=None if sm is None else jnp.asarray(sm),
+            random_frac=0.05)
+        got = indexing.random_and_topk_mask(
+            t(cs), 7, keep_mask=t(keep),
+            sparse_query_groups=None if g is None else t(g),
+            static_mask=None if sm is None else t(sm), random_frac=0.05)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(ref))
+    drawn = indexing.random_and_topk_mask(
+        t(np.zeros((8, 4, 64, 64), np.float32) + np.arange(64)), 0,
+        generator=torch.Generator().manual_seed(0), random_frac=0.05)
+    assert abs(drawn.float().mean().item() - 0.05) < 5e-3
+    assert not indexing.random_and_topk_mask(t(cs), 0,
+                                             random_frac=0.0).any()
+    with pytest.raises(ValueError, match='generator'):
+        indexing.random_and_topk_mask(t(cs), 7, random_frac=0.05)
 
 
 def test_sparse_mlp_matches_reference_over_step_kinds():

@@ -1,5 +1,7 @@
 """chipmunk_torch eager oracles and index ops against chipmunk_tpu.ops on
 the same numpy inputs (float32 on both sides)."""
+import importlib
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -10,7 +12,10 @@ from chipmunk_tpu.ops import attn_ref as jref
 from chipmunk_tpu.ops import indexing as jidx
 from chipmunk_tpu.ops import mlp_ref as jmlp
 from chipmunk_torch.kernels.csp_mlp import gelu_tanh
-from chipmunk_torch.ops import attn_ref, indexing, mlp_ref
+from chipmunk_torch.ops import attn_ref, bitpack, indexing, mlp_ref
+
+# the module (chipmunk_tpu.ops re-exports a function of the same name)
+jbit = importlib.import_module('chipmunk_tpu.ops.bitpack')
 
 # float32 on both sides: the two differ in summation order only
 TOL = dict(atol=1e-5, rtol=1e-5)
@@ -116,3 +121,20 @@ def test_indexing_matches_reference():
     np.testing.assert_array_equal(
         indexing.copy_indices(t(new), t(cache), t(mask)).numpy(),
         np.asarray(jidx.copy_indices(*map(jnp.asarray, (new, cache, mask)))))
+
+
+@pytest.mark.parametrize('shape', [(3, 16), (1, 2, 5, 528), (2, 7),
+                                   (4, 1), (2, 3, 931)])
+def test_bitpack_rows_matches_reference(shape):
+    """Byte for byte the reference's little-endian packing, with and
+    without a partial last byte, and the inverse."""
+    rng = np.random.default_rng(sum(shape))
+    mask = rng.random(shape) < 0.3
+    got = bitpack.bitpack_rows(t(mask))
+    ref = np.asarray(jbit.bitpack_rows(jnp.asarray(mask)))
+    assert got.dtype == torch.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got.numpy(), ref)
+    np.testing.assert_array_equal(
+        bitpack.bitunpack_rows(got, shape[-1]).numpy(), mask)
+    np.testing.assert_array_equal(
+        np.asarray(jbit.bitunpack_rows(jnp.asarray(ref), shape[-1])), mask)

@@ -46,6 +46,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert 'chipmunk_torch.models.sampling' in MODULES
     assert 'chipmunk_torch.utils.quant' in MODULES
     assert 'chipmunk_torch.kernels.int8_probe' in MODULES
+    assert 'chipmunk_torch.models.video_sampling' in MODULES
+    assert 'chipmunk_torch.ops.voxel' in MODULES
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -60,8 +62,9 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
     from chipmunk_torch.config import config_from_dict
     from chipmunk_torch.device import resolve_device
     from chipmunk_torch.models import (FluxModelConfig, FluxSampler,
-                                       FluxSparse, init_flux_params,
-                                       params_from_jax)
+                                       FluxSparse, HunyuanModel,
+                                       HunyuanModelConfig, init_flux_params,
+                                       init_hunyuan_params, params_from_jax)
     from chipmunk_torch.utils.quant import synth_quantized_flux_params
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     tiny = FluxModelConfig(hidden_size=128, num_heads=2, depth=1,
@@ -69,6 +72,10 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
                            axes_dim=(16, 24, 24), context_in_dim=32,
                            vec_in_dim=32, in_channels=16,
                            dtype=torch.float32)
+    video = HunyuanModelConfig(latent_t=4, latent_h=8, latent_w=16,
+                               hidden_size=128, num_heads=2, depth_double=1,
+                               depth_single=1, text_dim=64, vec_in_dim=32,
+                               axes_dim=(16, 24, 24), dtype=torch.float32)
     ck = config_from_dict({'attn': {'should_compress_indices': False}})
     sp = FluxSparse.build(ck, tiny, 512)
     gen = torch.Generator().manual_seed(0)
@@ -78,6 +85,8 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
                  lambda: FluxSampler(cfg=tiny, ck=ck, sp=sp, h_img=16,
                                      w_img=24),
                  lambda: synth_quantized_flux_params(0, tiny),
+                 lambda: init_hunyuan_params(gen, video),
+                 lambda: HunyuanModel(cfg=video, ck=ck),
                  lambda: resolve_device()):
         with pytest.raises(RuntimeError, match='CUDA'):
             call()
@@ -126,12 +135,14 @@ def test_chip_smoke_refuses_to_run_without_a_gpu(tmp_path):
 
 
 def test_unported_attention_paths_raise():
+    """Compressed indices, static masks (with the dense tail) and
+    valid_len, which raised before this port had them, now build."""
     from chipmunk_torch.config import AttnConfig
     from chipmunk_torch.modules import SparseDiffAttn
-    with pytest.raises(NotImplementedError):
-        SparseDiffAttn.build(AttnConfig(should_compress_indices=True), 512)
-    cfg = AttnConfig(should_compress_indices=False)
-    with pytest.raises(NotImplementedError):
-        SparseDiffAttn.build(cfg, 512, static_mask_tokens=torch.ones(4, 512))
-    with pytest.raises(NotImplementedError):
-        SparseDiffAttn.build(cfg, 512, valid_len=500)
+    cfg = AttnConfig(should_compress_indices=True, dense_fallback_frac=1.0)
+    mod = SparseDiffAttn.build(cfg, 512, valid_len=500,
+                               static_mask_tokens=torch.ones(4, 512,
+                                                             dtype=bool))
+    assert mod.valid_len == 500 and mod.dense_tail_g == 0
+    st = mod.init_state(1, 2, 128, torch.float32, device='cpu')
+    assert st.inds is not None and st.packed.shape == (1, 2, 4, 1)
