@@ -28,7 +28,9 @@
    video shapes (544x960x129 frames: 67,584 tokens, keys cut at 67,576,
    the 384-row dense tail, PAD_LSE rows; and 720p, 119,168 tokens, where
    a head's K+V exceeds the L2), each against its plain version on a
-   slice; then the main path ``hunyuan_denoise`` over the 50-step
+   slice, with bounds, TFLOP/s and, for ``dense_attn``, the time of one
+   ``scaled_dot_product_attention`` call on the same (cut) inputs; then
+   the main path ``hunyuan_denoise`` over the 50-step
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
    the full-width model cut to 2 double + 4 single blocks, random bf16
    weights from a seed, with its launch counts, a trace of a window of
@@ -57,7 +59,7 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
-OUR_KERNELS = ('dense_attn_kernel', 'dense_colsum_attn_kernel',
+OUR_KERNELS = ('flash_sm90_kernel',            # dense_attn, dense_colsum_attn
                'csp_attn_kernel', 'csp_hbm_attn_kernel', 'csp_mlp_mm1',
                'csp_mlp_mm2', 'quant_rows_kernel')
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
@@ -192,6 +194,9 @@ def kernel_phases(torch, mods):
         plain_ms=time_ms(torch, lambda: fa.dense_colsum_attn_plain(
             q, k, v, prev), 3),
         bound_ms=bnd, bound_by=by, library_ms=None))
+    for r in rows:
+        print(f"{r['name']} (FLUX): {attn_flops / r['ms'] / 1e9:.1f} TFLOP/s",
+              flush=True)
 
     # ---- csp_attn: jmax = 6 blocks of 128 (top_keys 0.165), counts from
     # 1 to jmax; o as for dense_attn (online vs exact softmax rounding)
@@ -424,6 +429,7 @@ def video_kernel_phases(torch, mods, tm, ck):
     out['540 csp_attn (vmem kernel) ms'] = time_ms(
         torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
                                    mode='vmem'), 10)
+    out['540 csp_attn (vmem kernel) bound ms'] = bnd
     del kv
 
     kc, vc = k[..., :n, :], v[..., :n, :]      # views: no copy
@@ -442,13 +448,24 @@ def video_kernel_phases(torch, mods, tm, ck):
     o_p, _ = fa.dense_attn_plain(q[..., t0:, :], kc, vc)
     check_close('dense_attn tail o (540p)', ot, o_p, 4e-3, 2 ** -6)
     out['540 dense_attn max_abs_err'] = err_d
+    flops = 4.0 * B * H * S * n * D
+    attn_bytes = B * H * (2 * S + 2 * n) * D * 2
     out['540 dense_attn ms'] = time_ms(torch, lambda: fa.dense_attn(
         q, kc, vc), 3)
-    out['540 dense_attn bound ms'] = bound_ms(4.0 * B * H * S * n * D,
-                                              B * H * (2 * S + 2 * n) * D
-                                              * 2)[0]
+    out['540 dense_attn TFLOP/s'] = flops / out['540 dense_attn ms'] / 1e9
+    out['540 dense_attn bound ms'] = bound_ms(flops, attn_bytes
+                                              + B * H * S * 4)[0]
+    out['540 dense_attn library ms (SDPA, keys cut)'] = time_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kc, vc), 3)
+    tail_flops = 4.0 * B * H * (S - t0) * n * D
     out['540 dense tail (384 rows) ms'] = time_ms(
         torch, lambda: fa.dense_attn(q[..., t0:, :], kc, vc), 10)
+    out['540 dense tail (384 rows) TFLOP/s'] = \
+        tail_flops / out['540 dense tail (384 rows) ms'] / 1e9
+    out['540 dense tail (384 rows) bound ms'] = bound_ms(
+        tail_flops, B * H * (2 * (S - t0) + 2 * n) * D * 2
+        + B * H * (S - t0) * 4)[0]
     from chipmunk_torch.ops.attn_ref import PAD_LSE
     prev = lse.clone()
     prev[..., n:] = PAD_LSE
@@ -465,6 +482,10 @@ def video_kernel_phases(torch, mods, tm, ck):
                     cs[:, :, r.start // 128:r.stop // 128], cs_p, 1e-4, 1e-3)
     out['540 dense_colsum_attn ms'] = time_ms(
         torch, lambda: fa.dense_colsum_attn(q, kc, vc, prev), 3)
+    out['540 dense_colsum_attn TFLOP/s'] = \
+        flops / out['540 dense_colsum_attn ms'] / 1e9
+    out['540 dense_colsum_attn bound ms'] = bound_ms(
+        flops, attn_bytes + B * H * S * 8 + cs.numel() * 4)[0]
     del q, k, v, kc, vc, o, od, ot, o_p, oc, cs, lc, lse, prev, m540
     torch.cuda.empty_cache()
 
@@ -498,13 +519,20 @@ def video_kernel_phases(torch, mods, tm, ck):
     out['720 csp_attn (vmem kernel) ms'] = time_ms(
         torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
                                    mode='vmem'), 5)
+    out['720 csp_attn (vmem kernel) bound ms'] = \
+        out['720 csp_attn_hbm bound ms']
     del kv
+    kc, vc = k[..., :n, :], v[..., :n, :]
+    flops = 4.0 * B * H * S * n * D
     out['720 dense_attn ms'] = time_ms(torch, lambda: fa.dense_attn(
-        q, k[..., :n, :], v[..., :n, :]), 2)
-    out['720 dense_attn bound ms'] = bound_ms(4.0 * B * H * S * n * D,
-                                              B * H * (2 * S + 2 * n) * D
-                                              * 2)[0]
-    del q, k, v, o, m720
+        q, kc, vc), 2)
+    out['720 dense_attn TFLOP/s'] = flops / out['720 dense_attn ms'] / 1e9
+    out['720 dense_attn bound ms'] = bound_ms(
+        flops, B * H * (2 * S + 2 * n) * D * 2 + B * H * S * 4)[0]
+    out['720 dense_attn library ms (SDPA, keys cut)'] = time_ms(
+        torch, lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, kc, vc), 2)
+    del q, k, v, kc, vc, o, m720
     torch.cuda.empty_cache()
     for key, val in out.items():
         print(f'video kernels: {key} {val:.4f}', flush=True)

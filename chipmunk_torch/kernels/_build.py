@@ -46,6 +46,7 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'chipmunk_dense_attn': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P],
+    'chipmunk_colsum_max_blocks': [],
     'chipmunk_dense_colsum_attn': [_P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _P],
     'chipmunk_csp_attn': [_P, _P, _P, _P, _P, _P,

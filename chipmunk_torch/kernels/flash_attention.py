@@ -164,11 +164,17 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f'{score_block})')
     prev_lse = prev_lse.float().contiguous()
     nb = -(-Sk // score_block)
+    lib = _build.library('flash_attention')
+    nb_max = lib.chipmunk_colsum_max_blocks()
+    if nb > nb_max:
+        raise ValueError(f'dense_colsum_attn kernel: Sk={Sk} gives {nb} score '
+                         f'blocks of {score_block}; a query group\'s row of '
+                         f'column sums fits shared memory for at most {nb_max} '
+                         f'(Sk <= {nb_max * score_block})')
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
     cs = torch.empty((B, H, Sq // qg, nb), dtype=torch.float32,
                      device=q.device)
-    lib = _build.library('flash_attention')
     _build.check(lib.chipmunk_dense_colsum_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), prev_lse.data_ptr(),
         o.data_ptr(), lse.data_ptr(), cs.data_ptr(), B * H, Sq, Sk, q_hs,

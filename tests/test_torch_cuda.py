@@ -1,7 +1,9 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
-(ragged Sq/Sk, kv_block 32 and 64, kv_valid, bm/bn of 256, the
-packed-KV csp kernel, keys and query rows passed as sliced views).  The kernels
+(ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of 64/128/256 with PAD_LSE rows, large
+scores, repeat calls bit-equal, kv_block 32 and 64, kv_valid, bm/bn of
+256, the packed-KV csp kernel, keys and query rows passed as sliced
+views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -166,6 +168,92 @@ def test_cuda_dense_kernels_take_sliced_views(gen):
         assert torch.equal(a, b)
     ref = FA.dense_colsum_attn_plain(q, k[..., :n, :], v[..., :n, :], prev)
     torch.testing.assert_close(out[1], ref[1], atol=1e-4, rtol=1e-3)
+
+
+def assert_attn_close(got, ref):
+    """(o, lse) or (o, cs, lse) against the plain version."""
+    torch.testing.assert_close(got[0].float(), ref[0].float(), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(got[-1], ref[-1], atol=1e-3, rtol=0)
+    if len(got) == 3:
+        torch.testing.assert_close(got[1], ref[1], atol=1e-4, rtol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sk', [1, 127, 128, 129, 333])
+@pytest.mark.parametrize('sq', [1, 64, 65, 127, 129, 384])
+def test_cuda_dense_attn_ragged_edges(gen, sq, sk):
+    """Sq and Sk around the 128-row and 128-key tile edges and the 64-row
+    halves that each consumer warpgroup owns, B = 2 (heads spaced across
+    batch): rows past Sq come in as zeros and are not written, keys past
+    Sk are masked."""
+    q = randn(gen, 2, 3, sq, 128)
+    k, v = randn(gen, 2, 3, sk, 128), randn(gen, 2, 3, sk, 128)
+    assert_attn_close(FA.dense_attn(q, k, v), FA.dense_attn_plain(q, k, v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sk', [333, 600])
+@pytest.mark.parametrize('score_block', [64, 128, 256])
+def test_cuda_dense_colsum_score_blocks(gen, score_block, sk):
+    """Score blocks of one half tile, one tile and two tiles, B = 2, with
+    PAD_LSE rows in both groups (they add exactly 0)."""
+    q = randn(gen, 2, 2, 256, 128)
+    k, v = randn(gen, 2, 2, sk, 128), randn(gen, 2, 2, sk, 128)
+    prev = FA.dense_attn_plain(randn(gen, 2, 2, 256, 128), k, v)[1]
+    prev[..., 120:128] = PAD_LSE
+    prev[..., -9:] = PAD_LSE
+    got = FA.dense_colsum_attn(q, k, v, prev, score_block=score_block)
+    ref = FA.dense_colsum_attn_plain(q, k, v, prev, score_block=score_block)
+    assert_attn_close(got, ref)
+    pad = prev.clone()
+    pad[..., :128] = PAD_LSE             # a group of pad rows only
+    cs = FA.dense_colsum_attn(q, k, v, pad, score_block=score_block)[1]
+    assert torch.equal(cs[:, :, 0], torch.zeros_like(cs[:, :, 0]))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_large_scores(gen):
+    """Scores of large magnitude that grow along the keys, so the running
+    max moves a lot from tile to tile; the column sums against the same
+    inputs' lse."""
+    q = randn(gen, 1, 2, 256, 128, scale=4.0)
+    ramp = torch.linspace(0.2, 3.0, 700, device='cuda')[:, None]
+    k = (randn(gen, 1, 2, 700, 128).float() * ramp).to(torch.bfloat16)
+    v = randn(gen, 1, 2, 700, 128)
+    ref = FA.dense_attn_plain(q, k, v)
+    assert_attn_close(FA.dense_attn(q, k, v), ref)
+    prev = ref[1]
+    assert_attn_close(FA.dense_colsum_attn(q, k, v, prev),
+                      FA.dense_colsum_attn_plain(q, k, v, prev))
+
+
+@pytest.mark.cuda
+def test_cuda_dense_kernels_repeat_bit_equal(gen):
+    """Two calls on the same inputs give the same bits (the column sums
+    too: fixed-order sums, no atomics)."""
+    q, k, v = (randn(gen, 1, 2, 384, 128) for _ in range(3))
+    kc, vc = k[..., :333, :], v[..., :333, :]
+    a, b = FA.dense_attn(q, kc, vc), FA.dense_attn(q, kc, vc)
+    prev = a[1].clone()
+    c, d = (FA.dense_colsum_attn(q, kc, vc, prev, score_block=64)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    for x, y in zip(a + c, b + d):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_colsum_raises_past_its_slots(gen):
+    """Sk whose column-sum slots would not fit shared memory: the wrapper
+    raises and names the limit."""
+    nb_max = FA._build.library('flash_attention').chipmunk_colsum_max_blocks()
+    q = randn(gen, 1, 1, 128, 128)
+    k = torch.zeros((1, 1, 64 * nb_max + 1, 128), dtype=torch.bfloat16,
+                    device='cuda')
+    with pytest.raises(ValueError, match=f'at most {nb_max}'):
+        FA.dense_colsum_attn(q, k, k, torch.zeros((1, 1, 128), device='cuda'),
+                             score_block=64)
 
 
 @pytest.mark.cuda

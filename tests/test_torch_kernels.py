@@ -494,3 +494,14 @@ def test_fp8_rounding_matches_jax():
     ok = ~np.isnan(ref)
     np.testing.assert_array_equal(got[ok], ref[ok])
     assert np.isnan(got[v.tolist().index(470.0)])       # not saturated
+
+
+def test_dense_wrappers_check_before_the_kernel():
+    """What the CUDA kernels refuse is refused by the wrappers on any
+    device: mismatched q/k/v, a query count that is no multiple of qg."""
+    from chipmunk_torch.kernels import flash_attention as fa
+    q = torch.zeros((1, 2, 130, 128))
+    with pytest.raises(ValueError, match='not \\[B,H,S,D\\] alike'):
+        fa.dense_attn(q, torch.zeros((1, 2, 9, 64)), torch.zeros((1, 2, 9, 64)))
+    with pytest.raises(ValueError, match='multiple of qg'):
+        fa.dense_colsum_attn(q, q, q, torch.zeros((1, 2, 130)))
