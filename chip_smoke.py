@@ -10,7 +10,10 @@
    in ``check_*`` and the phases below, and times kernel, plain version
    and (where one PyTorch call computes the same function) that call:
    the bf16 kernels, the int8-weight (``wq``) and int8-activation (``a8``)
-   sparse-MLP kernels, and the int8/bf16 tile GEMM probe.
+   sparse-MLP kernels, and the int8/bf16 tile GEMM probe.  For the short
+   rows (``csp_attn`` at FLUX, ``quant_rows``) it also gives the kernel's
+   own device time from torch.profiler's kernel records (``device_ms``),
+   since their ``ms`` includes the wrappers' host work.
 3. Drives the port's two main paths, each with the launch counts set to 0
    just before and read just after: ``FluxSampler.denoise`` over the
    50-step schedule of ``configs/flux-chipmunk.yml`` at 1280x768 with the
@@ -28,8 +31,10 @@
    video shapes (544x960x129 frames: 67,584 tokens, keys cut at 67,576,
    the 384-row dense tail, PAD_LSE rows; and 720p, 119,168 tokens, where
    a head's K+V exceeds the L2), each against its plain version on a
-   slice, with bounds, TFLOP/s and, for ``dense_attn``, the time of one
-   ``scaled_dot_product_attention`` call on the same (cut) inputs; then
+   slice, with bounds, TFLOP/s and the time of one
+   ``scaled_dot_product_attention`` call computing the same function (for
+   the csp kernels with a boolean block mask on a few heads, scaled to
+   all 24: the mask of all heads does not fit the card); then
    the main path ``hunyuan_denoise`` over the 50-step
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
    the full-width model cut to 2 double + 4 single blocks, random bf16
@@ -59,9 +64,8 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
-OUR_KERNELS = ('flash_sm90_kernel',            # dense_attn, dense_colsum_attn
-               'csp_attn_kernel', 'csp_hbm_attn_kernel', 'csp_mlp_mm1',
-               'csp_mlp_mm2', 'quant_rows_kernel')
+OUR_KERNELS = ('attn_sm90_kernel',     # dense_attn, dense_colsum_attn, csp
+               'csp_mlp_mm1', 'csp_mlp_mm2', 'quant_rows_kernel')
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -108,6 +112,28 @@ def time_ms(torch, fn, n):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / n
+
+
+def device_ms(torch, fn, n):
+    """(ms, kernel name): device time per call of the longest-running CUDA
+    kernel that ``fn`` launches, from torch.profiler's kernel records over
+    ``n`` calls; the wrapper's host work and any small torch kernels it
+    launches are left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    top = max((e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA),
+              key=lambda e: e.self_device_time_total)
+    if top.count != n:
+        fail(f'device_ms: {top.key} ran {top.count} times in {n} calls')
+    return top.self_device_time_total / 1e3 / n, top.key
 
 
 def fp8_ulp(torch, x):
@@ -218,6 +244,8 @@ def kernel_phases(torch, mods):
                        kv_bytes + 2 * B * H * S * D * 2
                        + inds.numel() * 4 + counts.numel() * 4)
     mask = block_mask(torch, pinds, counts, 128, nb)
+    dev_ms, dev_name = device_ms(
+        torch, lambda: ca.csp_attn(q, k, v, inds, counts), 20)
     rows.append(dict(
         name='csp_attn', source='chipmunk_torch/csrc/csp_attention.cu',
         replaces='chipmunk_tpu/kernels/csp_attention.py:102',
@@ -228,7 +256,13 @@ def kernel_phases(torch, mods):
         bound_ms=bnd, bound_by=by,
         library_ms=time_ms(torch, lambda: torch.nn.functional
                            .scaled_dot_product_attention(
-                               q, k, v, attn_mask=mask), 5)))
+                               q, k, v, attn_mask=mask), 5),
+        device_ms=dev_ms))
+    flops = csp_flops(counts)
+    print(f"csp_attn (FLUX): {flops / 1e9:.2f} GFLOP; "
+          f"{flops / rows[-1]['ms'] / 1e9:.1f} TFLOP/s with the wrapper "
+          f"({rows[-1]['ms']:.4f} ms), {flops / dev_ms / 1e9:.1f} TFLOP/s "
+          f"on the device ({dev_ms:.4f} ms, {dev_name[:90]})", flush=True)
     del q, k, v, o, o_p, cs, cs_p, mask
 
     # ---- csp_mlp_mm1 / csp_mlp_mm2 at the single-block MLP shape:
@@ -324,6 +358,28 @@ def block_mask(torch, pinds, counts, kv_block, nb, kv_valid=None):
     return m
 
 
+def csp_flops(counts, D=D, kv_block=128):
+    """4 * 128 * kv_block * D FLOP per selected (group, block)."""
+    return 4.0 * 128 * kv_block * D * counts.sum().item()
+
+
+def csp_library_ms(torch, q, k, v, pinds, counts, nb, kv_valid, heads, n):
+    """ms of one scaled_dot_product_attention call with the boolean block
+    mask over the first ``heads`` heads: the mask of all heads does not
+    fit the card (4.6 GB a head at 540p, 14.2 GB at 720p, and the call
+    makes a bf16 bias of twice that)."""
+    torch.cuda.empty_cache()
+    mask = block_mask(torch, pinds[:, :heads], counts[:, :heads], 128, nb,
+                      kv_valid)
+    q1, k1, v1 = (x[:, :heads] for x in (q, k, v))
+    ms = time_ms(torch, lambda: torch.nn.functional
+                 .scaled_dot_product_attention(q1, k1, v1, attn_mask=mask),
+                 n)
+    del mask, q1, k1, v1
+    torch.cuda.empty_cache()
+    return ms
+
+
 def csp_bound(torch, pinds, counts, q, kv_block=128):
     """(bound ms, by) of a csp call: 4*128*kv_block*D FLOP per selected
     (group, block); bytes: q and o once, each block some group of its
@@ -335,7 +391,7 @@ def csp_bound(torch, pinds, counts, q, kv_block=128):
     nbytes = (int(sel.sum().item()) * kv_block * D * 2 * 2
               + 2 * B * H * Sq * D * 2 + pinds.numel() * 4
               + counts.numel() * 4)
-    return bound_ms(4.0 * 128 * kv_block * D * counts.sum().item(), nbytes)
+    return bound_ms(csp_flops(counts, D, kv_block), nbytes)
 
 
 def video_selection(torch, mod, H, gen):
@@ -367,7 +423,10 @@ def video_kernel_phases(torch, mods, tm, ck):
     library_ms of the csp_attn_hbm row: scaled_dot_product_attention with
     the boolean block mask on LIB_HEADS heads (a [67584, 67584] mask is
     4.6 GB per head, and the call makes a bf16 bias of it, 9.1 GB; all 24
-    heads would not fit); plain_ms on head 0."""
+    heads would not fit); plain_ms on head 0.  Both csp kernels compute
+    the same function on the same inputs, so one library time serves
+    both, scaled to 24 heads (540p: heads 0-3 x 6; 720p: head 0 x 24).
+    TFLOP/s of each csp time: csp_flops over it."""
     fa, ca = mods[0], mods[1]
     gen = torch.Generator('cuda')
     gen.manual_seed(SEED + 3)
@@ -405,19 +464,13 @@ def video_kernel_phases(torch, mods, tm, ck):
     check_close('csp_attn_hbm vs csp_attn (540p)', o, o_v, 4e-3, 2 ** -6)
     del o_v
     bnd, by = csp_bound(torch, pinds, counts, q)
+    flops = csp_flops(counts)
     plain_ms = time_ms(torch, lambda: ca.csp_attn_hbm_plain(
         q[:, :1], kv[:1], pinds[:, :1], counts[:, :1], kv_valid=n), 1)
-    torch.cuda.empty_cache()
-    mask = block_mask(torch, pinds[:, :LIB_HEADS], counts[:, :LIB_HEADS],
-                      128, nb, n)
-    q1, k1, v1 = (x[:, :LIB_HEADS] for x in (q, k, v))
-    lib_ms = time_ms(torch, lambda: torch.nn.functional
-                     .scaled_dot_product_attention(q1, k1, v1,
-                                                   attn_mask=mask), 3)
-    del mask, q1, k1, v1
-    torch.cuda.empty_cache()
+    lib_ms = csp_library_ms(torch, q, k, v, pinds, counts, nb, n, LIB_HEADS,
+                            3)
     row = dict(name='csp_attn_hbm',
-               source='chipmunk_torch/csrc/csp_hbm_attention.cu',
+               source='chipmunk_torch/csrc/csp_attention.cu',
                replaces='chipmunk_tpu/kernels/csp_attention.py:193',
                max_abs_err=err,
                ms=time_ms(torch, lambda: ca.csp_attn_hbm(
@@ -425,11 +478,16 @@ def video_kernel_phases(torch, mods, tm, ck):
                plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
                library_ms=lib_ms, plain_scope='head 0 of 24',
                library_scope=f'heads 0-{LIB_HEADS - 1} of 24')
+    out['540 csp_attn_hbm TFLOP/s'] = flops / row['ms'] / 1e9
     out['540 pack_kv ms'] = time_ms(torch, lambda: ca.pack_kv(k, v, 128), 10)
     out['540 csp_attn (vmem kernel) ms'] = time_ms(
         torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
                                    mode='vmem'), 10)
+    out['540 csp_attn (vmem kernel) TFLOP/s'] = \
+        flops / out['540 csp_attn (vmem kernel) ms'] / 1e9
     out['540 csp_attn (vmem kernel) bound ms'] = bnd
+    out[f'540 csp library ms (SDPA, block mask, heads 0-{LIB_HEADS - 1} '
+        f'x {H // LIB_HEADS})'] = lib_ms * H / LIB_HEADS
     del kv
 
     kc, vc = k[..., :n, :], v[..., :n, :]      # views: no copy
@@ -513,12 +571,16 @@ def video_kernel_phases(torch, mods, tm, ck):
                     2 ** -6)
     del o_p
     out['720 csp_attn_hbm bound ms'] = csp_bound(torch, pinds, counts, q)[0]
+    flops = csp_flops(counts)
     out['720 csp_attn_hbm ms'] = time_ms(torch, lambda: ca.csp_attn_hbm(
         q, kv, pinds, counts, kv_valid=n), 5)
+    out['720 csp_attn_hbm TFLOP/s'] = flops / out['720 csp_attn_hbm ms'] / 1e9
     out['720 pack_kv ms'] = time_ms(torch, lambda: ca.pack_kv(k, v, 128), 5)
     out['720 csp_attn (vmem kernel) ms'] = time_ms(
         torch, lambda: ca.csp_attn(q, k, v, pinds, counts, kv_valid=n,
                                    mode='vmem'), 5)
+    out['720 csp_attn (vmem kernel) TFLOP/s'] = \
+        flops / out['720 csp_attn (vmem kernel) ms'] / 1e9
     out['720 csp_attn (vmem kernel) bound ms'] = \
         out['720 csp_attn_hbm bound ms']
     del kv
@@ -532,12 +594,26 @@ def video_kernel_phases(torch, mods, tm, ck):
     out['720 dense_attn library ms (SDPA, keys cut)'] = time_ms(
         torch, lambda: torch.nn.functional.scaled_dot_product_attention(
             q, kc, vc), 2)
-    del q, k, v, kc, vc, o, m720
+    del kc, vc, o
     torch.cuda.empty_cache()
     for key, val in out.items():
         print(f'video kernels: {key} {val:.4f}', flush=True)
+    key = f'720 csp library ms (SDPA, block mask, head 0 x {H})'
+    out[key] = csp_library_ms(torch, q, k, v, pinds, counts, S // 128, n, 1,
+                              2) * H
+    print(f'video kernels: {key} {out[key]:.4f}', flush=True)
+    del q, k, v, m720
+    torch.cuda.empty_cache()
     print_rows([row])
     return row, out
+
+
+def print_json(rows):
+    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
+            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
+            'device_ms', 'plain_scope', 'library_scope')
+    print(json.dumps({'kernels': [{k: r[k] for k in keys if k in r}
+                                  for r in rows]}), flush=True)
 
 
 def print_rows(rows):
@@ -545,7 +621,9 @@ def print_rows(rows):
         print(f"kernel {r['name']}: max_abs_err {r['max_abs_err']:.3e} "
               f"ms {r['ms']:.4f} plain_ms {r['plain_ms']:.4f} "
               f"bound_ms {r['bound_ms']:.4f} ({r['bound_by']}) "
-              f"library_ms {r['library_ms']}", flush=True)
+              f"library_ms {r['library_ms']}"
+              + (f" device_ms {r['device_ms']:.4f}" if 'device_ms' in r
+                 else ''), flush=True)
 
 
 def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
@@ -617,6 +695,11 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
             time_ms(torch, lambda: cm.quant_rows(x), 20),
             time_ms(torch, lambda: cm.quant_rows_plain(x), 3),
             0.0, T * C * 2 + T * C + T * 4, PEAK_INT8_OPS)
+        rows[-1]['device_ms'], name = device_ms(
+            torch, lambda: cm.quant_rows(x), 20)
+        print(f"quant_rows: {rows[-1]['device_ms']:.4f} ms on the device "
+              f"({name[:90]}), {rows[-1]['ms']:.4f} ms with the wrapper",
+              flush=True)
 
     # ---- csp_mlp_mm1_a8
     d8, sd, act_k = cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(),
@@ -1208,12 +1291,8 @@ def main():
     vrow['route'] = 'cuda'
     vrow['launches'] = vlaunches[vrow['name']]
     rows += qrows + prows + [vrow]
-    keys = ('name', 'route', 'source', 'replaces', 'launches', 'max_abs_err',
-            'ms', 'plain_ms', 'bound_ms', 'bound_by', 'library_ms',
-            'plain_scope', 'library_scope')
     print(smi)
-    print(json.dumps({'kernels': [{k: r[k] for k in keys if k in r}
-                                  for r in rows]}))
+    print_json(rows)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}), flush=True)

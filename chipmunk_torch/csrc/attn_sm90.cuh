@@ -1,8 +1,10 @@
-// Hopper building blocks of the dense flash-attention kernels
-// (flash_attention.cu): TMA tensor maps and loads, mbarriers, named
-// barriers, register reallocation, and the two warpgroup products of a
-// 64 x 128 x 128 attention step.  Head dim 128, bf16 operands, f32
-// accumulators.
+// Hopper attention kernels: TMA tensor maps and loads, mbarriers, named
+// barriers, register reallocation, the two warpgroup products of a
+// 64 x 128 x 128 attention step, and the one kernel template that every
+// attention kernel of the port instantiates (attn_sm90_kernel, below):
+// dense_attn and dense_colsum_attn (flash_attention.cu, keys in order)
+// and both column-sparse kernels (csp_attention.cu, keys gathered by
+// block index).  Head dim 128, bf16 operands, f32 accumulators.
 //
 // Shared-memory tiles are laid out as TMA writes them with 128-byte
 // swizzle: a [rows][128] bf16 tile is two boxes of [rows][64] (128-byte
@@ -10,6 +12,9 @@
 // sits at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes).  Every tile
 // starts on a 1024-byte boundary, so the wgmma descriptors take a base
 // offset of 0 and the hardware undoes the swizzle from the address bits.
+// A tile may also be filled by several boxes of fewer rows (32 or 64,
+// multiples of the 8-row atom): each lands at its own 1024-byte-aligned
+// offset, so the layout is the same.
 //
 //   S = Q K^T   wgmma.m64n128k16, A (Q) and B (K) from shared memory, both
 //               K-major (d contiguous): SBO 1024 bytes (8 rows), LBO unused;
@@ -22,18 +27,37 @@
 //
 // Accumulator of m64nNk16 in a warpgroup (warp w, lane = 4 g + t): d[4j +
 // e] holds row 16 w + g + 8 (e / 2), column 8 j + 2 t + (e % 2) -- per
-// 8-column chunk the C fragment of mma.sync.m16n8k16.
+// 8-column chunk the C fragment of the warp-level m16n8k16 product.
 #pragma once
 
 #include <cuda.h>
 
-#include "attn_tile.cuh"   // HD, quad_max, quad_sum, common.cuh
+#include "common.cuh"
 
 namespace chipmunk {
 namespace sm90 {
 
+constexpr int HD = 128;          // head dim
 constexpr int KT = 128;          // keys per tile
 constexpr int BOX_ROW = 128;     // bytes per row of a 64-wide box
+
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Allow a kernel dynamic shared memory above the 48 KB default; returns
+// the cudaError_t of the attribute call.
+template <typename K>
+inline int allow_smem(K kernel, int bytes) {
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
 
 // ---------------------------------------------------------------- TMA
 // A 3-D map over a [BH][S][128] bf16 tensor whose rows are contiguous and
@@ -264,6 +288,350 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32]
   for (int kk = 0; kk < KT / 16; ++kk)
     wgmma_rs_t(o, &p[4 * kk],
                gmma_desc(v + kk * 16 * BOX_ROW, KT * BOX_ROW, 1024));
+}
+
+// ------------------------------------------------------ the kernel
+// One CTA covers 128 query rows of one (batch, head) in three warpgroups:
+//   - warpgroup 0, the producer, drops to 24 registers (setmaxnreg); one
+//     thread issues the TMA loads: Q once, then the K and V tiles of 128
+//     keys that the key source names, through a ring of ST stages, each
+//     with its own "full" mbarrier for K and for V (Q K^T starts while V
+//     still lands) and an "empty" mbarrier on which every consumer thread
+//     arrives when done with it.
+//   - each consumer warpgroup (240 registers) owns 64 rows: S = Q K^T by
+//     wgmma.m64n128k16 from shared memory, the key source's mask, the
+//     online softmax in base 2 with tau folded into the exp2 argument (one
+//     FFMA a score) on ex2.approx.ftz, P packed to bf16 in registers (as
+//     the TPU kernels cast p to V's dtype) and used as the register A
+//     operand of O += P V: P never touches shared memory.  In a key step a
+//     warpgroup issues S(i) and P V(i - 1) together, waits for S, computes
+//     the exponentials while P V runs, then waits for it, rescales O and
+//     packs P.  The two warpgroups take turns issuing ("ping-pong", two
+//     named barriers), so one's softmax runs under the other's products.
+//     The epilogue writes O / l as bf16 (l == 0 guarded to 1, so a row
+//     with no unmasked key gives 0) and, where asked, lse = m + log2 l.
+// Masked scores are -inf in registers: they add exactly 0 to l and O even
+// in a row whose keys so far were all masked (a finite -1e30 would give
+// p = 1 there, 2^(-1e30 tau + 1e30 tau)).
+// Registers: 24 + 2 x 240 per 128 threads = 64,512 of 65,536 (the launch
+// bound of 384 threads gives 168 each at entry).  Shared memory: Q 32 KB
+// + ST x (K 32 KB + V 32 KB), 1 KB for alignment, 256 bytes for the
+// barriers and the key source's per-stage records, and for the column
+// sums their hand-off ring and row.
+//
+// A key source (Keys) is built by every thread from (p, bh, group) and
+// gives: tiles(), the CTA's number of 128-key tiles; load(...), run by the
+// producer thread, which arms the stage's two mbarriers and issues the
+// TMA loads of tile i (it may leave up to 8 ints per stage in rec, which
+// the consumers read after the K barrier); mask(rec, i, s, t), which sets
+// the masked scores of tile i in a consumer thread's accumulator to -inf.
+
+constexpr int BM = 128;                   // query rows per CTA
+constexpr int TILE = KT * HD * 2;         // bytes of a K or V tile
+constexpr int SMEM_MAX = 232448;          // opt-in limit per block
+constexpr int BAR_BYTES = 256;            // barriers, then records at +128
+constexpr int REC_INTS = 8;               // a stage's record
+constexpr int HAND_BYTES = 2 * 8 * 2 * 32 * 4;    // colsum hand-off ring
+
+template <int ST>
+constexpr int ring_bytes() {
+  return 1024 + BM * HD * 2 + 2 * ST * TILE + BAR_BYTES;
+}
+
+struct Params {
+  __nv_bfloat16* o;
+  float* lse;              // nullptr: not written
+  const float* prev_lse;   // colsum only
+  float* cs;               // colsum only
+  int Sq, Sk, score_block, nb;
+  float tau;
+  // the column-sparse key source
+  const int* inds;         // [BH][G][jmax]
+  const int* counts;       // [BH][G]
+  int jmax, kv_block, kv_valid;
+  int kstride, voff;       // map rows per block; V rows after K rows
+};
+
+__device__ __forceinline__ float warp_sum(float x) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    x += __shfl_xor_sync(0xffffffffu, x, off);
+  return x;
+}
+
+__device__ __forceinline__ float neg_inf() {
+  return __uint_as_float(0xff800000u);
+}
+
+template <int ST, bool CS, class Keys>
+__global__ void __launch_bounds__(384, 1)
+attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv, const Params p) {
+  static_assert(8 * (5 + 3 * ST) <= 128 &&
+                128 + 4 * REC_INTS * ST <= BAR_BYTES, "barrier area");
+  constexpr int Q_BOX = BM * BOX_ROW;            // bytes of one Q box
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t sq = (raw + 1023) & ~1023u;
+  const uint32_t sk = sq + 2 * Q_BOX, sv = sk + ST * TILE;
+  const uint32_t sbar = sv + ST * TILE;
+  // barriers: q_full, k_full[ST], v_full[ST], empty[ST]
+  auto k_full = [&](int s) { return sbar + 8 * (1 + s); };
+  auto v_full = [&](int s) { return sbar + 8 * (1 + ST + s); };
+  auto empty = [&](int s) { return sbar + 8 * (1 + 2 * ST + s); };
+  // colsum: the hand-off ring [2][8 warps][2 halves][32 lanes] and the
+  // group's row of column sums [nb]; cs_full/cs_empty per hand-off slot
+  auto cs_full = [&](int r) { return sbar + 8 * (1 + 3 * ST + r); };
+  auto cs_empty = [&](int r) { return sbar + 8 * (3 + 3 * ST + r); };
+  int* recs = reinterpret_cast<int*>(smem_raw + (sbar - raw) + 128);
+  float* hand = reinterpret_cast<float*>(smem_raw + (sbar - raw) + BAR_BYTES);
+  float* sums = hand + HAND_BYTES / 4;
+
+  const int bh = blockIdx.y, row0 = blockIdx.x * BM;
+  const Keys keys(p, bh, blockIdx.x);
+  const int n = keys.tiles();
+  if (threadIdx.x == 0) {
+    mbar_init(sbar, 1);
+    for (int s = 0; s < ST; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(empty(s), 256);
+    }
+    for (int r = 0; r < 2; ++r) {
+      mbar_init(cs_full(r), 256);
+      mbar_init(cs_empty(r), 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // ------------------------------------------------------- producer
+    reg_dealloc<24>();
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(sbar, 2 * Q_BOX);
+      tma_load_tile(sq, &tq, sbar, row0, bh, Q_BOX);
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST;
+        if (i >= ST) mbar_wait(empty(s), ((i / ST) - 1) & 1);
+        keys.load(&tk, &tv, sk + s * TILE, sv + s * TILE, k_full(s),
+                  v_full(s), recs + REC_INTS * s, i, bh);
+      }
+    } else if (CS && threadIdx.x / 32 == 1) {
+      // The column-sum reducer: for each key tile, the 8 consumer warps'
+      // per-lane partials of both 64-key halves, summed in a fixed order
+      // (lane by lane across the warps, then across the lanes), into the
+      // group's row; only this warp touches the row, then writes it out.
+      const int lane = threadIdx.x & 31;
+      for (int b = lane; b < p.nb; b += 32) sums[b] = 0.f;
+      __syncwarp();
+      for (int i = 0; i < n; ++i) {
+        const int r = i & 1;
+        mbar_wait(cs_full(r), (i >> 1) & 1);
+        const float* h = hand + r * 512;
+        float v0 = 0.f, v1 = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) {
+          v0 += h[w * 64 + lane];
+          v1 += h[w * 64 + 32 + lane];
+        }
+        v0 = warp_sum(v0);
+        v1 = warp_sum(v1);
+        if (lane == 0) {
+          mbar_arrive(cs_empty(r));
+          // a score block is a multiple of 64 keys: the second half lies
+          // in the first half's block or the next
+          const int key0 = i * KT, b0 = key0 / p.score_block;
+          if (key0 + KT / 2 >= p.Sk ||
+              (key0 + KT / 2) / p.score_block == b0) {
+            sums[b0] += v0 + v1;
+          } else {
+            sums[b0] += v0;
+            sums[b0 + 1] += v1;
+          }
+        }
+      }
+      __syncwarp();
+      float* cs_row = p.cs + ((size_t)bh * gridDim.x + blockIdx.x) * p.nb;
+      for (int b = lane; b < p.nb; b += 32) cs_row[b] = sums[b];
+    }
+  } else {
+    // ------------------------------------------------------- consumers
+    reg_alloc<240>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int r0 = row0 + 64 * c + 16 * warp + g;   // rows r0 and r0 + 8
+    const float tau = p.tau;
+    float o[64], s[64];
+    uint32_t pf[32];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
+
+    float pl0 = 0.f, pl1 = 0.f, cp0 = 0.f, cp1 = 0.f;
+    if (CS) {
+      pl0 = p.prev_lse[(size_t)bh * p.Sq + r0];
+      pl1 = p.prev_lse[(size_t)bh * p.Sq + r0 + 8];
+    }
+
+    // Turns of the two consumers: each waits on its own named barrier
+    // (1 + c) and, having issued, lets the other go; consumer 0 starts.
+    // Consumer 1 skips its last pass, so every barrier phase completes.
+    auto my_turn = [&]() { bar_sync(1 + c, 256); };
+    auto pass_turn = [&](bool last) {
+      if (!(c == 1 && last)) bar_arrive(2 - c, 256);
+    };
+    if (c == 1) bar_arrive(1, 256);
+
+    // Exponentials of key tile i into s (f32), row sums into l, and the
+    // column-sum partials; the O rescale and the bf16 packing follow once
+    // the previous P V has finished.
+    auto softmax = [&](int i) {
+      keys.mask(recs + REC_INTS * (i % ST), i, s, t);
+      float mx0 = NEG_INF, mx1 = NEG_INF;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        mx0 = fmaxf(mx0, fmaxf(s[4 * j], s[4 * j + 1]));
+        mx1 = fmaxf(mx1, fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      const float mn0 = fmaxf(m0, quad_max(mx0) * tau);
+      const float mn1 = fmaxf(m1, quad_max(mx1) * tau);
+      al0 = ex2(m0 - mn0);
+      al1 = ex2(m1 - mn1);
+      m0 = mn0;
+      m1 = mn1;
+      float rs00 = 0.f, rs01 = 0.f, rs10 = 0.f, rs11 = 0.f;   // [row][half]
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        s[4 * j] = ex2(fmaf(s[4 * j], tau, -mn0));
+        s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], tau, -mn0));
+        s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], tau, -mn1));
+        s[4 * j + 3] = ex2(fmaf(s[4 * j + 3], tau, -mn1));
+        if (j < 8) {
+          rs00 += s[4 * j] + s[4 * j + 1];
+          rs10 += s[4 * j + 2] + s[4 * j + 3];
+        } else {
+          rs01 += s[4 * j] + s[4 * j + 1];
+          rs11 += s[4 * j + 2] + s[4 * j + 3];
+        }
+      }
+      l0 = l0 * al0 + (rs00 + rs01);
+      l1 = l1 * al1 + (rs10 + rs11);
+      if (CS) {
+        const float f0 = ex2(mn0 - pl0), f1 = ex2(mn1 - pl1);
+        cp0 = rs00 * f0 + rs10 * f1;
+        cp1 = rs01 * f0 + rs11 * f1;
+      }
+    };
+    // hand tile i's column-sum partials of both halves to the reducer
+    auto colsum_hand = [&](int i) {
+      if (!CS) return;
+      const int r = i & 1;
+      if (i >= 2) mbar_wait(cs_empty(r), ((i >> 1) - 1) & 1);
+      float* h = hand + r * 512 + (4 * c + warp) * 64;
+      h[lane] = cp0;
+      h[32 + lane] = cp1;
+      mbar_arrive(cs_full(r));
+    };
+    auto rescale_pack = [&]() {
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j] *= al0;
+        o[4 * j + 1] *= al0;
+        o[4 * j + 2] *= al1;
+        o[4 * j + 3] *= al1;
+      }
+      // A fragment of key step kk: words (g, 2t), (g+8, 2t), (g, 2t+8),
+      // (g+8, 2t+8) = chunks 2kk and 2kk+1 of the S accumulator
+#pragma unroll
+      for (int kk = 0; kk < 8; ++kk) {
+        pf[4 * kk] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
+        pf[4 * kk + 1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
+        pf[4 * kk + 2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
+        pf[4 * kk + 3] = pack_bf16(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+    };
+
+    const uint32_t qa = sq + c * 64 * BOX_ROW;
+    mbar_wait(sbar, 0);
+    // key step 0: S(0) alone
+    my_turn();
+    mbar_wait(k_full(0), 0);
+    wgmma_fence();
+    issue_qk(s, qa, Q_BOX, sk);
+    wgmma_commit();
+    pass_turn(false);
+    wgmma_wait<0>();
+    fence_acc(s);
+    softmax(0);
+    rescale_pack();
+    colsum_hand(0);
+    // key step i: S(i) with P V(i - 1)
+    for (int i = 1; i < n; ++i) {
+      const int ps = (i - 1) % ST, st = i % ST;
+      my_turn();
+      mbar_wait(k_full(st), (i / ST) & 1);
+      mbar_wait(v_full(ps), ((i - 1) / ST) & 1);
+      wgmma_fence();
+      issue_qk(s, qa, Q_BOX, sk + st * TILE);
+      wgmma_commit();
+      issue_pv(o, pf, sv + ps * TILE);
+      wgmma_commit();
+      pass_turn(false);
+      wgmma_wait<1>();
+      fence_acc(s);
+      softmax(i);
+      wgmma_wait<0>();
+      fence_acc(o);
+      mbar_arrive(empty(ps));
+      rescale_pack();
+      colsum_hand(i);
+    }
+    // last: P V(n - 1)
+    my_turn();
+    mbar_wait(v_full((n - 1) % ST), ((n - 1) / ST) & 1);
+    wgmma_fence();
+    issue_pv(o, pf, sv + ((n - 1) % ST) * TILE);
+    wgmma_commit();
+    pass_turn(true);
+    wgmma_wait<0>();
+    fence_acc(o);
+
+    // epilogue: O / l as bf16, lse = m + log2 l; rows past Sq not written
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + 8 * h;
+      float l = quad_sum(h ? l1 : l0);
+      l = l == 0.f ? 1.f : l;
+      if (r < p.Sq) {
+        __nv_bfloat16* orow = p.o + ((size_t)bh * p.Sq + r) * HD;
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+          *reinterpret_cast<uint32_t*>(orow + 8 * j + 2 * t) =
+              pack_bf16(o[4 * j + 2 * h] / l, o[4 * j + 2 * h + 1] / l);
+        if (p.lse != nullptr && t == 0)
+          p.lse[(size_t)bh * p.Sq + r] = (h ? m1 : m0) + log2f(l);
+      }
+    }
+  }
+}
+
+// Launch over G query groups x BH heads (groups fastest, so the CTAs
+// resident at one time share a head and its K/V stays in L2) with smem
+// bytes of dynamic shared memory; returns a cudaError_t.
+template <int ST, bool CS, class Keys>
+int launch_attn(const CUtensorMap& tq, const CUtensorMap& tk,
+                const CUtensorMap& tv, const Params& p, int G, int BH,
+                int smem, cudaStream_t stream) {
+  if (smem > SMEM_MAX) return (int)cudaErrorInvalidValue;
+  static const int attr = allow_smem(attn_sm90_kernel<ST, CS, Keys>, SMEM_MAX);
+  if (attr != 0) return attr;
+  attn_sm90_kernel<ST, CS, Keys><<<dim3(G, BH), 384, smem, stream>>>(
+      tq, tk, tv, p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace sm90

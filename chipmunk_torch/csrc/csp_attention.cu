@@ -1,92 +1,210 @@
 // Column-sparse attention: each 128-row query group attends, with an exact
-// softmax, only over its selected kv_block-token KV blocks.
+// softmax in log2 domain, only over the counts[g] kv_block-key blocks
+// listed in inds[g].  One kernel, two places where a block's keys lie.
 //
 // Replaces (TPU reference, Pallas):
 //   csp_attn (mode 'vmem') <- chipmunk_tpu/kernels/csp_attention.py:102
-//                             (_csp_vmem_kernel)
+//                             (_csp_vmem_kernel): K and V read in place
+//   csp_attn_hbm           <- chipmunk_tpu/kernels/csp_attention.py:193
+//                             (_csp_hbm_packed_kernel): K and V packed per
+//                             block, [B*H, nb, 2*kv_block, D]
 //
-// Bound on the H100: operations for the FLUX shape.  A group reads
-// counts[g] * kv_block keys (6 blocks of 128 at top_keys = 0.165), so a
-// call is 4 * 128 * sum(counts * kv_block) * D * H FLOP (~41 GFLOP when
-// every group takes jmax = 6 blocks) while the inputs are the same ~107 MB
-// as dense attention; the floor is ~0.04 ms either way, and the gather
-// re-reads K/V blocks from L2 rather than HBM (all of a head's K/V,
-// 2.2 MB, fits the 50 MB L2 many times over).
+// Bound on the H100: operations, 4 * 128 * kv_block * D FLOP per selected
+// (group, block) -- 8.4 MFLOP at kv_block 128 -- at 989 TFLOP/s.  At the
+// HunyuanVideo 540p shape (24 heads x 528 groups, ~34 selected blocks per
+// group) a call is ~3.6 TFLOP, ~3.6 ms, while q, o and the K/V blocks some
+// group selects are ~1.7 GB read or written once, ~0.5 ms at 3.35 TB/s.
+// At FLUX (24 heads x 34 groups, 1-6 blocks each) the ~24 GFLOP take
+// ~0.024 ms and the ~100 MB of q, o and K/V ~0.031 ms, so bytes bound
+// there.  The gather re-reads each block once per group that selects it
+// (64 KB of K+V for 8.4 MFLOP, 128 FLOP/byte), so it must come from L2 for
+// the tensor cores to set the pace: a head's K+V is 34.6 MB at 540p and
+// fits the 50 MB L2; at 720p it is 61 MB and part of the gather comes
+// from device memory.
 //
-// Design: the TPU kernel stages a whole K/V head in VMEM and gathers
-// blocks with local DMAs; there is no such room here, so one block owns
-// one (head, query group), reads its own index row (no scalar prefetch
-// on this card), and streams the selected blocks through the two-stage
-// cp.async ring of attn_tile.cuh in 64- (or 32-) key tiles, with its
-// online softmax.
-// Positions past counts[g] are never visited; keys at or past kv_valid
-// are masked.  The output is fresh; the module adds the delta cache.
-#include "attn_tile.cuh"
+// Design: attn_sm90_kernel (attn_sm90.cuh) -- TMA, mbarriers, a producer
+// warpgroup and two consumer warpgroups that take turns at wgmma, the
+// softmax of one tile under the other's products -- with the key source
+// CspKeys below.  The TPU kernels gather a group's jmax blocks into one
+// VMEM scratch for an exact softmax over the whole row; a group's gather
+// at 540p (jmax 44) is 2.8 MB, far beyond a block's 227 KB here, so one
+// CTA owns one (query group, b h), reads its own count and index row, and
+// streams the selected blocks through the ring with an online softmax.
+// Tile i holds positions 128 i .. 128 i + 127 of the group's gathered
+// keys (the concatenation of its count selected blocks, count clamped to
+// [1, jmax]), loaded as 128 / RB boxes of RB = gcd(kv_block, 128) rows:
+// kv_block 128 is one block per tile, a multiple of 128 several tiles per
+// block, 64 and 32 two and four blocks per tile.  In place, block b's rows
+// start at row b * kv_block of the (d, Sk, B H) maps of K and V over their
+// head-strided views; packed, at row b * 2 * kv_block of one (d, nb * 2 *
+// kv_block, B H) map over kv, its V rows kv_block further on.  Positions
+// past counts[g] are never visited.  With each tile the producer leaves,
+// beside the barriers, the number of valid leading rows of each box: 0
+// past the count, fewer than RB where the box crosses kv_valid (keys lie
+// in ascending order inside a box, so the valid ones lead, as in the
+// reference's _partial_block_mask); the consumers mask the rest to -inf.
+// The ragged last tile: its slots past count * kv_block are filled with
+// the group's last valid box (as pad_block_indices pads with the last
+// valid block) and masked by position, so every row of every stage is
+// written by TMA before it is read -- no stale shared memory, no 0 * NaN
+// in P V -- and no block that the group did not select is read.
+// Registers: 24 + 2 x 240, as for the dense kernels.  Shared memory: Q 32
+// KB + 3 stages x (K 32 KB + V 32 KB) + 1 KB alignment + 256 bytes of
+// barriers and records = 230,656 of the 232,448 bytes a block may have.
+// The grid runs groups fastest, so the CTAs resident at one time share a
+// head and its blocks stay in L2.  The output is fresh (the module adds
+// the delta cache); no lse is written.
+#include "attn_sm90.cuh"
 
 using namespace chipmunk;
+using namespace chipmunk::sm90;
+
+namespace chipmunk {
+namespace sm90 {
+
+// A group's selected blocks, in boxes of RB rows (RB divides kv_block and
+// 128).  Record of a stage: valid leading rows per box, then a flag that
+// some box has fewer than RB.
+template <int RB>
+struct CspKeys {
+  static constexpr int BOXES = KT / RB;
+  static_assert(BOXES < REC_INTS, "record");
+  const int* row;      // the group's index row
+  int n_pos;           // count * kv_block
+  int kv_block, kv_valid, kstride, voff;
+
+  __device__ CspKeys(const Params& p, int bh, int grp)
+      : kv_block(p.kv_block), kv_valid(p.kv_valid), kstride(p.kstride),
+        voff(p.voff) {
+    const size_t gi = (size_t)bh * gridDim.x + grp;
+    row = p.inds + gi * p.jmax;
+    n_pos = min(max(p.counts[gi], 1), p.jmax) * kv_block;
+  }
+
+  __device__ int tiles() const { return (n_pos + KT - 1) / KT; }
+
+  __device__ void load(const CUtensorMap* tk, const CUtensorMap* tv,
+                       uint32_t sk, uint32_t sv, uint32_t k_full,
+                       uint32_t v_full, int* rec, int i, int bh) const {
+    int rows[BOXES];
+    int partial = 0;
+#pragma unroll
+    for (int b = 0; b < BOXES; ++b) {
+      int pos = i * KT + b * RB;
+      const bool live = pos < n_pos;
+      if (!live) pos = n_pos - RB;           // the last valid box
+      const int blk = row[pos / kv_block], off = pos % kv_block;
+      const int lim =
+          live ? min(max(kv_valid - (blk * kv_block + off), 0), RB) : 0;
+      rec[b] = lim;
+      partial |= lim < RB;
+      rows[b] = blk * kstride + off;
+    }
+    rec[BOXES] = partial;
+    mbar_expect_tx(k_full, TILE);
+#pragma unroll
+    for (int b = 0; b < BOXES; ++b)
+      tma_load_tile(sk + b * RB * BOX_ROW, tk, k_full, rows[b], bh,
+                    KT * BOX_ROW);
+    mbar_expect_tx(v_full, TILE);
+#pragma unroll
+    for (int b = 0; b < BOXES; ++b)
+      tma_load_tile(sv + b * RB * BOX_ROW, tv, v_full, rows[b] + voff, bh,
+                    KT * BOX_ROW);
+  }
+
+  // Columns 8 j .. 8 j + 7 lie in box 8 j / RB (RB is a multiple of 8).
+  __device__ void mask(const int* rec, int, float (&s)[64], int t) const {
+    if (!rec[BOXES]) return;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      const int lim = rec[8 * j / RB], off = 8 * j % RB + 2 * t;
+      if (off >= lim) s[4 * j] = s[4 * j + 2] = neg_inf();
+      if (off + 1 >= lim) s[4 * j + 1] = s[4 * j + 3] = neg_inf();
+    }
+  }
+};
+
+}  // namespace sm90
+}  // namespace chipmunk
 
 namespace {
 
-struct NoHook {
-  __device__ void operator()(int, float (*)[4]) const {}
-};
+constexpr int ST = 3;   // ring stages
 
-template <int KT>
-__global__ void __launch_bounds__(256)
-csp_attn_kernel(const __nv_bfloat16* __restrict__ q,
-                const __nv_bfloat16* __restrict__ k,
-                const __nv_bfloat16* __restrict__ v,
-                const int* __restrict__ inds, const int* __restrict__ counts,
-                __nv_bfloat16* __restrict__ o, int Sq, int Sk, int jmax,
-                int kv_block, int kv_valid, float tau) {
-  constexpr int NW = 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  KVStage<KT>* ring = reinterpret_cast<KVStage<KT>*>(smem);
-  const int bh = blockIdx.y, grp = blockIdx.x, G = gridDim.x;
-  const int row0 = grp * NW * 16 + (threadIdx.x >> 5) * 16;
-  q += (size_t)bh * Sq * HD;
-  k += (size_t)bh * Sk * HD;
-  v += (size_t)bh * Sk * HD;
-  const int* row_inds = inds + ((size_t)bh * G + grp) * jmax;
-  const int per_block = kv_block / KT;
-  const int n_tiles = counts[(size_t)bh * G + grp] * per_block;
-  WarpRows w;
-  init_rows(w, q, row0, Sq);
-  attend<KT, NW * 32>(
-      w, ring, k, v, Sk, n_tiles,
-      [&](int i) {
-        return row_inds[i / per_block] * kv_block + (i % per_block) * KT;
-      },
-      kv_valid, tau, NoHook());
-  finish_rows(w, o + (size_t)bh * Sq * HD, nullptr, row0, Sq);
+// k and v: maps of k_rows rows per head, kv_hs elements apart.
+template <int RB>
+int launch(const void* q, const void* k, const void* v, int k_rows,
+           const Params& p, int BH, int q_hs, long long kv_hs,
+           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv;
+  int err = make_head_map(&tq, q, BH, p.Sq, q_hs, BM);
+  if (err == 0) err = make_head_map(&tk, k, BH, k_rows, kv_hs, RB);
+  if (err == 0) err = make_head_map(&tv, v, BH, k_rows, kv_hs, RB);
+  if (err != 0) return err;
+  return launch_attn<ST, false, CspKeys<RB>>(tq, tk, tv, p, p.Sq / BM, BH,
+                                             ring_bytes<ST>(), stream);
 }
 
-template <int KT>
-int launch(const void* q, const void* k, const void* v, const void* inds,
-           const void* counts, void* o, int BH, int Sq, int Sk, int jmax,
-           int kv_block, int kv_valid, float tau, cudaStream_t st) {
-  constexpr int SMEM = kv_ring_bytes<KT>();
-  static const int attr = allow_smem(csp_attn_kernel<KT>, SMEM);
-  if (attr != 0) return attr;
-  csp_attn_kernel<KT><<<dim3(Sq / 128, BH), 256, SMEM, st>>>(
-      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
-      (const __nv_bfloat16*)v, (const int*)inds, (const int*)counts,
-      (__nv_bfloat16*)o, Sq, Sk, jmax, kv_block, kv_valid, tau);
-  return (int)cudaGetLastError();
+int dispatch(const void* q, const void* k, const void* v, int k_rows,
+             const Params& p, int BH, int q_hs, long long kv_hs,
+             cudaStream_t stream) {
+  if (p.Sq < BM || p.Sq % BM || p.jmax < 1 || p.kv_valid < 0)
+    return (int)cudaErrorInvalidValue;
+  if (p.kv_block % 128 == 0)
+    return launch<128>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  if (p.kv_block % 64 == 0)
+    return launch<64>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  if (p.kv_block == 32)
+    return launch<32>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+Params csp_params(void* o, const void* inds, const void* counts, int Sq,
+                  int Sk, int jmax, int kv_block, int kv_valid, float tau) {
+  Params p{};
+  p.o = (__nv_bfloat16*)o;
+  p.Sq = Sq;
+  p.Sk = Sk;
+  p.tau = tau;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.jmax = jmax;
+  p.kv_block = kv_block;
+  p.kv_valid = kv_valid;
+  return p;
 }
 
 }  // namespace
 
+// In place: q [BH][Sq][128] and k, v [BH][Sk][128], rows contiguous, heads
+// q_hs and kv_hs elements apart; Sk a multiple of kv_block.
 extern "C" int chipmunk_csp_attn(const void* q, const void* k, const void* v,
                                  const void* inds, const void* counts, void* o,
-                                 int BH, int Sq, int Sk, int jmax, int kv_block,
-                                 int kv_valid, float tau, void* stream) {
-  cudaStream_t st = (cudaStream_t)stream;
-  if (kv_block % 64 == 0)
-    return launch<64>(q, k, v, inds, counts, o, BH, Sq, Sk, jmax, kv_block,
-                      kv_valid, tau, st);
-  if (kv_block == 32)
-    return launch<32>(q, k, v, inds, counts, o, BH, Sq, Sk, jmax, kv_block,
-                      kv_valid, tau, st);
-  return (int)cudaErrorInvalidValue;
+                                 int BH, int Sq, int Sk, int q_hs, int kv_hs,
+                                 int jmax, int kv_block, int kv_valid,
+                                 float tau, void* stream) {
+  if (kv_block < 1 || Sk % kv_block) return (int)cudaErrorInvalidValue;
+  Params p = csp_params(o, inds, counts, Sq, Sk, jmax, kv_block, kv_valid,
+                        tau);
+  p.kstride = kv_block;
+  p.voff = 0;
+  return dispatch(q, k, v, Sk, p, BH, q_hs, kv_hs, (cudaStream_t)stream);
+}
+
+// Packed: q [BH][Sq][128] contiguous, kv [BH][nb][2 kv_block][128].
+extern "C" int chipmunk_csp_hbm_attn(const void* q, const void* kv,
+                                     const void* inds, const void* counts,
+                                     void* o, int BH, int Sq, int nb,
+                                     int jmax, int kv_block, int kv_valid,
+                                     float tau, void* stream) {
+  if (kv_block != 32 && kv_block != 64 && kv_block != 128)
+    return (int)cudaErrorInvalidValue;
+  const int rows = nb * 2 * kv_block;
+  Params p = csp_params(o, inds, counts, Sq, nb * kv_block, jmax, kv_block,
+                        kv_valid, tau);
+  p.kstride = 2 * kv_block;
+  p.voff = kv_block;
+  return dispatch(q, kv, kv, rows, p, BH, Sq * HD, (long long)rows * HD,
+                  (cudaStream_t)stream);
 }

@@ -24,8 +24,7 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-LIBRARIES = ('flash_attention', 'csp_attention', 'csp_hbm_attention',
-             'csp_mlp', 'int8_probe')
+LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe')
 
 # kernel launches per wrapper since the last reset
 LAUNCHES: Dict[str, int] = {
@@ -49,8 +48,7 @@ _SIGNATURES = {
     'chipmunk_colsum_max_blocks': [],
     'chipmunk_dense_colsum_attn': [_P, _P, _P, _P, _P, _P, _P,
                                    _I, _I, _I, _I, _I, _I, _F, _P],
-    'chipmunk_csp_attn': [_P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I, _F, _P],
+    'chipmunk_csp_attn': [_P] * 6 + [_I] * 8 + [_F, _P],
     'chipmunk_csp_hbm_attn': [_P] * 5 + [_I] * 6 + [_F, _P],
     'chipmunk_csp_mlp_mm1': [_P, _P, _P, _P, _P, _P, _P,
                              _I, _I, _I, _I, _I, _I, _P],

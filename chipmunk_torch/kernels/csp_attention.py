@@ -1,6 +1,6 @@
-"""Column-sparse (gathered-KV) attention: wrappers over
-``csrc/csp_attention.cu`` and ``csrc/csp_hbm_attention.cu`` with their
-plain PyTorch versions.
+"""Column-sparse (gathered-KV) attention: wrappers over the two entries of
+``csrc/csp_attention.cu`` (one kernel, two places where K and V lie) with
+their plain PyTorch versions.
 
 Counterpart of ``chipmunk_tpu/kernels/csp_attention.py`` (``csp_attn``).
 Each ``qg``-row query group attends, with an exact softmax, only over its
@@ -13,12 +13,16 @@ own rule, so every call takes the counterpart of the kernel JAX would:
     of ``_csp_vmem_kernel``; reads K and V where they lie.
   * ``'hbm'`` (video-scale sequences): K and V are packed per block into
     ``[B*H, nb, 2*kv_block, D]`` (one torch copy, as the reference's XLA
-    concat), then ``csp_attn_hbm`` gathers each selected block in one
-    copy: counterpart of ``_csp_hbm_packed_kernel``.
+    concat), then ``csp_attn_hbm`` gathers the selected blocks from
+    it: counterpart of ``_csp_hbm_packed_kernel``.
 
 Layout contract: q [B,H,Sq,D] with Sq % qg == 0; k, v [B,H,Sk,D] with
 Sk % kv_block == 0; block_inds int [B,H,G,jmax] in [0, Sk/kv_block);
-block_counts int [B,H,G], clipped here to [1, jmax].
+block_counts int [B,H,G], clipped to [1, jmax].  Entries of block_inds
+at positions past the clipped count are never read.  On the CPU the
+wrappers clip the counts and pad the index rows with their last valid
+entry (``pad_block_indices``) for the plain versions; on the card the
+kernel does both itself.
 """
 from __future__ import annotations
 
@@ -28,7 +32,8 @@ import torch
 
 from ..ops.attn_ref import attn_scale
 from . import _build
-from .flash_attention import _check_qkv, _stream, check_cuda_attn
+from .flash_attention import (_check_qkv, _kv_strides, _stream,
+                              check_cuda_attn)
 
 # The reference's scoped-VMEM cap (chipmunk_tpu/kernels/csp_attention.py:57);
 # 'auto' applies its footprint rule with its constants.
@@ -144,9 +149,11 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
                  kv_block: int = 128, kv_valid: Optional[int] = None
                  ) -> torch.Tensor:
     """Column-sparse attention over packed K+V (``pack_kv``): kv
-    [B*H, nb, 2*kv_block, D].  block_counts must lie in [1, jmax] and
-    block_inds hold a valid block id at every position (as csp_attn makes
-    them).  Returns o [B,H,Sq,D] (q.dtype)."""
+    [B*H, nb, 2*kv_block, D].  On the CPU block_counts must lie in
+    [1, jmax] and block_inds hold a valid block id at every position (as
+    csp_attn makes them for the plain version); the kernel clips the
+    counts and reads no position past them.  Returns o [B,H,Sq,D]
+    (q.dtype)."""
     B, H, Sq, D = q.shape
     BH, nb, rows, Dk = kv.shape
     if BH != B * H or rows != 2 * kv_block or Dk != D or Sq % qg:
@@ -168,7 +175,7 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
     counts = block_counts.to(torch.int32).contiguous()
     Sk = nb * kv_block
     o = torch.empty_like(q)
-    lib = _build.library('csp_hbm_attention')
+    lib = _build.library('csp_attention')
     _build.check(lib.chipmunk_csp_hbm_attn(
         q.data_ptr(), kv.data_ptr(), inds.data_ptr(), counts.data_ptr(),
         o.data_ptr(), B * H, Sq, nb, block_inds.shape[-1], kv_block,
@@ -185,7 +192,10 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              ) -> torch.Tensor:
     """Column-sparse attention.  Returns o [B,H,Sq,D] (q.dtype).
     mode: 'auto' | 'vmem' | 'hbm' (see the module docstring); kv_valid:
-    keys at positions >= kv_valid are excluded from every softmax."""
+    keys at positions >= kv_valid are excluded from every softmax.  For
+    'vmem' on the card q, k and v may be slices along S of larger tensors
+    (``k[..., :n, :]``), as for dense_attn: the kernel takes their head
+    strides."""
     _check_qkv(q, k, v)
     B, H, Sq, D = q.shape
     Sk = k.shape[-2]
@@ -199,26 +209,29 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if mode not in ('vmem', 'hbm'):
         raise ValueError(f"csp_attn: mode must be 'auto', 'vmem' or 'hbm', "
                          f'got {mode!r}')
-    counts = block_counts.clamp(1, jmax).to(torch.int32)
-    inds = pad_block_indices(block_inds, counts).to(torch.int32)
-    if mode == 'hbm':
-        if q.device.type != 'cpu':
-            check_cuda_attn('csp_attn', q, k, v)
-        return csp_attn_hbm(q, pack_kv(k, v, kv_block), inds, counts, qg,
-                            kv_block, kv_valid)
     if q.device.type == 'cpu':
+        counts = block_counts.clamp(1, jmax).to(torch.int32)
+        inds = pad_block_indices(block_inds, counts).to(torch.int32)
+        if mode == 'hbm':
+            return csp_attn_hbm(q, pack_kv(k, v, kv_block), inds, counts,
+                                qg, kv_block, kv_valid)
         return csp_attn_plain(q, k, v, inds, counts, qg, kv_block, kv_valid)
-    check_cuda_attn('csp_attn', q, k, v)
+    if mode == 'hbm':
+        check_cuda_attn('csp_attn', q, k, v)
+        return csp_attn_hbm(q, pack_kv(k, v, kv_block), block_inds,
+                            block_counts, qg, kv_block, kv_valid)
+    q_hs, kv_hs = _kv_strides('csp_attn', q, k, v)
     if qg != 128 or not (kv_block == 32 or kv_block % 64 == 0):
         raise ValueError('csp_attn kernel: qg must be 128 and kv_block 32 '
                          f'or a multiple of 64 (got {qg}, {kv_block})')
-    inds, counts = inds.contiguous(), counts.contiguous()
-    o = torch.empty_like(q)
+    inds = block_inds.to(torch.int32).contiguous()
+    counts = block_counts.to(torch.int32).contiguous()
+    o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lib = _build.library('csp_attention')
     _build.check(lib.chipmunk_csp_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), inds.data_ptr(),
-        counts.data_ptr(), o.data_ptr(), B * H, Sq, Sk, jmax, kv_block,
-        Sk if kv_valid is None else min(kv_valid, Sk), attn_scale(D),
-        _stream(q)), 'csp_attn')
+        counts.data_ptr(), o.data_ptr(), B * H, Sq, Sk, q_hs, kv_hs, jmax,
+        kv_block, Sk if kv_valid is None else min(kv_valid, Sk),
+        attn_scale(D), _stream(q)), 'csp_attn')
     _build.LAUNCHES['csp_attn'] += 1
     return o

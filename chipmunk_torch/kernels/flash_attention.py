@@ -116,7 +116,8 @@ def dense_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Flash attention forward.  q,k,v: [B,H,S,D] -> (o [B,H,Sq,D],
     lse fp32 [B,H,Sq] in log2 domain).  Ragged Sq and Sk are handled
-    inside the kernel (keys past Sk are masked with -1e30).  q, k and v
+    inside the kernel (the scores of keys past Sk are set to -inf and add
+    exactly 0).  q, k and v
     may be slices along S of larger tensors (``k[..., :n, :]``,
     ``q[..., t0:, :]``): the kernel takes their head strides, so nothing
     is copied."""

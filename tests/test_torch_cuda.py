@@ -1,9 +1,10 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
 (ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of 64/128/256 with PAD_LSE rows, large
-scores, repeat calls bit-equal, kv_block 32 and 64, kv_valid, bm/bn of
-256, the packed-KV csp kernel, keys and query rows passed as sliced
-views).  The kernels
+scores, repeat calls bit-equal, kv_block 32, 64, 128 and 256, kv_valid
+inside a group's last or an earlier block, counts ending inside a tile,
+clipped counts, NaN in unselected K/V blocks, bm/bn of 256, the
+packed-KV csp kernel, keys and query rows passed as sliced views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -139,6 +140,155 @@ def test_cuda_csp_attn_hbm_matches_plain(gen, kv_block, kv_valid):
     assert torch.equal(o_h, o)
     torch.testing.assert_close(o_h.float(), o_v.float(), atol=ATOL,
                                rtol=RTOL)
+
+
+def csp_case(gen, kv_block, B=2, H=2, Sq=512, Sk=1024, jmax=None):
+    """Distinct random block ids per group and counts of 1, jmax and
+    counts whose keys end inside a 128-key tile (3 blocks of 32 or 64,
+    jmax blocks of 32); groups 1 and 3 hold the sequence's last block at
+    their last and their first position."""
+    nb = Sk // kv_block
+    jmax = jmax or min(nb, 7)
+    G = Sq // 128
+    inds = torch.rand((B, H, G, nb), generator=gen, device='cuda') \
+        .argsort(-1)[..., :jmax].to(torch.int32)
+    counts = torch.tensor([1, jmax, 3, jmax], device='cuda',
+                          dtype=torch.int32)[:G].repeat(B, H, 1).contiguous()
+
+    def put_last_at(g, pos):
+        row = inds[:, :, g]
+        row[row == nb - 1] = row[..., pos:pos + 1].expand_as(row)[
+            row == nb - 1]
+        row[..., pos] = nb - 1
+
+    put_last_at(1, jmax - 1)
+    put_last_at(3, 0)
+    return inds, counts
+
+
+def poison_unselected(k, v, inds, counts, kv_block):
+    """NaN in every K/V block that no group of its head selects."""
+    B, H, Sk, D = k.shape
+    nb = Sk // kv_block
+    pinds = CA.pad_block_indices(inds, counts).long()
+    sel = torch.zeros((B, H, nb), dtype=torch.bool, device=k.device)
+    sel.scatter_(-1, pinds.reshape(B, H, -1), True)
+    off = (~sel).repeat_interleave(kv_block, -1)[..., None]
+    return k.masked_fill(off, float('nan')), v.masked_fill(off, float('nan'))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cut', [False, True])
+@pytest.mark.parametrize('kv_block', [32, 64, 128, 256])
+def test_cuda_csp_kernels_gather(gen, kv_block, cut):
+    """Both column-sparse kernels against their plain versions, B = 2:
+    kv_block 32, 64, 128 (and 256 for the in-place kernel), counts of 1
+    and jmax and counts ending inside a 128-key tile; with ``cut``,
+    kv_valid inside the sequence's last block, which is the last selected
+    block of group 1 and the first of group 3; NaN in every block that no
+    group selects, and the output finite; two calls bit-equal."""
+    Sk = 1024
+    q = randn(gen, 2, 2, 512, 128)
+    inds, counts = csp_case(gen, kv_block, Sk=Sk)
+    k, v = poison_unselected(randn(gen, 2, 2, Sk, 128),
+                             randn(gen, 2, 2, Sk, 128), inds, counts,
+                             kv_block)
+    kv_valid = Sk - kv_block // 2 - 3 if cut else None
+    pinds = CA.pad_block_indices(inds, counts)
+    pairs = [([CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block,
+                           kv_valid=kv_valid, mode='vmem')
+               for _ in range(2)],
+              CA.csp_attn_plain(q, k, v, pinds, counts, kv_block=kv_block,
+                                kv_valid=kv_valid))]
+    if kv_block <= 128:
+        kv = CA.pack_kv(k, v, kv_block)
+        pairs.append(([CA.csp_attn_hbm(q, kv, inds, counts,
+                                       kv_block=kv_block, kv_valid=kv_valid)
+                       for _ in range(2)],
+                      CA.csp_attn_hbm_plain(q, kv, pinds, counts,
+                                            kv_block=kv_block,
+                                            kv_valid=kv_valid)))
+    torch.cuda.synchronize()
+    for (a, b), ref in pairs:
+        assert bool(ref.isfinite().all()) and bool(a.isfinite().all())
+        assert torch.equal(a, b)
+        torch.testing.assert_close(a.float(), ref.float(), atol=ATOL,
+                                   rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_csp_kernels_clip_counts_and_ignore_padding(gen):
+    """The kernels clip counts to [1, jmax] and never read an index past
+    the count, so raw selections (count 0, count above jmax, garbage ids
+    past the count) give what the padded, clipped ones give."""
+    q, k, v = (randn(gen, 1, 2, 512, 128) for _ in range(3))
+    inds, _ = csp_case(gen, 128, B=1, Sk=512, jmax=3)
+    raw = torch.tensor([0, 3, 9, 2], device='cuda', dtype=torch.int32) \
+        .repeat(1, 2, 1).contiguous()
+    clipped = raw.clamp(1, 3)
+    pinds = CA.pad_block_indices(inds, clipped)
+    junk = inds.clone()
+    junk[..., 1:][torch.arange(1, 3, device='cuda') >= clipped[..., None]] \
+        = 1 << 20
+    kv = CA.pack_kv(k, v, 128)
+    for o in (CA.csp_attn(q, k, v, junk, raw, mode='vmem'),
+              CA.csp_attn_hbm(q, kv, junk, raw)):
+        torch.cuda.synchronize()
+        assert torch.equal(o, CA.csp_attn(q, k, v, pinds, clipped,
+                                          mode='vmem'))
+        torch.testing.assert_close(
+            o.float(), CA.csp_attn_plain(q, k, v, pinds, clipped).float(),
+            atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_csp_attn_takes_head_strided_views(gen):
+    """q, k and v as slices along S of larger tensors (NaN past the cut):
+    the in-place kernel reads them at their head strides and gives what
+    it gives on contiguous copies."""
+    qf, kf, vf = (randn(gen, 2, 2, 768, 128) for _ in range(3))
+    kf[..., 512:, :] = float('nan')
+    vf[..., 512:, :] = float('nan')
+    q, k, v = qf[..., 256:, :], kf[..., :512, :], vf[..., :512, :]
+    inds, counts = csp_case(gen, 64, Sk=512)
+    o = CA.csp_attn(q, k, v, inds, counts, kv_block=64, kv_valid=500,
+                    mode='vmem')
+    o_c = CA.csp_attn(q.contiguous(), k.contiguous(), v.contiguous(), inds,
+                      counts, kv_block=64, kv_valid=500, mode='vmem')
+    torch.cuda.synchronize()
+    assert torch.equal(o, o_c)
+    o_p = CA.csp_attn_plain(q, k, v, CA.pad_block_indices(inds, counts),
+                            counts, kv_block=64, kv_valid=500)
+    torch.testing.assert_close(o.float(), o_p.float(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_csp_kernels_raise_on_what_they_do_not_take(gen):
+    """qg other than 128, kv_block outside each kernel's set, and mixed
+    dtypes or devices raise; nothing falls back to a plain version."""
+    q, k, v = (randn(gen, 1, 2, 512, 128) for _ in range(3))
+    inds, counts = csp_case(gen, 128, B=1, Sk=512, jmax=3)
+    n0 = dict(CA._build.LAUNCHES)
+    g64 = torch.zeros((1, 2, 8, 3), dtype=torch.int32, device='cuda')
+    c64 = torch.ones((1, 2, 8), dtype=torch.int32, device='cuda')
+    for mode in ('vmem', 'hbm'):
+        with pytest.raises(ValueError, match='qg must be 128'):
+            CA.csp_attn(q, k, v, g64, c64, qg=64, mode=mode)
+    i96 = torch.zeros((1, 2, 4, 3), dtype=torch.int32, device='cuda')
+    kk, vv = k[..., :480, :], v[..., :480, :]
+    with pytest.raises(ValueError, match='kv_block'):
+        CA.csp_attn(q, kk, vv, i96, counts, kv_block=96, mode='vmem')
+    i256 = torch.zeros((1, 2, 4, 1), dtype=torch.int32, device='cuda')
+    with pytest.raises(ValueError, match='kv_block'):
+        CA.csp_attn_hbm(q, CA.pack_kv(k, v, 256), i256, counts,
+                        kv_block=256)
+    with pytest.raises(ValueError):
+        CA.csp_attn(q, k.float(), v.float(), inds, counts, mode='vmem')
+    with pytest.raises(ValueError):
+        CA.csp_attn(q, k.cpu(), v.cpu(), inds, counts, mode='vmem')
+    with pytest.raises(ValueError):
+        CA.csp_attn_hbm(q, CA.pack_kv(k, v, 128).float(), inds, counts)
+    assert CA._build.LAUNCHES == n0
 
 
 @pytest.mark.cuda
