@@ -10,7 +10,10 @@
    in ``check_*`` and the phases below, and times kernel, plain version
    and (where one PyTorch call computes the same function) that call:
    the bf16 kernels, the int8-weight (``wq``) and int8-activation (``a8``)
-   sparse-MLP kernels, and the int8/bf16 tile GEMM probe.  For the short
+   sparse-MLP kernels (their yardstick: the dense layer's torch.matmul or
+   torch._int_mm scaled by the selected share), every sparse-MLP variant
+   with bf16 caches, both csp modes at kv_block 8 and 16, and the
+   int8/bf16 tile GEMM probe.  For the short
    rows (``csp_attn`` at FLUX, ``quant_rows``) it also gives the kernel's
    own device time from torch.profiler's kernel records (``device_ms``),
    since their ``ms`` includes the wrappers' host work.
@@ -26,7 +29,8 @@
    sparse steps, and is timed against a dense loop (sparsity and step
    caching off) on the same weights.  A small full-width model is also run
    through each loop on the card and, with the plain versions, on the
-   CPU, and the two must agree.
+   CPU, and the two must agree: each weight/activation variant, and the
+   MLP with no cache dtype in the config (bf16 caches).
 4. The HunyuanVideo slice: the csp kernels and the dense kernels at the
    video shapes (544x960x129 frames: 67,584 tokens, keys cut at 67,576,
    the 384-row dense tail, PAD_LSE rows; and 720p, 119,168 tokens, where
@@ -65,6 +69,7 @@ PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
 OUR_KERNELS = ('attn_sm90_kernel',     # dense_attn, dense_colsum_attn, csp
+               'gemm_sm90_kernel',     # csp_mlp_mm1_a8, csp_mlp_mm2_a8
                'csp_mlp_mm1', 'csp_mlp_mm2', 'quant_rows_kernel')
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
@@ -136,8 +141,18 @@ def device_ms(torch, fn, n):
     return top.self_device_time_total / 1e3 / n, top.key
 
 
-def fp8_ulp(torch, x):
-    """Spacing of float8 e4m3 at |x| (2^-9 in the subnormal range)."""
+def fp8_ulp(torch, x, dtype=None):
+    """Spacing of float8 e4m3 at |x| (2^-9 in the subnormal range), or
+    with dtype bf16 of bf16, taken at 2^-8 at least (3.1e-5): an entry
+    below that comes out of cancellation, in gelu's 1 + tanh or in sums of
+    thousands of products (fc1 over C = 3072, the out cache's old + delta
+    @ w2 over up to 5632 rows), where the kernels' tensor-core sums and
+    the plain versions' float32 sums, in another order, differ by up to
+    ~1.5e-5 (measured at the FLUX shape, NVIDIA H100 80GB HBM3, 700.00 W;
+    the fp8 floor, 2^-9, is coarser still)."""
+    if dtype == torch.bfloat16:
+        e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -8)))
+        return torch.exp2(e - 7)
     e = torch.floor(torch.log2(x.abs().clamp(min=2.0 ** -6)))
     return torch.exp2(e - 3)
 
@@ -153,18 +168,36 @@ def check_close(name, got, ref, atol, rtol):
 
 
 def check_fp8(torch, name, got, ref):
-    """fp8 caches: NaN at the same places, elsewhere within one e4m3 ulp
-    (the kernel and the plain version sum in different orders, so a value
-    near a rounding boundary may land on the neighbour)."""
+    """Caches (fp8 e4m3 or bf16): NaN at the same places, elsewhere within
+    one ulp of their type (the kernel and the plain version sum in
+    different orders, so a value near a rounding boundary may land on the
+    neighbour)."""
+    if got.dtype != ref.dtype:
+        fail(f'{name}: dtype {got.dtype}, plain version {ref.dtype}')
     g, r = got.float(), ref.float()
     if not bool((g.isnan() == r.isnan()).all()):
         fail(f'{name}: NaN positions differ')
     ok = ~r.isnan()
     err = (g - r).abs()[ok]
-    if not bool((err <= fp8_ulp(torch, r[ok])).all()):
-        fail(f'{name}: fp8 values differ by more than one e4m3 ulp '
-             f'(max abs err {err.max().item():.3e})')
+    bad = err > fp8_ulp(torch, r[ok], got.dtype)
+    if bool(bad.any()):
+        i = int(bad.nonzero()[0, 0])
+        fail(f'{name}: {got.dtype} values differ by more than one ulp at '
+             f'{int(bad.sum())} of {bad.numel()} entries (first: '
+             f'{g[ok][i].item()!r} against {r[ok][i].item()!r}; max abs err '
+             f'{err.max().item():.3e})')
     return err.max().item()
+
+
+def dense_library_ms(torch, tag, fn, share):
+    """library_ms of a sparse-MLP row: one PyTorch call over the dense
+    layer's products at the same shape, scaled by the selected share of
+    (token block, neuron block) pairs; the unscaled time (what the dense
+    step pays for the whole layer) is printed."""
+    ms = time_ms(torch, fn, 10)
+    print(f'{tag}: dense {ms:.4f} ms for the whole layer; x selected share '
+          f'{share:.4f} = {ms * share:.4f} ms', flush=True)
+    return ms * share
 
 
 def kernel_phases(torch, mods):
@@ -315,6 +348,8 @@ def kernel_phases(torch, mods):
     bnd, by = bound_ms(mm_flops, T_SINGLE * C * 2 + w_bytes
                        + nsel * bm * bn * 2 + pk.numel() * 2)
     act_t = act.clone()
+    share = nsel * bm * bn / (T_SINGLE * N)
+    dense = randn(T_SINGLE, N)              # a dense delta, for fc2
     rows.append(dict(
         name='csp_mlp_mm1', source='chipmunk_torch/csrc/csp_mlp.cu',
         replaces='chipmunk_tpu/kernels/csp_mlp.py:326',   # fc1 half
@@ -323,7 +358,11 @@ def kernel_phases(torch, mods):
             x, w1t, b1, act_t, minds, mcounts, bn=bn, bm=bm), 20),
         plain_ms=time_ms(torch, lambda: cm.csp_mlp_mm1_plain(
             x, w1t, b1, act, pminds, mcounts, bn, bm), 3),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        bound_ms=bnd, bound_by=by,
+        library_ms=dense_library_ms(
+            torch, 'csp_mlp_mm1 yardstick torch.matmul [4608, 3072] x '
+            '[3072, 12288] (bf16)', lambda: torch.matmul(x, w1t.t()),
+            share)))
 
     out_k = cm.csp_mlp_mm2(pk_p, w2, out.clone(), minds, mcounts, bn=bn,
                            bm=bm)
@@ -341,7 +380,12 @@ def kernel_phases(torch, mods):
             pk_p, w2, out_t, minds, mcounts, bn=bn, bm=bm), 20),
         plain_ms=time_ms(torch, lambda: cm.csp_mlp_mm2_plain(
             pk_p, w2, out, pminds, mcounts, bn, bm), 3),
-        bound_ms=bnd, bound_by=by, library_ms=None))
+        bound_ms=bnd, bound_by=by,
+        library_ms=dense_library_ms(
+            torch, 'csp_mlp_mm2 yardstick torch.matmul [4608, 12288] x '
+            '[12288, 3072] (bf16)', lambda: torch.matmul(dense, w2),
+            share)))
+    del dense
     print_rows(rows)
     return rows
 
@@ -639,7 +683,10 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
       csp_mlp_mm1_wq    act cache within one ulp; packed delta bit-equal
        (int4: _w4)      where the acts agree, else within the act's ulp;
       csp_mlp_mm2_wq    run on the plain packed delta: within one ulp.
-    No single PyTorch call computes these functions (library_ms null)."""
+    library_ms: torch._int_mm (a8, on the int8 codes) or torch.matmul
+    (wq/w4, on the dequantized bf16 weights) over the dense layer's
+    products, scaled by the selected share (dense_library_ms); null for
+    quant_rows."""
     dev = 'cuda'
     gen = torch.Generator(dev)
     gen.manual_seed(SEED + 1)
@@ -677,12 +724,25 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
     cols = cols.repeat_interleave(bm, 0)          # [T, jmax*bn]
     rows = []
 
-    def row(name, replaces, err, ms, plain_ms, ops_, nbytes, peak):
+    def row(name, replaces, err, ms, plain_ms, ops_, nbytes, peak,
+            lib=None):
         bnd, by = bound_ms(ops_, nbytes, peak)
         rows.append(dict(name=name, source='chipmunk_torch/csrc/csp_mlp.cu',
                          replaces=replaces, max_abs_err=err, ms=ms,
                          plain_ms=plain_ms, bound_ms=bnd, bound_by=by,
-                         library_ms=None))
+                         library_ms=lib))
+
+    share = nsel * bm * bn / (T * N)
+    codes = importlib.import_module('chipmunk_torch.kernels.csp_mlp')._codes
+    # B column-major ([K, N] as the transpose of a contiguous [N, K]): the
+    # layout torch._int_mm's cuBLASLt int8 kernels take fastest
+    c1t, c2 = codes(w1).t(), codes(w2).t().contiguous().t()
+    d1, d2 = (quant.dequant(w, torch.bfloat16) for w in (w1, w2))
+    dense8 = torch.randint(-127, 128, (T, N), generator=gen, device=dev,
+                           dtype=torch.int8)
+    dense16 = randn(T, N)
+    shape1, shape2 = ('[4608, 3072] x [3072, 12288]',
+                      '[4608, 12288] x [12288, 3072]')
 
     # ---- quant_rows: bit-equal
     x8, sx = cm.quant_rows(x)
@@ -723,7 +783,9 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         time_ms(torch, lambda: cm.csp_mlp_mm1_a8_plain(
             x8, sx, w1, b1, w2.scale, act, pinds, counts, bn, bm), 3),
         ops, T * C + w_rows * wC + 2 * sel_bytes + sel_bytes + nsel * bm * 4
-        + N * 10 + T * 4, PEAK_INT8_OPS)
+        + N * 10 + T * 4, PEAK_INT8_OPS,
+        dense_library_ms(torch, f'csp_mlp_mm1_{a8} yardstick torch._int_mm '
+                         f'{shape1}', lambda: torch._int_mm(x8, c1t), share))
 
     # ---- csp_mlp_mm2_a8 on the plain d8/sd
     out_k = cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out.clone(), inds, counts,
@@ -739,7 +801,10 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         time_ms(torch, lambda: cm.csp_mlp_mm2_a8_plain(
             d8_p, sd_p, w2, out, pinds, counts, bn, bm), 3),
         ops, sel_bytes + nsel * bm * 4 + w_rows * wC + 2 * T * C,
-        PEAK_INT8_OPS)
+        PEAK_INT8_OPS,
+        dense_library_ms(torch, f'csp_mlp_mm2_{a8} yardstick torch._int_mm '
+                         f'{shape2}', lambda: torch._int_mm(dense8, c2),
+                         share))
     del d8, sd, d8_p, sd_p, act_k, act_p, out_k, out_p
 
     # ---- csp_mlp_mm1_wq
@@ -766,7 +831,10 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         time_ms(torch, lambda: cm.csp_mlp_mm1_plain(
             x, w1, b1, act, pinds, counts, bn, bm), 3),
         ops, T * C * 2 + w_rows * wC + 2 * sel_bytes + pk.numel() * 2
-        + N * 6, PEAK_BF16_FLOPS)
+        + N * 6, PEAK_BF16_FLOPS,
+        dense_library_ms(torch, f'csp_mlp_mm1_{wq} yardstick torch.matmul '
+                         f'{shape1} (dequantized bf16)',
+                         lambda: torch.matmul(x, d1.t()), share))
 
     # ---- csp_mlp_mm2_wq on the plain packed delta
     out_k = cm.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn, bm=bm)
@@ -780,9 +848,178 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         time_ms(torch, lambda: cm.csp_mlp_mm2_plain(
             pk_p, w2, out, pinds, counts, bn, bm), 3),
         ops, sel_bytes * 2 + w_rows * wC + N * 4 + 2 * T * C,
-        PEAK_BF16_FLOPS)
+        PEAK_BF16_FLOPS,
+        dense_library_ms(torch, f'csp_mlp_mm2_{wq} yardstick torch.matmul '
+                         f'{shape2} (dequantized bf16)',
+                         lambda: torch.matmul(dense16, d2), share))
+    del c1t, c2, d1, d2, dense8, dense16
     print_rows(rows)
     return rows
+
+
+def mlp_agree(torch, act_k, act_p, pinds, bm, bn):
+    """[R, jmax] bool: the two act caches (R rows) agree, NaN for NaN, on
+    every neuron of the (row, selected block)."""
+    M, jmax = pinds.shape
+    cols = (pinds.long()[:, :, None] * bn + torch.arange(
+        bn, device=pinds.device)).reshape(M, -1).repeat_interleave(bm, 0)
+    a, b = act_k.float().gather(1, cols), act_p.float().gather(1, cols)
+    return ((a == b) | (a.isnan() & b.isnan())).reshape(-1, jmax, bn).all(-1)
+
+
+def bf16_cache_phases(torch, cm, ca, fp8, quant):
+    """Every sparse-MLP variant (bf16, wq, w4, a8, a8w4 weights) with bf16
+    caches at the main-path MLP shape (T = 4608, C = 3072, N = 12288,
+    bm = 512, bn = 256, jmax = 22, counts 13-17 with one at 1 and one at
+    22): both caches bf16, and an fp8 act cache with a bf16 out cache.
+    Each kernel runs whole; its plain version on the first two 512-token
+    blocks (rows 0-1023, counts 1 and 22), where the two are compared:
+    the act cache within one ulp of its type; the packed delta (a8: d8 and
+    sd) bit-equal where the acts of the (row, block) agree, elsewhere (the
+    packed delta) within the act's ulp plus its own bf16 rounding; mm2 on
+    the kernel's own delta of those rows within one ulp."""
+    dev = 'cuda'
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 5)
+    bm, bn, jm, T, R = 512, 256, 22, T_SINGLE, 1024
+    M, nbn = T // bm, N // bn
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    x = randn(T, C)
+    w1b, w2b = randn(N, C, scale=C ** -0.5), randn(N, C, scale=N ** -0.5)
+    b1 = randn(N, scale=0.1)
+    weights = {'bf16': (w1b, w2b)}
+    for kind, tag in (('int8', 'wq'), ('int4', 'w4')):
+        weights[tag] = tuple(quant.quantize(w.float(), kind, keep_axes=(0,),
+                                            pack_axis=1 if kind == 'int4'
+                                            else None) for w in (w1b, w2b))
+    weights['a8'], weights['a8w4'] = weights['wq'], weights['w4']
+    inds = torch.rand((M, nbn), generator=gen, device=dev).topk(jm, -1) \
+        .indices.sort(-1).values.to(torch.int32)
+    counts = torch.randint(13, 18, (M,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 1, jm
+    pinds = ca.pad_block_indices(inds, counts)
+    pi, pc = pinds[:R // bm], counts[:R // bm]
+    x8, sx = cm.quant_rows(x)
+    for variant, (w1, w2) in weights.items():
+        for adt, odt in ((torch.bfloat16, torch.bfloat16),
+                         (fp8.FP8, torch.bfloat16)):
+            tag = (f'bf16 caches {variant} (act {str(adt)[6:]}, out '
+                   f'{str(odt)[6:]})')
+            act = fp8.cast(torch.randn((T, N), generator=gen, device=dev)
+                           * 0.3, adt)
+            out = fp8.cast(torch.randn((T, C), generator=gen, device=dev),
+                           odt)
+            if variant.startswith('a8'):
+                d8, sd, act_k = cm.csp_mlp_mm1_a8(
+                    x8, sx, w1, b1, w2.scale, act.clone(), inds, counts,
+                    bn=bn, bm=bm)
+                torch.cuda.synchronize()
+                d8_p, sd_p, act_p = cm.csp_mlp_mm1_a8_plain(
+                    x8[:R], sx[:R], w1, b1, w2.scale, act[:R], pi, pc, bn,
+                    bm)
+                err = check_fp8(torch, f'{tag} act_cache', act_k[:R], act_p)
+                agree = mlp_agree(torch, act_k[:R], act_p, pi, bm, bn)
+                if not (torch.equal(sd[:R][agree], sd_p[agree])
+                        and torch.equal(d8[:R].reshape(R, jm, bn)[agree],
+                                        d8_p.reshape(R, jm, bn)[agree])):
+                    fail(f'{tag}: d8/sd differ where the acts agree')
+                out_k = cm.csp_mlp_mm2_a8(d8, sd, w2, out.clone(), inds,
+                                          counts, bn=bn, bm=bm)
+                torch.cuda.synchronize()
+                out_p = cm.csp_mlp_mm2_a8_plain(d8[:R], sd[:R], w2, out[:R],
+                                                pi, pc, bn, bm)
+            else:
+                pk, act_k = cm.csp_mlp_mm1(x, w1, b1, act.clone(), inds,
+                                           counts, bn=bn, bm=bm)
+                torch.cuda.synchronize()
+                pk_p, act_p = cm.csp_mlp_mm1_plain(x[:R], w1, b1, act[:R],
+                                                   pi, pc, bn, bm)
+                err = check_fp8(torch, f'{tag} act_cache', act_k[:R], act_p)
+                agree = mlp_agree(torch, act_k[:R], act_p, pi, bm, bn)
+                same = agree.repeat_interleave(bn, 1)
+                g, r = pk[:R].float(), pk_p.float()
+                if not bool(((g == r) | (g.isnan() & r.isnan()))[same]
+                            .all()):
+                    fail(f'{tag} packed: differs where the acts agree')
+                cols = (pi.long()[:, :, None] * bn + torch.arange(
+                    bn, device=dev)).reshape(len(pi), -1) \
+                    .repeat_interleave(bm, 0)
+                a_p = act_p.float().gather(1, cols)
+                rnd = 2.0 ** -7 if adt == torch.bfloat16 else 2.0 ** -8
+                d = (g - r).abs()[~same]
+                if d.numel() and not bool((d <= fp8_ulp(
+                        torch, a_p[~same], adt) * 1.01 + torch.maximum(
+                        g.abs(), r.abs())[~same] * rnd).all()):
+                    fail(f'{tag} packed: differs by more than the act ulp')
+                out_k = cm.csp_mlp_mm2(pk, w2, out.clone(), inds, counts,
+                                       bn=bn, bm=bm)
+                torch.cuda.synchronize()
+                out_p = cm.csp_mlp_mm2_plain(pk[:R], w2, out[:R], pi, pc, bn,
+                                             bm)
+            err_o = check_fp8(torch, f'{tag} out_cache', out_k[:R], out_p)
+            print(f'{tag}: act max abs err {err:.3e}, acts agree in '
+                  f'{agree.float().mean().item():.4f} of (row, block) '
+                  f'pairs, out max abs err {err_o:.3e}', flush=True)
+    torch.cuda.empty_cache()
+
+
+def small_block_csp_phases(torch, ca):
+    """csp_attn ('vmem') and csp_attn_hbm at kv_block 8 and 16 at the
+    FLUX shape (B = 1, H = 24, 4352 tokens, 34 query groups; jmax 96 and
+    48 blocks, i.e. six 128-key blocks' worth of keys; counts from 1 to
+    jmax with one group at 1 and one at jmax; kv_valid 4347 cuts the last
+    block, which group 2 selects first) against csp_attn_plain on the
+    same inputs, o to 4e-3 + 2^-6 |ref|, with NaN in every K/V block that
+    no group of its head selects (a read of one would show).  Prints each
+    kernel's time."""
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 6)
+    q, k, v = (torch.randn((B, H, S, D), generator=gen, device='cuda').to(
+        torch.bfloat16) for _ in range(3))
+    G, n_valid = S // 128, S - 5
+    for kv_block in (8, 16):
+        nb, jmax = S // kv_block, 6 * 128 // kv_block
+        inds = torch.rand((B, H, G, nb), generator=gen, device='cuda') \
+            .topk(jmax, -1).indices.to(torch.int32)
+        row = inds[..., 2, :]                  # group 2: the last block first
+        last = row == nb - 1
+        row[last] = row[..., :1].expand_as(row)[last]
+        row[..., 0] = nb - 1
+        counts = torch.randint(1, jmax + 1, (B, H, G), generator=gen,
+                               device='cuda', dtype=torch.int32)
+        counts[..., 0], counts[..., 1] = 1, jmax
+        pinds = ca.pad_block_indices(inds, counts)
+        sel = torch.zeros((B, H, nb), dtype=torch.bool, device='cuda')
+        sel.scatter_(-1, pinds.long().reshape(B, H, -1), True)
+        off = (~sel).repeat_interleave(kv_block, -1)[..., None]
+        kp, vp = (t.masked_fill(off, float('nan')) for t in (k, v))
+        o_p = ca.csp_attn_plain(q, kp, vp, pinds, counts, kv_block=kv_block,
+                                kv_valid=n_valid)
+        kv = ca.pack_kv(kp, vp, kv_block)
+        for mode, fn in (
+                ('vmem', lambda: ca.csp_attn(q, kp, vp, inds, counts,
+                                             kv_block=kv_block,
+                                             kv_valid=n_valid, mode='vmem')),
+                ('hbm', lambda: ca.csp_attn_hbm(q, kv, inds, counts,
+                                                kv_block=kv_block,
+                                                kv_valid=n_valid))):
+            o = fn()
+            torch.cuda.synchronize()
+            if not bool(o.isfinite().all()):
+                fail(f'csp {mode} kv_block {kv_block}: non-finite output')
+            err = check_close(f'csp {mode} kv_block {kv_block} o', o, o_p,
+                              4e-3, 2 ** -6)
+            print(f'csp {mode} kv_block {kv_block} (FLUX, jmax {jmax}): '
+                  f'max abs err {err:.3e}, {time_ms(torch, fn, 10):.4f} ms',
+                  flush=True)
+        del kp, vp, kv, o, o_p
+    del q, k, v
+    torch.cuda.empty_cache()
 
 
 def probe_phase(torch, probe):
@@ -1201,6 +1438,8 @@ def main():
         qrows += quant_kernel_phases(torch, mods[2], mods[1], fp8, quant,
                                      kind)
         torch.cuda.empty_cache()
+    bf16_cache_phases(torch, mods[2], mods[1], fp8, quant)
+    small_block_csp_phases(torch, mods[1])
     prows = probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
     torch.cuda.empty_cache()
@@ -1281,6 +1520,15 @@ def main():
         agree_small(torch, tm, kern, cfg, small, tag, kernels,
                     quant.synth_quantized_flux_params(
                         SEED, small, quant.QuantSpec(*spec), device='cpu'))
+    # the MLP with the cache dtypes unset: bf16 caches (the reference's
+    # default), bf16 and quantized weights
+    bf16_caches = small_ck.replace(mlp=dataclasses.replace(
+        small_ck.mlp, act_cache_dtype=None, out_cache_dtype=None))
+    agree_small(torch, tm, kern, bf16_caches, small, 'bf16 caches',
+                BF16_PATH)
+    agree_small(torch, tm, kern, bf16_caches, small, 'quantized bf16 caches',
+                QUANT_PATH, quant.synth_quantized_flux_params(
+                    SEED, small, quant.QuantSpec(*SPEC), device='cpu'))
 
     for r in rows:
         r['route'] = 'cuda'

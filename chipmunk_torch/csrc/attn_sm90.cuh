@@ -12,9 +12,10 @@
 // sits at chunk c ^ (r % 8), in atoms of 8 rows (1024 bytes).  Every tile
 // starts on a 1024-byte boundary, so the wgmma descriptors take a base
 // offset of 0 and the hardware undoes the swizzle from the address bits.
-// A tile may also be filled by several boxes of fewer rows (32 or 64,
+// A tile may also be filled by several boxes of fewer rows (8 to 64,
 // multiples of the 8-row atom): each lands at its own 1024-byte-aligned
-// offset, so the layout is the same.
+// offset, so the layout is the same.  A box of fewer than 8 rows would be
+// smaller than the atom and is not used.
 //
 //   S = Q K^T   wgmma.m64n128k16, A (Q) and B (K) from shared memory, both
 //               K-major (d contiguous): SBO 1024 bytes (8 rows), LBO unused;
@@ -315,22 +316,22 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32]
 // p = 1 there, 2^(-1e30 tau + 1e30 tau)).
 // Registers: 24 + 2 x 240 per 128 threads = 64,512 of 65,536 (the launch
 // bound of 384 threads gives 168 each at entry).  Shared memory: Q 32 KB
-// + ST x (K 32 KB + V 32 KB), 1 KB for alignment, 256 bytes for the
+// + ST x (K 32 KB + V 32 KB), 1 KB for alignment, 512 bytes for the
 // barriers and the key source's per-stage records, and for the column
 // sums their hand-off ring and row.
 //
 // A key source (Keys) is built by every thread from (p, bh, group) and
 // gives: tiles(), the CTA's number of 128-key tiles; load(...), run by the
 // producer thread, which arms the stage's two mbarriers and issues the
-// TMA loads of tile i (it may leave up to 8 ints per stage in rec, which
+// TMA loads of tile i (it may leave up to 24 ints per stage in rec, which
 // the consumers read after the K barrier); mask(rec, i, s, t), which sets
 // the masked scores of tile i in a consumer thread's accumulator to -inf.
 
 constexpr int BM = 128;                   // query rows per CTA
 constexpr int TILE = KT * HD * 2;         // bytes of a K or V tile
 constexpr int SMEM_MAX = 232448;          // opt-in limit per block
-constexpr int BAR_BYTES = 256;            // barriers, then records at +128
-constexpr int REC_INTS = 8;               // a stage's record
+constexpr int BAR_BYTES = 512;            // barriers, then records at +128
+constexpr int REC_INTS = 24;              // a stage's record
 constexpr int HAND_BYTES = 2 * 8 * 2 * 32 * 4;    // colsum hand-off ring
 
 template <int ST>

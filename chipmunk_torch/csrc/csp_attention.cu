@@ -34,7 +34,9 @@
 // keys (the concatenation of its count selected blocks, count clamped to
 // [1, jmax]), loaded as 128 / RB boxes of RB = gcd(kv_block, 128) rows:
 // kv_block 128 is one block per tile, a multiple of 128 several tiles per
-// block, 64 and 32 two and four blocks per tile.  In place, block b's rows
+// block, 64, 32, 16 and 8 two to sixteen blocks per tile (an 8-row box of
+// 64 bf16 columns is 1024 bytes, one 128-byte swizzle atom; kv_block 1, 2
+// and 4 would need boxes below the atom and are refused).  In place, block b's rows
 // start at row b * kv_block of the (d, Sk, B H) maps of K and V over their
 // head-strided views; packed, at row b * 2 * kv_block of one (d, nb * 2 *
 // kv_block, B H) map over kv, its V rows kv_block further on.  Positions
@@ -49,8 +51,8 @@
 // written by TMA before it is read -- no stale shared memory, no 0 * NaN
 // in P V -- and no block that the group did not select is read.
 // Registers: 24 + 2 x 240, as for the dense kernels.  Shared memory: Q 32
-// KB + 3 stages x (K 32 KB + V 32 KB) + 1 KB alignment + 256 bytes of
-// barriers and records = 230,656 of the 232,448 bytes a block may have.
+// KB + 3 stages x (K 32 KB + V 32 KB) + 1 KB alignment + 512 bytes of
+// barriers and records = 230,912 of the 232,448 bytes a block may have.
 // The grid runs groups fastest, so the CTAs resident at one time share a
 // head and its blocks stay in L2.  The output is fresh (the module adds
 // the delta cache); no lse is written.
@@ -83,34 +85,40 @@ struct CspKeys {
 
   __device__ int tiles() const { return (n_pos + KT - 1) / KT; }
 
+  // Box b of tile i: its first map row, and in lim its valid leading
+  // rows.  Recomputed in each loop of load, and the loops are not
+  // unrolled: 16 boxes' rows and index loads at once would not fit the
+  // producer's 24 registers.
+  __device__ int box(int i, int b, int& lim) const {
+    int pos = i * KT + b * RB;
+    const bool live = pos < n_pos;
+    if (!live) pos = n_pos - RB;           // the last valid box
+    const int blk = row[pos / kv_block], off = pos % kv_block;
+    lim = live ? min(max(kv_valid - (blk * kv_block + off), 0), RB) : 0;
+    return blk * kstride + off;
+  }
+
   __device__ void load(const CUtensorMap* tk, const CUtensorMap* tv,
                        uint32_t sk, uint32_t sv, uint32_t k_full,
                        uint32_t v_full, int* rec, int i, int bh) const {
-    int rows[BOXES];
-    int partial = 0;
-#pragma unroll
+    int partial = 0, lim;
+#pragma unroll 1
     for (int b = 0; b < BOXES; ++b) {
-      int pos = i * KT + b * RB;
-      const bool live = pos < n_pos;
-      if (!live) pos = n_pos - RB;           // the last valid box
-      const int blk = row[pos / kv_block], off = pos % kv_block;
-      const int lim =
-          live ? min(max(kv_valid - (blk * kv_block + off), 0), RB) : 0;
+      box(i, b, lim);
       rec[b] = lim;
       partial |= lim < RB;
-      rows[b] = blk * kstride + off;
     }
     rec[BOXES] = partial;
     mbar_expect_tx(k_full, TILE);
-#pragma unroll
+#pragma unroll 1
     for (int b = 0; b < BOXES; ++b)
-      tma_load_tile(sk + b * RB * BOX_ROW, tk, k_full, rows[b], bh,
+      tma_load_tile(sk + b * RB * BOX_ROW, tk, k_full, box(i, b, lim), bh,
                     KT * BOX_ROW);
     mbar_expect_tx(v_full, TILE);
-#pragma unroll
+#pragma unroll 1
     for (int b = 0; b < BOXES; ++b)
-      tma_load_tile(sv + b * RB * BOX_ROW, tv, v_full, rows[b] + voff, bh,
-                    KT * BOX_ROW);
+      tma_load_tile(sv + b * RB * BOX_ROW, tv, v_full,
+                    box(i, b, lim) + voff, bh, KT * BOX_ROW);
   }
 
   // Columns 8 j .. 8 j + 7 lie in box 8 j / RB (RB is a multiple of 8).
@@ -157,6 +165,10 @@ int dispatch(const void* q, const void* k, const void* v, int k_rows,
     return launch<64>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   if (p.kv_block == 32)
     return launch<32>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  if (p.kv_block == 16)
+    return launch<16>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  if (p.kv_block == 8)
+    return launch<8>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -198,7 +210,7 @@ extern "C" int chipmunk_csp_hbm_attn(const void* q, const void* kv,
                                      void* o, int BH, int Sq, int nb,
                                      int jmax, int kv_block, int kv_valid,
                                      float tau, void* stream) {
-  if (kv_block != 32 && kv_block != 64 && kv_block != 128)
+  if (kv_block < 8 || kv_block > 128 || 128 % kv_block)
     return (int)cudaErrorInvalidValue;
   const int rows = nb * 2 * kv_block;
   Params p = csp_params(o, inds, counts, Sq, nb * kv_block, jmax, kv_block,

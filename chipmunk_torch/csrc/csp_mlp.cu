@@ -1,34 +1,47 @@
 // Sparse-delta MLP step, in two passes behind one wrapper (csp_mlp_fused),
-// in three weight/activation variants.
+// in five weight/activation variants, each with fp8 e4m3 or bf16 act and
+// out caches (independently, as the reference takes either).
 //
 // Replaces (TPU reference, Pallas), chipmunk_tpu/kernels/csp_mlp.py:
 //   :326 _fused_kernel, as the pair of passes below, for
-//     bf16 weights (csp_mlp_mm1/mm2), int8 QTensor weights with bf16
-//     activations (`wq`: csp_mlp_mm1_wq/mm2_wq) and int8 weights with int8
-//     activations (`wq` + `a8`: quant_rows, csp_mlp_mm1_a8/mm2_a8);
+//     bf16 weights (csp_mlp_mm1/mm2), int8 or int4 QTensor weights with
+//     bf16 activations (`wq`/`w4`: csp_mlp_mm1_wq/mm2_wq) and int8 or int4
+//     weights with int8 activations (`a8`: quant_rows + csp_mlp_mm1_a8 /
+//     mm2_a8 on Hopper; `a8w4`: the same launches on mma.sync);
 //   :93 _mm1_kernel and :216 _mm2_kernel (bf16 and `wq` int8), which
 //     compute the same functions as the first two pairs.
 //
 //   mm1: for token tile x[t] and selected neuron block n of its bm-block,
-//        act = fp8(gelu_tanh(x @ w1t[n]^T + b1[n])), delta = act - cache,
-//        act_cache[t, n] = act   (in place; positions past the count give 0)
-//   mm2: out_cache[t] = fp8(out_cache[t] + delta[t] @ w2[selected rows])
+//        act = cast(gelu_tanh(x @ w1t[n]^T + b1[n])) to the act cache's
+//        type, delta = act - cache, act_cache[t, n] = act (in place;
+//        positions past the count give 0)
+//   mm2: out_cache[t] = cast(out_cache[t] + delta[t] @ w2[selected rows])
 //        with f32 accumulation over all selected blocks.
+// A cache write rounds as the reference's astype: fp8 with __NV_NOSAT
+// (NaN above 464), bf16 to nearest even (put2).
 //
 // Bound on the H100: operations.  At the FLUX shape (T = 4608 tokens,
 // C = 3072, ~15 selected 256-neuron blocks per 512-token block) each pass
 // is 2 * T * 3840 * C = 109 GOP, ~0.11 ms at 989 TFLOP/s in bf16 and
-// ~0.055 ms at 1979 TOP/s in int8, while the bytes it must move (x, the
+// 0.054 ms at 1979 TOP/s in int8, while the bytes it must move (x, the
 // selected weight rows, the caches) are tens of MB (~0.01-0.02 ms).
 //
 // Design: the TPU kernel keeps a [bm = 512, Cout = 3072] f32 accumulator
 // (6 MB) in VMEM across the neuron blocks; no SM holds that, so the fused
 // step is split where the reference splits it.  mm1 is a gathered GEMM
-// whose epilogue does bias, GELU, the fp8 rounding of the act *before* the
-// delta (the kernel's numerics, not mlp_ref's), the delta and the cache
-// refresh; mm2 is a GEMM whose contraction runs only over the selected
-// blocks.  All are mma.sync (bf16 -> f32 or s8 -> s32) fed by ldmatrix from
-// cp.async rings in shared memory (gemm_tile.cuh); wgmma/TMA come later.
+// whose epilogue does bias, GELU, the rounding of the act to the cache's
+// type *before* the delta (the kernel's numerics, not mlp_ref's), the
+// delta and the cache refresh; mm2 is a GEMM whose contraction runs only
+// over the selected blocks.
+//
+// The a8 pair (int8 weights) runs on gemm_sm90.cuh: TMA row gathers into
+// a ring, s8 wgmma (m64n256k32 / m64n128k32), a producer warpgroup and two
+// consumer warpgroups of 64 rows.  s8 wgmma reads both operands K-major,
+// and w2's rows are [k][c]; mm2 reads a K-major copy of the codes ([C, N],
+// made once per weight by the wrapper, kmajor_codes) instead of
+// transposing every tile.  The bf16, wq/w4 and a8w4 kernels are mma.sync
+// (bf16 -> f32 or s8 -> s32) fed by ldmatrix from cp.async rings
+// (gemm_tile.cuh).
 //
 // The `wq` variant converts each int8 weight tile to bf16 while staging it
 // (exact) and applies the scales where the reference does: mm1 after the
@@ -44,7 +57,7 @@
 //   mm2: acc = f32(out_cache); for each valid block j in order:
 //        acc = fma(f32(int32(d8_j . w2q[block j])), sd_j, acc)
 // The row max of |ds| spans the whole neuron block, so one mm1 CTA covers
-// 64 tokens x all bn (<= 256) neurons.  mm2 flushes its int32 sum into the
+// all bn (<= 256) neurons of its rows.  mm2 flushes its int32 sum into the
 // f32 accumulator at every block boundary (each block has its own scale).
 // int32 range: |x8 . w1q| <= C * 127^2 = 4.96e7 at C = 3072 and
 // |d8 . w2q| <= bn * 127^2, far inside 2^31.  The scalar steps are spelled
@@ -52,12 +65,22 @@
 // (mid * s + b1, acc + dot * sd) is one fma, every other step rounds on
 // its own.  With the integer products exact, x8/sx, d8/sd and (where the
 // acts agree) the caches then match the reference bit for bit.
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 #include "gemm_tile.cuh"
 
 using namespace chipmunk;
 using namespace chipmunk::tile;
 
 namespace {
+
+// The count of token block m clipped to [1, jmax], as the reference
+// clips it: the wrappers pass the counts and indices as they are, and no
+// kernel reads an index past the count.
+__device__ __forceinline__ int count_of(const int* counts, int m, int jmax) {
+  return min(max(counts[m], 1), jmax);
+}
 
 // An unselected slot: zero its [rows x bytes] slice of a row-major array
 // (row stride ld bytes), so consumers may read all jmax slots.
@@ -70,34 +93,85 @@ __device__ __forceinline__ void zero_slot(void* dst, int rows, int bytes,
   }
 }
 
-// Two neighbouring fp8 cache entries as floats, and back.
-__device__ __forceinline__ float2 ld_fp8x2(const uint8_t* p) {
+// Two neighbouring cache entries (fp8 e4m3 as uint8_t, or bf16) as
+// floats; put2 rounds two floats to the cache's type (fp8: the reference's
+// NaN above 464, f2fp8_hw; bf16: to nearest even, as astype), stores them
+// and returns the rounded values.
+__device__ __forceinline__ float2 ld2(const uint8_t* p) {
   const uint16_t v = *reinterpret_cast<const uint16_t*>(p);
   return make_float2(fp82f(v & 0xff), fp82f(v >> 8));
 }
 
-__device__ __forceinline__ void st_fp8x2(uint8_t* p, float a, float b) {
-  *reinterpret_cast<uint16_t*>(p) = (uint16_t)(f2fp8(a) | (f2fp8(b) << 8));
+__device__ __forceinline__ float2 ld2(const __nv_bfloat16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
 }
 
-// The act of two neighbouring neurons, fp8(gelu_tanh(mid)), written to the
-// cache; returns its delta against the old cache entries.
+__device__ __forceinline__ float2 put2(uint8_t* p, float a, float b) {
+  const uint8_t a0 = f2fp8_hw(a), a1 = f2fp8_hw(b);
+  *reinterpret_cast<uint16_t*>(p) = (uint16_t)(a0 | (a1 << 8));
+  return make_float2(fp82f(a0), fp82f(a1));
+}
+
+__device__ __forceinline__ float2 put2(__nv_bfloat16* p, float a, float b) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
+  *reinterpret_cast<__nv_bfloat162*>(p) = v;
+  return __bfloat1622float2(v);
+}
+
+// The act of two neighbouring neurons, gelu_tanh(mid) rounded to the
+// cache's type, written to the cache; returns its delta against the old
+// cache entries.  (The mma.sync mm1 epilogues; fp8 through the software
+// f2fp8, which is faster there.)
 __device__ __forceinline__ float2 refresh_act(uint8_t* cache, float mid0,
                                               float mid1) {
-  const float2 old = ld_fp8x2(cache);
+  const float2 old = ld2(cache);
   const uint8_t a0 = f2fp8(gelu_tanh(mid0)), a1 = f2fp8(gelu_tanh(mid1));
   *reinterpret_cast<uint16_t*>(cache) = (uint16_t)(a0 | (a1 << 8));
   return make_float2(fp82f(a0) - old.x, fp82f(a1) - old.y);
 }
 
+__device__ __forceinline__ float2 refresh_act(__nv_bfloat16* cache,
+                                              float mid0, float mid1) {
+  const float2 old = ld2(cache);
+  const float2 a = put2(cache, gelu_tanh(mid0), gelu_tanh(mid1));
+  return make_float2(a.x - old.x, a.y - old.y);
+}
+
+// The code of x rounded to the cache's type (as put2 rounds it), and two
+// codes stored as put2 stores them, returned as floats.
+template <class CT>
+__device__ __forceinline__ int act_code(float x);
+
+template <>
+__device__ __forceinline__ int act_code<uint8_t>(float x) {
+  return f2fp8_hw(x);
+}
+
+template <>
+__device__ __forceinline__ int act_code<__nv_bfloat16>(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+__device__ __forceinline__ float2 put_codes(uint8_t* p, int a, int b) {
+  *reinterpret_cast<uint16_t*>(p) = (uint16_t)(a | (b << 8));
+  return make_float2(fp82f(a), fp82f(b));
+}
+
+__device__ __forceinline__ float2 put_codes(__nv_bfloat16* p, int a, int b) {
+  *reinterpret_cast<uint32_t*>(p) = (uint32_t)a | ((uint32_t)b << 16);
+  return make_float2(__uint_as_float((uint32_t)a << 16),
+                     __uint_as_float((uint32_t)b << 16));
+}
+
 // ---------------------------------------------------------------- bf16
 
 // grid (T / 128, jmax * bn / 128)
+template <class CT>
 __global__ void __launch_bounds__(NT)
 csp_mlp_mm1_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ w1t,
                    const __nv_bfloat16* __restrict__ b1,
-                   uint8_t* __restrict__ act_cache,
+                   CT* __restrict__ act_cache,
                    const int* __restrict__ inds, const int* __restrict__ counts,
                    __nv_bfloat16* __restrict__ packed, int C, int N, int jmax,
                    int bn, int bm) {
@@ -105,7 +179,8 @@ csp_mlp_mm1_kernel(const __nv_bfloat16* __restrict__ x,
   const int subs = bn / BN, j = blockIdx.y / subs, sub = blockIdx.y % subs;
   const size_t P = (size_t)jmax * bn;
   __nv_bfloat16* pk = packed + (size_t)t0 * P + (size_t)j * bn + sub * BN;
-  if (j >= counts[m]) return zero_slot(pk, BM, BN * 2, P * 2);
+  if (j >= count_of(counts, m, jmax))
+    return zero_slot(pk, BM, BN * 2, P * 2);
   const int n0 = inds[(size_t)m * jmax + j] * bn + sub * BN;
   const __nv_bfloat16* xa = x + (size_t)t0 * C;
   const __nv_bfloat16* wb = w1t + (size_t)n0 * C;
@@ -127,16 +202,18 @@ csp_mlp_mm1_kernel(const __nv_bfloat16* __restrict__ x,
 }
 
 // grid (T / 128, C / 128)
+template <class CT>
 __global__ void __launch_bounds__(NT)
 csp_mlp_mm2_kernel(const __nv_bfloat16* __restrict__ packed,
                    const __nv_bfloat16* __restrict__ w2,
-                   uint8_t* __restrict__ out_cache,
+                   CT* __restrict__ out_cache,
                    const int* __restrict__ inds, const int* __restrict__ counts,
                    int C, int jmax, int bn, int bm) {
   const int t0 = blockIdx.x * BM, c0 = blockIdx.y * BN, m = t0 / bm;
   const size_t P = (size_t)jmax * bn;
   const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK, nk = counts[m] * per_block;
+  const int per_block = bn / BK;
+  const int nk = count_of(counts, m, jmax) * per_block;
   const __nv_bfloat16* pa = packed + (size_t)t0 * P;
   auto a_src = [&](int kt) { return pa + (size_t)kt * BK; };
   auto b_src = [&](int kt) {
@@ -145,7 +222,7 @@ csp_mlp_mm2_kernel(const __nv_bfloat16* __restrict__ packed,
   };
   float acc[4][4][4];
   for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col);
+    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
     acc[mt][nt][2 * h] = v.x;
     acc[mt][nt][2 * h + 1] = v.y;
   });
@@ -157,7 +234,7 @@ csp_mlp_mm2_kernel(const __nv_bfloat16* __restrict__ packed,
          },
          [&](const Stage2& st) { mma_stage<false>(acc, st.a, st.b); });
   for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    st_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
+    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
              acc[mt][nt][2 * h + 1]);
   });
 }
@@ -167,13 +244,13 @@ csp_mlp_mm2_kernel(const __nv_bfloat16* __restrict__ packed,
 // grid (T / 128, jmax * bn / 128).  As csp_mlp_mm1_kernel; the w1 tile
 // [128 n][32 k] int8 (W4: one nibble plane of the packed [N, C/2] bytes)
 // arrives through registers and is stored as bf16.
-template <bool W4>
+template <bool W4, class CT>
 __global__ void __launch_bounds__(NT)
 csp_mlp_mm1_wq_kernel(const __nv_bfloat16* __restrict__ x,
                       const int8_t* __restrict__ w1q,
                       const float* __restrict__ w1s,
                       const __nv_bfloat16* __restrict__ b1,
-                      uint8_t* __restrict__ act_cache,
+                      CT* __restrict__ act_cache,
                       const int* __restrict__ inds,
                       const int* __restrict__ counts,
                       __nv_bfloat16* __restrict__ packed, int C, int N,
@@ -182,7 +259,8 @@ csp_mlp_mm1_wq_kernel(const __nv_bfloat16* __restrict__ x,
   const int subs = bn / BN, j = blockIdx.y / subs, sub = blockIdx.y % subs;
   const size_t P = (size_t)jmax * bn;
   __nv_bfloat16* pk = packed + (size_t)t0 * P + (size_t)j * bn + sub * BN;
-  if (j >= counts[m]) return zero_slot(pk, BM, BN * 2, P * 2);
+  if (j >= count_of(counts, m, jmax))
+    return zero_slot(pk, BM, BN * 2, P * 2);
   const int n0 = inds[(size_t)m * jmax + j] * bn + sub * BN;
   const __nv_bfloat16* xa = x + (size_t)t0 * C;
   const int wld = W4 ? C / 2 : C;         // bytes per weight row
@@ -234,19 +312,20 @@ struct Stage2Q {               // Stage2 + the bf16 scales of its 32 k rows
 // c] int8 (W4: one nibble plane of the packed [N, C/2] bytes) arrives
 // through registers and is stored as bf16, and the packed delta's
 // fragments are multiplied by bf16(w2s[k]) before the product.
-template <bool W4>
+template <bool W4, class CT>
 __global__ void __launch_bounds__(NT)
 csp_mlp_mm2_wq_kernel(const __nv_bfloat16* __restrict__ packed,
                       const int8_t* __restrict__ w2q,
                       const float* __restrict__ w2s,
-                      uint8_t* __restrict__ out_cache,
+                      CT* __restrict__ out_cache,
                       const int* __restrict__ inds,
                       const int* __restrict__ counts, int C, int jmax, int bn,
                       int bm) {
   const int t0 = blockIdx.x * BM, c0 = blockIdx.y * BN, m = t0 / bm;
   const size_t P = (size_t)jmax * bn;
   const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK, nk = counts[m] * per_block;
+  const int per_block = bn / BK;
+  const int nk = count_of(counts, m, jmax) * per_block;
   const __nv_bfloat16* pa = packed + (size_t)t0 * P;
   // output columns c < C/2 are the low nibble plane of byte column c,
   // c >= C/2 the high plane of byte column c - C/2
@@ -254,7 +333,7 @@ csp_mlp_mm2_wq_kernel(const __nv_bfloat16* __restrict__ packed,
   const int cb = c0 - (plane > 0 ? C / 2 : 0);
   float acc[4][4][4];
   for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col);
+    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
     acc[mt][nt][2 * h] = v.x;
     acc[mt][nt][2 * h + 1] = v.y;
   });
@@ -292,14 +371,14 @@ csp_mlp_mm2_wq_kernel(const __nv_bfloat16* __restrict__ packed,
       },
       [](int) {});
   for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    st_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
+    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
              acc[mt][nt][2 * h + 1]);
   });
 }
 
 // ---------------------------------------------- a8: int8 weights and x
 
-constexpr int BM8 = 64;        // token rows of an a8 CTA
+constexpr int BM8 = 64;        // token rows of an a8w4 CTA
 
 // x [T, C] bf16 -> x8 [T, C] int8, sx [T] f32; one CTA per row
 __global__ void __launch_bounds__(NT)
@@ -330,31 +409,32 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
   }
 }
 
-// grid (T / 64, jmax).  One CTA: 64 tokens x the whole neuron block of
-// BNB (= bn) neurons, so the row max of |ds| over the block is local: the
-// 4 warps across the block meet in shared memory.  x8 and w1q rows both
-// have k contiguous and go through a 3-stage cp.async ring; int4 weights
-// (W4) are widened to int8 through registers, double-buffered.
-template <int BNB, bool W4>
+// grid (T / 64, jmax).  The a8w4 mm1 (int4 weights, int8 x), on mma.sync:
+// one CTA is 64 tokens x the whole neuron block of BNB (= bn) neurons, so
+// the row max of |ds| over the block is local: the 4 warps across the
+// block meet in shared memory.  x8 tiles go through a cp.async ring, the
+// int4 weight planes are widened to int8 through registers,
+// double-buffered.
+template <int BNB, class CT>
 __global__ void __launch_bounds__(NT)
-csp_mlp_mm1_a8_kernel(const int8_t* __restrict__ x8,
-                      const float* __restrict__ sx,
-                      const int8_t* __restrict__ w1q,
-                      const float* __restrict__ w1s,
-                      const __nv_bfloat16* __restrict__ b1,
-                      const float* __restrict__ w2s,
-                      uint8_t* __restrict__ act_cache,
-                      const int* __restrict__ inds,
-                      const int* __restrict__ counts,
-                      int8_t* __restrict__ d8, float* __restrict__ sd, int C,
-                      int N, int jmax, int bm) {
+csp_mlp_mm1_a8w4_kernel(const int8_t* __restrict__ x8,
+                        const float* __restrict__ sx,
+                        const int8_t* __restrict__ w1q,
+                        const float* __restrict__ w1s,
+                        const __nv_bfloat16* __restrict__ b1,
+                        const float* __restrict__ w2s,
+                        CT* __restrict__ act_cache,
+                        const int* __restrict__ inds,
+                        const int* __restrict__ counts,
+                        int8_t* __restrict__ d8, float* __restrict__ sd, int C,
+                        int N, int jmax, int bm) {
   constexpr int NTW = BNB / 32;     // 8-wide n tiles per warp (4 across)
   using Stage = StageS8<BM8, BNB>;
   const int t0 = blockIdx.x * BM8, m = t0 / bm, j = blockIdx.y;
   const size_t P = (size_t)jmax * BNB;
   int8_t* dq = d8 + (size_t)t0 * P + (size_t)j * BNB;
   float* so = sd + (size_t)t0 * jmax + j;
-  if (j >= counts[m]) {
+  if (j >= count_of(counts, m, jmax)) {
     if (threadIdx.x < BM8) so[(size_t)threadIdx.x * jmax] = 0.0f;
     return zero_slot(dq, BM8, BNB, P);
   }
@@ -366,40 +446,30 @@ csp_mlp_mm1_a8_kernel(const int8_t* __restrict__ x8,
   auto compute = [&](const Stage& st) {
     mma_stage_s8<2, NTW, false>(acc, st.a, st.b);
   };
-  if constexpr (W4) {
-    const int8_t* wb = w1q + (size_t)n0 * (C / 2);
-    constexpr int WORDS = BNB * BK8 / 4 / NT;   // B words a thread stages
-    uint32_t breg[WORDS];
-    k_loop_staged(
-        reinterpret_cast<Stage*>(smem), C / BK8,
-        [&](int kt, Stage& st) { issue_rows8<BM8>(st.a, xa + kt * BK8, C); },
-        [&](int kt) {
-          const int plane = kt * BK8 >= C / 2;
-          const int kc = kt * BK8 - (plane ? C / 2 : 0);
+  const int8_t* wb = w1q + (size_t)n0 * (C / 2);
+  constexpr int WORDS = BNB * BK8 / 4 / NT;   // B words a thread stages
+  uint32_t breg[WORDS];
+  k_loop_staged(
+      reinterpret_cast<Stage*>(smem), C / BK8,
+      [&](int kt, Stage& st) { issue_rows8<BM8>(st.a, xa + kt * BK8, C); },
+      [&](int kt) {
+        const int plane = kt * BK8 >= C / 2;
+        const int kc = kt * BK8 - (plane ? C / 2 : 0);
 #pragma unroll
-          for (int u = 0; u < WORDS; ++u) {
-            const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
-            breg[u] = w_bytes(*reinterpret_cast<const uint32_t*>(
-                wb + (size_t)n * (C / 2) + kc + 4 * w), plane);
-          }
-        },
-        [&](Stage& st) {
+        for (int u = 0; u < WORDS; ++u) {
+          const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
+          breg[u] = w_bytes(*reinterpret_cast<const uint32_t*>(
+              wb + (size_t)n * (C / 2) + kc + 4 * w), plane);
+        }
+      },
+      [&](Stage& st) {
 #pragma unroll
-          for (int u = 0; u < WORDS; ++u) {
-            const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
-            *reinterpret_cast<uint32_t*>(st.b + n * LDA8 + 4 * w) = breg[u];
-          }
-        },
-        compute, [](int) {});
-  } else {
-    const int8_t* wb = w1q + (size_t)n0 * C;
-    k_loop(reinterpret_cast<Stage*>(smem), C / BK8,
-           [&](int kt, Stage& st) {
-             issue_rows8<BM8>(st.a, xa + kt * BK8, C);
-             issue_rows8<BNB>(st.b, wb + kt * BK8, C);
-           },
-           compute);
-  }
+        for (int u = 0; u < WORDS; ++u) {
+          const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
+          *reinterpret_cast<uint32_t*>(st.b + n * LDA8 + 4 * w) = breg[u];
+        }
+      },
+      compute, [](int) {});
   // epilogue 1: act, cache refresh, ds = delta * w2s; row max of |ds|
   const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
   float ds[2][NTW][4], rmax[2][2] = {};
@@ -442,32 +512,33 @@ csp_mlp_mm1_a8_kernel(const int8_t* __restrict__ x8,
   });
 }
 
-// grid (T / 64, C / 128).  acc = f32(out_cache); the k loop runs over the
-// selected blocks' rows of w2q ([k][c] bytes, W4: one nibble plane of the
-// packed [N, C/2] bytes, transposed on the way into shared memory) and
-// flushes the int32 sum, times sd of that block, into acc at every block
-// boundary.
-template <bool W4>
+// grid (T / 64, C / 128).  The a8w4 mm2, on mma.sync: acc =
+// f32(out_cache); the k loop runs over the selected blocks' rows of w2q
+// (one nibble plane of the packed [N, C/2] bytes, transposed on the way
+// into shared memory) and flushes the int32 sum, times sd of that block,
+// into acc at every block boundary.
+template <class CT>
 __global__ void __launch_bounds__(NT)
-csp_mlp_mm2_a8_kernel(const int8_t* __restrict__ d8,
-                      const float* __restrict__ sd,
-                      const int8_t* __restrict__ w2q,
-                      uint8_t* __restrict__ out_cache,
-                      const int* __restrict__ inds,
-                      const int* __restrict__ counts, int C, int jmax, int bn,
-                      int bm) {
+csp_mlp_mm2_a8w4_kernel(const int8_t* __restrict__ d8,
+                        const float* __restrict__ sd,
+                        const int8_t* __restrict__ w2q,
+                        CT* __restrict__ out_cache,
+                        const int* __restrict__ inds,
+                        const int* __restrict__ counts, int C, int jmax, int bn,
+                        int bm) {
   using Stage = StageS8T<BM8>;
   const int t0 = blockIdx.x * BM8, c0 = blockIdx.y * BN8, m = t0 / bm;
   const size_t P = (size_t)jmax * bn;
   const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK8, nk = counts[m] * per_block;
+  const int per_block = bn / BK8;
+  const int nk = count_of(counts, m, jmax) * per_block;
   const int8_t* pa = d8 + (size_t)t0 * P;
-  const int wld = W4 ? C / 2 : C, plane = W4 ? c0 >= C / 2 : -1;
-  const int cb = c0 - (plane > 0 ? C / 2 : 0);
+  const int wld = C / 2, plane = c0 >= C / 2;
+  const int cb = c0 - (plane ? C / 2 : 0);
   float acc[2][4][4];
   int iacc[2][4][4] = {};
   for_each_pair_s8<2, 4>([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col);
+    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
     acc[mt][nt][2 * h] = v.x;
     acc[mt][nt][2 * h + 1] = v.y;
   });
@@ -500,10 +571,281 @@ csp_mlp_mm2_a8_kernel(const int8_t* __restrict__ d8,
         });
       });
   for_each_pair_s8<2, 4>([&](int mt, int nt, int h, int row, int col) {
-    st_fp8x2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
+    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
              acc[mt][nt][2 * h + 1]);
   });
 }
+
+// ------------------------------------ a8 on Hopper (gemm_sm90.cuh)
+
+using sm90::bar_sync;
+using sm90::fence_async;
+using sm90::GK;
+using sm90::GM;
+using sm90::launch_gemm;
+using sm90::make_byte_map;
+using sm90::mbar_expect_tx;
+using sm90::mbar_wait;
+using sm90::smem_u32;
+using sm90::swz128;
+using sm90::tma_load;
+using sm90::tma_store;
+using sm90::tma_store_commit_wait;
+
+// csp_mlp_mm1_a8 replaces the fc1 half of _fused_kernel with a8
+// (chipmunk_tpu/kernels/csp_mlp.py:326).  Bound: operations, 2 bm bn C per
+// selected (token block, neuron block), 0.054 ms at the FLUX shape at 1979
+// TOP/s.  The products run at the s8 wgmma rate from TMA-fed tiles of
+// 128 x 256; the epilogue, which costs as much again on the CUDA cores, is
+// kept free of branches (f2fp8_hw, div_rn) so its element chains overlap.
+// One CTA per (128-token tile, selected neuron block j);
+// A = x8 rows [t0, t0 + 128), B = w1q rows [n0, n0 + BN) of the block,
+// k = C.  The producer first loads the tile's old act-cache entries
+// [128 rows][BN] by TMA into shared memory past the ring, under the
+// products.  Epilogue per thread (two rows, BN / 4 columns each): mid,
+// the act, the refresh of the staged entries and ds = delta * w2s[n] in
+// place of the s32 sums; the row max of |ds| over the block (the row lies
+// in one quad: two shfl_xor), sd (written out), and d8 staged in the free
+// ring; then one thread stores the act tile and the d8 tile by TMA.  The
+// staged tiles carry the 128-byte swizzle, so a warp's eight rows hit
+// eight different banks.  A slot past the count only writes its zeros.
+template <int BN_, class CT>
+struct Mm1A8 {
+  static constexpr int BN = BN_;
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = GM * BN * ES;         // the act tile
+  static constexpr int ST =
+      1024 + 4 * (GM + BN) * GK + EXTRA + 128 <= sm90::SMEM_MAX ? 4 : 3;
+  struct Params {
+    CUtensorMap act_map;     // act cache [T][N], box [128 rows][128 bytes]
+    CUtensorMap d8_map;      // d8 [T][jmax BN], box [128 rows][128 bytes]
+    const float* sx;
+    const float* w1s;
+    const __nv_bfloat16* b1;
+    const float* w2s;
+    const int* inds;
+    const int* counts;
+    int8_t* d8;
+    float* sd;
+    int C, jmax, bm;
+  };
+  const Params& p;
+  int t0, j, n0;
+  bool on;
+
+  __device__ Mm1A8(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * GM;
+    j = blockIdx.y;
+    const int m = t0 / p.bm;
+    on = j < count_of(p.counts, m, p.jmax);
+    n0 = on ? p.inds[(size_t)m * p.jmax + j] * BN : 0;
+  }
+  __device__ bool live() const { return on; }
+  __device__ void idle() const {
+    const size_t P = (size_t)p.jmax * BN;
+    int8_t* dq = p.d8 + (size_t)t0 * P + (size_t)j * BN;
+    for (int id = threadIdx.x; id < GM * BN / 16; id += blockDim.x)
+      *reinterpret_cast<uint4*>(dq + (id / (BN / 16)) * P +
+                                (id % (BN / 16)) * 16) = make_uint4(0, 0, 0, 0);
+    if (threadIdx.x < GM) p.sd[(size_t)(t0 + threadIdx.x) * p.jmax + j] = 0.f;
+  }
+  __device__ int tiles() const { return p.C / GK; }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < BN * ES / 128; ++b)
+      tma_load(extra + b * GM * 128, &p.act_map, bar, n0 + b * 128 / ES, t0,
+               0);
+  }
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    ka = kb = i * GK;
+    ra = t0;
+    rb = n0;
+  }
+  __device__ bool restart(int i) const { return i == 0; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  __device__ void begin(int) {}
+  template <int A>
+  __device__ void after(int, int (&)[A], int) {}
+
+  template <int A>
+  __device__ void end(int (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int l0 = 64 * c + 16 * warp + g;           // tile rows l0, l0 + 8
+    const float s0 = __ldg(p.sx + t0 + l0), s1 = __ldg(p.sx + t0 + l0 + 8);
+    // In passes, so that the element chains interleave: no pass stores
+    // where a later element of it loads.  1: mid, then the act rounded
+    // to the cache's type (its code, in place of the sum).
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int n = n0 + 8 * jj + 2 * t;
+      const float2 ws = __ldg(reinterpret_cast<const float2*>(p.w1s + n));
+      const float2 bb = __bfloat1622float2(
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(p.b1 + n)));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float s = h ? s1 : s0;
+        int& a0 = acc[4 * jj + 2 * h];
+        int& a1 = acc[4 * jj + 2 * h + 1];
+        a0 = act_code<CT>(gelu_tanh(
+            __fmaf_rn((float)a0, __fmul_rn(s, ws.x), bb.x)));
+        a1 = act_code<CT>(gelu_tanh(
+            __fmaf_rn((float)a1, __fmul_rn(s, ws.y), bb.y)));
+      }
+    }
+    // 2: against the staged old entries, which take the new codes; ds =
+    // delta * w2s[n] (in place of the codes) and the row max of |ds|
+    float rmax[2] = {0.f, 0.f};
+    mbar_wait(bar, 0);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int col = 8 * jj + 2 * t, x = col * ES;
+      const float2 vs =
+          __ldg(reinterpret_cast<const float2*>(p.w2s + n0 + col));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        int& a0 = acc[4 * jj + 2 * h];
+        int& a1 = acc[4 * jj + 2 * h + 1];
+        CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (GM * 128) +
+                                      swz128(l0 + 8 * h, x & 127));
+        const float2 old = ld2(e);
+        const float2 a = put_codes(e, a0, a1);
+        const float v0 = __fmul_rn(a.x - old.x, vs.x);
+        const float v1 = __fmul_rn(a.y - old.y, vs.y);
+        a0 = __float_as_int(v0);
+        a1 = __float_as_int(v1);
+        rmax[h] = nanmax(rmax[h], nanmax(fabsf(v0), fabsf(v1)));
+      }
+    }
+    bar_sync(1, 256);                  // both consumers are past the ring
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = rmax[h];
+      v = nanmax(v, __shfl_xor_sync(~0u, v, 1));
+      v = nanmax(v, __shfl_xor_sync(~0u, v, 2));
+      const float sdv = __fmul_rn(nanmax(v, 1e-12f), INV127);
+      const int l = l0 + 8 * h;
+      if (t == 0) p.sd[(size_t)(t0 + l) * p.jmax + j] = sdv;
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int x = 8 * jj + 2 * t;
+        *reinterpret_cast<uint16_t*>(ring + (x >> 7) * (GM * 128) +
+                                     swz128(l, x & 127)) = (uint16_t)(
+            (q8(div_rn(__int_as_float(acc[4 * jj + 2 * h]), sdv)) & 0xff) |
+            ((q8(div_rn(__int_as_float(acc[4 * jj + 2 * h + 1]), sdv))
+              & 0xff) << 8));
+      }
+    }
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BN * ES / 128; ++b)
+        tma_store(&p.act_map, smem_u32(act_s) + b * GM * 128,
+                  n0 + b * 128 / ES, t0);
+      for (int b = 0; b < BN / 128; ++b)
+        tma_store(&p.d8_map, smem_u32(ring) + b * GM * 128,
+                  j * BN + b * 128, t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm2_a8 replaces the fc2 half of _fused_kernel with a8 (same
+// site).  Bound: operations, 0.054 ms at the FLUX shape.  The products run
+// at the s8 wgmma rate from TMA-fed 128 x 128 tiles, reading the K-major
+// copy of the codes (no transpose per tile); each block's sd is loaded
+// while its products run.  What remains is the tile's operand traffic from
+// L2 (A and B of 128 x 128 each per k stage).
+// One CTA per (128-token tile, 128 output columns); A =
+// d8 rows [t0, t0 + 128) at slot j's k bytes, B = the K-major codes w2t
+// [C, N] rows [c0, c0 + 128) at block inds[m, j]'s k bytes.  The k loop
+// runs over the counts[m] valid blocks in order, bn / 128 stages each; at
+// each block's last stage the s32 sum (exact in any k order) goes into the
+// f32 sum as fma(f32(sum), sd[t, j], acc), the order of the reference.
+template <class CT>
+struct Mm2A8 {
+  static constexpr int BN = 128, ST = 6, EXTRA = 0;
+  struct Params {
+    const float* sd;
+    CT* out;
+    const int* inds;
+    const int* counts;
+    int C, jmax, bn, bm;
+  };
+  const Params& p;
+  int t0, c0, per, cnt;
+  const int* row;
+  float f[64];
+  float sd0, sd1;              // the current block's sd of the two rows
+
+  __device__ Mm2A8(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * GM;
+    c0 = blockIdx.y * BN;
+    const int m = t0 / p.bm;
+    per = p.bn / GK;
+    cnt = count_of(p.counts, m, p.jmax);
+    row = p.inds + (size_t)m * p.jmax;
+  }
+  __device__ bool live() const { return true; }
+  __device__ void idle() const {}
+  __device__ int tiles() const { return cnt * per; }
+  __device__ void side_load(uint32_t, uint32_t) const {}
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    const int jb = i / per, kk = (i % per) * GK;
+    ka = jb * p.bn + kk;
+    ra = t0;
+    kb = row[jb] * p.bn + kk;
+    rb = c0;
+  }
+  __device__ bool restart(int i) const { return i % per == 0; }
+  __device__ bool flush(int i) const { return i % per == per - 1; }
+
+  // thread's rows r0, r0 + 8 and columns c0 + 8 jj + 2 t (+1)
+  template <class F>
+  __device__ void each(int c, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int r0 = t0 + 64 * c + 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int jj = 0; jj < 16; ++jj)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        fn(4 * jj + 2 * h, r0 + 8 * h, c0 + 8 * jj + 2 * (lane & 3));
+  }
+  __device__ void begin(int c) {
+    each(c, [&](int e, int r, int col) {
+      const float2 v = ld2(p.out + (size_t)r * p.C + col);
+      f[e] = v.x;
+      f[e + 1] = v.y;
+    });
+  }
+  // at a block's first stage, its sd (read while the products run)
+  __device__ void issued(int i, int c) {
+    if (i % per) return;
+    const int r0 = t0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) +
+                   ((threadIdx.x & 31) >> 2);
+    sd0 = p.sd[(size_t)r0 * p.jmax + i / per];
+    sd1 = p.sd[(size_t)(r0 + 8) * p.jmax + i / per];
+  }
+  template <int A>
+  __device__ void after(int, int (&acc)[A], int c) {
+    const int r0 = t0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) +
+                   ((threadIdx.x & 31) >> 2);
+    each(c, [&](int e, int r, int) {
+      const float s = r == r0 ? sd0 : sd1;
+      f[e] = __fmaf_rn((float)acc[e], s, f[e]);
+      f[e + 1] = __fmaf_rn((float)acc[e + 1], s, f[e + 1]);
+    });
+  }
+  template <int A>
+  __device__ void end(int (&)[A], int c, unsigned char*, unsigned char*,
+                      uint32_t) {
+    each(c, [&](int e, int r, int col) {
+      put2(p.out + (size_t)r * p.C + col, f[e], f[e + 1]);
+    });
+  }
+};
 
 template <typename K>
 int set_smem(K kernel, int bytes) {
@@ -511,37 +853,52 @@ int set_smem(K kernel, int bytes) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
+// Run f with a null pointer of the cache's type: bf16 (flag set) or fp8.
+template <class F>
+int with_cache(int bf16, F f) {
+  return bf16 ? f((__nv_bfloat16*)nullptr) : f((uint8_t*)nullptr);
+}
+
 }  // namespace
 
+// Each *_bf16 flag says the cache it names is bf16; else it is fp8 e4m3.
 extern "C" int chipmunk_csp_mlp_mm1(const void* x, const void* w1t,
                                     const void* b1, void* act_cache,
                                     const void* inds, const void* counts,
                                     void* packed, int T, int C, int N, int jmax,
-                                    int bn, int bm, void* stream) {
-  constexpr int SMEM = STAGES * (int)sizeof(Stage1);
-  static const int attr = set_smem(csp_mlp_mm1_kernel, SMEM);
-  if (attr != 0) return attr;
-  dim3 grid(T / BM, jmax * (bn / BN));
-  csp_mlp_mm1_kernel<<<grid, NT, SMEM, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1t,
-      (const __nv_bfloat16*)b1, (uint8_t*)act_cache, (const int*)inds,
-      (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
-  return (int)cudaGetLastError();
+                                    int bn, int bm, int act_bf16,
+                                    void* stream) {
+  return with_cache(act_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    constexpr int SMEM = STAGES * (int)sizeof(Stage1);
+    static const int attr = set_smem(csp_mlp_mm1_kernel<CT>, SMEM);
+    if (attr != 0) return attr;
+    dim3 grid(T / BM, jmax * (bn / BN));
+    csp_mlp_mm1_kernel<CT><<<grid, NT, SMEM, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1t,
+        (const __nv_bfloat16*)b1, (CT*)act_cache, (const int*)inds,
+        (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int chipmunk_csp_mlp_mm2(const void* packed, const void* w2,
                                     void* out_cache, const void* inds,
                                     const void* counts, int T, int C, int jmax,
-                                    int bn, int bm, void* stream) {
-  constexpr int SMEM = STAGES * (int)sizeof(Stage2);
-  static const int attr = set_smem(csp_mlp_mm2_kernel, SMEM);
-  if (attr != 0) return attr;
-  dim3 grid(T / BM, C / BN);
-  csp_mlp_mm2_kernel<<<grid, NT, SMEM, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)packed, (const __nv_bfloat16*)w2,
-      (uint8_t*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-      bm);
-  return (int)cudaGetLastError();
+                                    int bn, int bm, int out_bf16,
+                                    void* stream) {
+  return with_cache(out_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    constexpr int SMEM = STAGES * (int)sizeof(Stage2);
+    static const int attr = set_smem(csp_mlp_mm2_kernel<CT>, SMEM);
+    if (attr != 0) return attr;
+    dim3 grid(T / BM, C / BN);
+    csp_mlp_mm2_kernel<CT><<<grid, NT, SMEM, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)packed, (const __nv_bfloat16*)w2,
+        (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
+        bm);
+    return (int)cudaGetLastError();
+  });
 }
 
 // w4: the weights are int4 plane-packed ([N, C/2] bytes), else int8
@@ -550,28 +907,37 @@ extern "C" int chipmunk_csp_mlp_mm1_wq(const void* x, const void* w1q,
                                        void* act_cache, const void* inds,
                                        const void* counts, void* packed,
                                        int T, int C, int N, int jmax, int bn,
-                                       int bm, int w4, void* stream) {
-  dim3 grid(T / BM, jmax * (bn / BN));
-  auto kernel = w4 ? csp_mlp_mm1_wq_kernel<true> : csp_mlp_mm1_wq_kernel<false>;
-  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)x, (const int8_t*)w1q, (const float*)w1s,
-      (const __nv_bfloat16*)b1, (uint8_t*)act_cache, (const int*)inds,
-      (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
-  return (int)cudaGetLastError();
+                                       int bm, int w4, int act_bf16,
+                                       void* stream) {
+  return with_cache(act_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    dim3 grid(T / BM, jmax * (bn / BN));
+    auto kernel = w4 ? csp_mlp_mm1_wq_kernel<true, CT>
+                     : csp_mlp_mm1_wq_kernel<false, CT>;
+    kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)x, (const int8_t*)w1q, (const float*)w1s,
+        (const __nv_bfloat16*)b1, (CT*)act_cache, (const int*)inds,
+        (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int chipmunk_csp_mlp_mm2_wq(const void* packed, const void* w2q,
                                        const void* w2s, void* out_cache,
                                        const void* inds, const void* counts,
                                        int T, int C, int jmax, int bn, int bm,
-                                       int w4, void* stream) {
-  dim3 grid(T / BM, C / BN);
-  auto kernel = w4 ? csp_mlp_mm2_wq_kernel<true> : csp_mlp_mm2_wq_kernel<false>;
-  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const __nv_bfloat16*)packed, (const int8_t*)w2q, (const float*)w2s,
-      (uint8_t*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-      bm);
-  return (int)cudaGetLastError();
+                                       int w4, int out_bf16, void* stream) {
+  return with_cache(out_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    dim3 grid(T / BM, C / BN);
+    auto kernel = w4 ? csp_mlp_mm2_wq_kernel<true, CT>
+                     : csp_mlp_mm2_wq_kernel<false, CT>;
+    kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+        (const __nv_bfloat16*)packed, (const int8_t*)w2q, (const float*)w2s,
+        (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
+        bm);
+    return (int)cudaGetLastError();
+  });
 }
 
 extern "C" int chipmunk_quant_rows(const void* x, void* x8, void* sx, int T,
@@ -581,51 +947,107 @@ extern "C" int chipmunk_quant_rows(const void* x, void* x8, void* sx, int T,
   return (int)cudaGetLastError();
 }
 
-template <int BNB, bool W4>
+template <int BN, class CT>
 static int launch_mm1_a8(const void* x8, const void* sx, const void* w1q,
                          const void* w1s, const void* b1, const void* w2s,
                          void* act_cache, const void* inds, const void* counts,
                          void* d8, void* sd, int T, int C, int N, int jmax,
                          int bm, cudaStream_t stream) {
-  constexpr int SMEM = (W4 ? 2 : STAGES) * (int)sizeof(StageS8<BM8, BNB>);
-  static const int attr = set_smem(csp_mlp_mm1_a8_kernel<BNB, W4>, SMEM);
+  using Op = Mm1A8<BN, CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, x8, T, C, GM);
+  if (err == 0) err = make_byte_map(&tb, w1q, N, C, BN);
+  if (err == 0)
+    err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, GM,
+                        Op::ES);
+  if (err == 0)
+    err = make_byte_map(&p.d8_map, d8, T, (long long)jmax * BN, GM);
+  if (err != 0) return err;
+  p.sx = (const float*)sx;
+  p.w1s = (const float*)w1s;
+  p.b1 = (const __nv_bfloat16*)b1;
+  p.w2s = (const float*)w2s;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.d8 = (int8_t*)d8;
+  p.sd = (float*)sd;
+  p.C = C;
+  p.jmax = jmax;
+  p.bm = bm;
+  return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / GM, jmax), stream);
+}
+
+template <int BNB, class CT>
+static int launch_mm1_a8w4(const void* x8, const void* sx, const void* w1q,
+                           const void* w1s, const void* b1, const void* w2s,
+                           void* act_cache, const void* inds,
+                           const void* counts, void* d8, void* sd, int T,
+                           int C, int N, int jmax, int bm,
+                           cudaStream_t stream) {
+  constexpr int SMEM = 2 * (int)sizeof(StageS8<BM8, BNB>);
+  static const int attr = set_smem(csp_mlp_mm1_a8w4_kernel<BNB, CT>, SMEM);
   if (attr != 0) return attr;
   dim3 grid(T / BM8, jmax);
-  csp_mlp_mm1_a8_kernel<BNB, W4><<<grid, NT, SMEM, stream>>>(
+  csp_mlp_mm1_a8w4_kernel<BNB, CT><<<grid, NT, SMEM, stream>>>(
       (const int8_t*)x8, (const float*)sx, (const int8_t*)w1q,
       (const float*)w1s, (const __nv_bfloat16*)b1, (const float*)w2s,
-      (uint8_t*)act_cache, (const int*)inds, (const int*)counts, (int8_t*)d8,
+      (CT*)act_cache, (const int*)inds, (const int*)counts, (int8_t*)d8,
       (float*)sd, C, N, jmax, bm);
   return (int)cudaGetLastError();
 }
 
+// w4: int4 weights on the mma.sync kernel; else int8 on the Hopper one
+// (bm a multiple of 128)
 extern "C" int chipmunk_csp_mlp_mm1_a8(const void* x8, const void* sx,
                                        const void* w1q, const void* w1s,
                                        const void* b1, const void* w2s,
                                        void* act_cache, const void* inds,
                                        const void* counts, void* d8, void* sd,
                                        int T, int C, int N, int jmax, int bn,
-                                       int bm, int w4, void* stream) {
-  auto launch = bn == 256 ? (w4 ? launch_mm1_a8<256, true>
-                                : launch_mm1_a8<256, false>)
-              : bn == 128 ? (w4 ? launch_mm1_a8<128, true>
-                                : launch_mm1_a8<128, false>)
-              : nullptr;
-  if (launch == nullptr) return (int)cudaErrorInvalidValue;
-  return launch(x8, sx, w1q, w1s, b1, w2s, act_cache, inds, counts, d8, sd,
-                T, C, N, jmax, bm, (cudaStream_t)stream);
+                                       int bm, int w4, int act_bf16,
+                                       void* stream) {
+  if (bn != 128 && bn != 256) return (int)cudaErrorInvalidValue;
+  if (!w4 && (bm % GM || C % GK)) return (int)cudaErrorInvalidValue;
+  return with_cache(act_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    auto launch = w4 ? (bn == 256 ? launch_mm1_a8w4<256, CT>
+                                  : launch_mm1_a8w4<128, CT>)
+                     : (bn == 256 ? launch_mm1_a8<256, CT>
+                                  : launch_mm1_a8<128, CT>);
+    return launch(x8, sx, w1q, w1s, b1, w2s, act_cache, inds, counts, d8, sd,
+                  T, C, N, jmax, bm, (cudaStream_t)stream);
+  });
 }
 
+// w2: w4 ? the int4 codes [N, C/2] (mma.sync kernel) : the K-major int8
+// codes [C, N] (Hopper kernel, bm a multiple of 128)
 extern "C" int chipmunk_csp_mlp_mm2_a8(const void* d8, const void* sd,
-                                       const void* w2q, void* out_cache,
+                                       const void* w2, void* out_cache,
                                        const void* inds, const void* counts,
-                                       int T, int C, int jmax, int bn, int bm,
-                                       int w4, void* stream) {
-  dim3 grid(T / BM8, C / BN8);
-  auto kernel = w4 ? csp_mlp_mm2_a8_kernel<true> : csp_mlp_mm2_a8_kernel<false>;
-  kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      (const int8_t*)d8, (const float*)sd, (const int8_t*)w2q,
-      (uint8_t*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-      bm);
-  return (int)cudaGetLastError();
+                                       int T, int C, int N, int jmax, int bn,
+                                       int bm, int w4, int out_bf16,
+                                       void* stream) {
+  return with_cache(out_bf16, [&](auto tag) {
+    using CT = std::remove_pointer_t<decltype(tag)>;
+    if (w4) {
+      dim3 grid(T / BM8, C / BN8);
+      csp_mlp_mm2_a8w4_kernel<CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
+          (const int8_t*)d8, (const float*)sd, (const int8_t*)w2,
+          (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
+          bm);
+      return (int)cudaGetLastError();
+    }
+    using Op = Mm2A8<CT>;
+    if (bm % GM || bn % GK || C % Op::BN) return (int)cudaErrorInvalidValue;
+    CUtensorMap ta, tb;
+    int err = make_byte_map(&ta, d8, T, (long long)jmax * bn, GM);
+    if (err == 0) err = make_byte_map(&tb, w2, C, N, Op::BN);
+    if (err != 0) return err;
+    const typename Op::Params p{(const float*)sd, (CT*)out_cache,
+                                (const int*)inds, (const int*)counts, C, jmax,
+                                bn, bm};
+    return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / GM, C / Op::BN),
+                                   (cudaStream_t)stream);
+  });
 }

@@ -144,6 +144,16 @@ def _check_inds(q, block_inds, block_counts, G):
                          'device')
 
 
+def _small_block(kv_block: int) -> str:
+    """Why the kernels refuse kv_block 1, 2 and 4, which the reference
+    takes."""
+    if kv_block in (1, 2, 4):
+        return ('; a key box of fewer than 8 rows is smaller than the '
+                '128-byte swizzle atom (8 rows of 64 bf16) that the TMA '
+                'loads and wgmma descriptors work in')
+    return ''
+
+
 def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
                  block_counts: torch.Tensor, qg: int = 128,
                  kv_block: int = 128, kv_valid: Optional[int] = None
@@ -168,9 +178,10 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
         return csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg,
                                   kv_block, kv_valid)
     check_cuda_attn('csp_attn_hbm', q, kv)
-    if qg != 128 or kv_block not in (32, 64, 128):
+    if qg != 128 or kv_block not in (8, 16, 32, 64, 128):
         raise ValueError('csp_attn_hbm kernel: qg must be 128 and kv_block '
-                         f'32, 64 or 128 (got {qg}, {kv_block})')
+                         f'8, 16, 32, 64 or 128 (got {qg}, {kv_block})'
+                         + _small_block(kv_block))
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     Sk = nb * kv_block
@@ -221,9 +232,10 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return csp_attn_hbm(q, pack_kv(k, v, kv_block), block_inds,
                             block_counts, qg, kv_block, kv_valid)
     q_hs, kv_hs = _kv_strides('csp_attn', q, k, v)
-    if qg != 128 or not (kv_block == 32 or kv_block % 64 == 0):
-        raise ValueError('csp_attn kernel: qg must be 128 and kv_block 32 '
-                         f'or a multiple of 64 (got {qg}, {kv_block})')
+    if qg != 128 or not (kv_block in (8, 16, 32) or kv_block % 64 == 0):
+        raise ValueError('csp_attn kernel: qg must be 128 and kv_block 8, '
+                         f'16, 32 or a multiple of 64 (got {qg}, {kv_block})'
+                         + _small_block(kv_block))
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)

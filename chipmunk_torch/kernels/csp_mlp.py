@@ -32,8 +32,10 @@ of int8 products is exact) and take every scalar step in the reference's
 order, with one rounding for each multiply-add that XLA fuses.
 
 Index contract: inds int [T/bm, jmax] neuron-block ids, unique within a
-row; counts int [T/bm], clipped here to [1, jmax]; padded by repeating the
-last valid id.  Caches are updated in place on every device and returned.
+row; counts int [T/bm], clipped to [1, jmax] (here for the plain
+versions, which then pad by repeating the last valid id; inside the
+kernels, which read no id past the count).  Caches are updated in place
+on every device and returned.
 """
 from __future__ import annotations
 
@@ -224,6 +226,10 @@ def _prep(inds, counts, T: int, bm: int, device: torch.device):
     if not (inds.device == counts.device == device):
         raise ValueError('inds/counts must be on the device of the '
                          'activations')
+    if device.type == 'cuda':
+        # the kernels clip the counts and read no index past them
+        return (inds.to(torch.int32).contiguous(),
+                counts.to(torch.int32).contiguous())
     counts = counts.clamp(1, jmax).to(torch.int32).contiguous()
     inds = pad_block_indices(inds, counts).to(torch.int32).contiguous()
     return inds, counts
@@ -261,20 +267,24 @@ def _on_cuda(name, *tensors):
                              'CUDA device or all on the CPU')
 
 
-def _check_dtypes(name, cache, *pairs):
+def _check_dtypes(name, cache, *pairs) -> int:
+    """Check the operands' dtypes; returns 1 for a bf16 cache, 0 for fp8
+    e4m3 (the kernels' cache flag)."""
     for t, dt in pairs:
         if t.dtype != dt:
             raise ValueError(f'{name}: the kernel takes {dt}, got {t.dtype}')
-    if cache.dtype != fp8.FP8:
-        raise NotImplementedError(f'{name}: the kernel keeps fp8 e4m3 '
-                                  f'caches, got {cache.dtype}')
+    if cache.dtype not in (fp8.FP8, torch.bfloat16):
+        raise ValueError(f'{name}: the kernel keeps fp8 e4m3 or bf16 '
+                         f'caches, got {cache.dtype}')
+    return int(cache.dtype == torch.bfloat16)
 
 
 def _check_tiles(name, C, bn, bm, a8: bool, w4: bool):
     if a8:
-        if bn not in (128, 256) or bm % 64 or C % 128:
+        bm_unit = 64 if w4 else 128
+        if bn not in (128, 256) or bm % bm_unit or C % 128:
             raise ValueError(f'{name}: the a8 kernels take bn 128 or 256, '
-                             'bm a multiple of 64 and C of 128')
+                             f'bm a multiple of {bm_unit} and C of 128')
     elif bm % 128 or bn % 128 or C % 128:
         raise ValueError(f'{name}: bm, bn and C must be multiples of 128')
     if w4 and C % 256:
@@ -284,6 +294,19 @@ def _check_tiles(name, C, bn, bm, a8: bool, w4: bool):
 
 def _flat_scale(w: QTensor) -> torch.Tensor:
     return w.scale.reshape(-1).float().contiguous()
+
+
+def kmajor_codes(w: QTensor) -> torch.Tensor:
+    """The int8 codes [N, C] of an unpacked QTensor as a contiguous
+    [C, N] copy: the B operand of the card's a8 fc2 kernel, which s8 wgmma
+    reads K-major only.  Made by the first call for a weight and kept on
+    the weight, so each weight is transposed once and holds N x C more
+    bytes while it lives (the codes are not expected to change in place)."""
+    t = w.__dict__.get('_kmajor')
+    if t is None or t.device != w.q.device:
+        t = w.q.t().contiguous()
+        object.__setattr__(w, '_kmajor', t)
+    return t
 
 
 def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
@@ -308,8 +331,9 @@ def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
     name = ('csp_mlp_mm1_w4' if w4 else 'csp_mlp_mm1_wq' if wq
             else 'csp_mlp_mm1')
     _on_cuda(name, x, w, b1, act_cache)
-    _check_dtypes(name, act_cache, (x, torch.bfloat16), (b1, torch.bfloat16),
-                  *([] if wq else [(w, torch.bfloat16)]))
+    bf = _check_dtypes(name, act_cache, (x, torch.bfloat16),
+                       (b1, torch.bfloat16),
+                       *([] if wq else [(w, torch.bfloat16)]))
     _check_tiles(name, C, bn, bm, False, w4)
     jmax = inds.shape[1]
     packed = torch.empty((T, jmax * bn), dtype=x.dtype, device=x.device)
@@ -319,12 +343,12 @@ def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
             x.data_ptr(), w.data_ptr(), _flat_scale(w1t).data_ptr(),
             b1.data_ptr(), act_cache.data_ptr(), inds.data_ptr(),
             counts.data_ptr(), packed.data_ptr(), T, C, N, jmax, bn, bm,
-            int(w4), _stream(x))
+            int(w4), bf, _stream(x))
     else:
         err = lib.chipmunk_csp_mlp_mm1(
             x.data_ptr(), w.data_ptr(), b1.data_ptr(), act_cache.data_ptr(),
             inds.data_ptr(), counts.data_ptr(), packed.data_ptr(), T, C, N,
-            jmax, bn, bm, _stream(x))
+            jmax, bn, bm, bf, _stream(x))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return packed, act_cache
@@ -349,8 +373,8 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
     name = ('csp_mlp_mm2_w4' if w4 else 'csp_mlp_mm2_wq' if wq
             else 'csp_mlp_mm2')
     _on_cuda(name, packed, w, out_cache)
-    _check_dtypes(name, out_cache, (packed, torch.bfloat16),
-                  *([] if wq else [(w, torch.bfloat16)]))
+    bf = _check_dtypes(name, out_cache, (packed, torch.bfloat16),
+                       *([] if wq else [(w, torch.bfloat16)]))
     _check_tiles(name, C, bn, bm, False, w4)
     lib = _build.library('csp_mlp')
     jmax = inds.shape[1]
@@ -358,11 +382,11 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
         err = lib.chipmunk_csp_mlp_mm2_wq(
             packed.data_ptr(), w.data_ptr(), _flat_scale(w2).data_ptr(),
             out_cache.data_ptr(), inds.data_ptr(), counts.data_ptr(), T, C,
-            jmax, bn, bm, int(w4), _stream(packed))
+            jmax, bn, bm, int(w4), bf, _stream(packed))
     else:
         err = lib.chipmunk_csp_mlp_mm2(
             packed.data_ptr(), w.data_ptr(), out_cache.data_ptr(),
-            inds.data_ptr(), counts.data_ptr(), T, C, jmax, bn, bm,
+            inds.data_ptr(), counts.data_ptr(), T, C, jmax, bn, bm, bf,
             _stream(packed))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
@@ -408,8 +432,8 @@ def csp_mlp_mm1_a8(x8, sx, w1t: QTensor, b1, w2s, act_cache, inds, counts,
     name = 'csp_mlp_mm1_a8w4' if w4 else 'csp_mlp_mm1_a8'
     w1s, w2s = _flat_scale(w1t), w2s.reshape(-1).float().contiguous()
     _on_cuda(name, x8, sx, w1t.q, b1, act_cache)
-    _check_dtypes(name, act_cache, (x8, torch.int8), (sx, torch.float32),
-                  (b1, torch.bfloat16))
+    bf = _check_dtypes(name, act_cache, (x8, torch.int8),
+                       (sx, torch.float32), (b1, torch.bfloat16))
     _check_tiles(name, C, bn, bm, True, w4)
     jmax = inds.shape[1]
     d8 = torch.empty((T, jmax * bn), dtype=torch.int8, device=x8.device)
@@ -418,7 +442,7 @@ def csp_mlp_mm1_a8(x8, sx, w1t: QTensor, b1, w2s, act_cache, inds, counts,
         x8.data_ptr(), sx.data_ptr(), w1t.q.data_ptr(), w1s.data_ptr(),
         b1.data_ptr(), w2s.data_ptr(), act_cache.data_ptr(), inds.data_ptr(),
         counts.data_ptr(), d8.data_ptr(), sd.data_ptr(), T, C, N, jmax, bn,
-        bm, int(w4), _stream(x8)), name)
+        bm, int(w4), bf, _stream(x8)), name)
     _build.LAUNCHES[name] += 1
     return d8, sd, act_cache
 
@@ -440,12 +464,14 @@ def csp_mlp_mm2_a8(d8, sd, w2: QTensor, out_cache, inds, counts,
                                                     inds, counts, bn, bm))
     name = 'csp_mlp_mm2_a8w4' if w4 else 'csp_mlp_mm2_a8'
     _on_cuda(name, d8, sd, w2.q, out_cache)
-    _check_dtypes(name, out_cache, (d8, torch.int8), (sd, torch.float32))
+    bf = _check_dtypes(name, out_cache, (d8, torch.int8),
+                       (sd, torch.float32))
     _check_tiles(name, C, bn, bm, True, w4)
+    w = w2.q if w4 else kmajor_codes(w2)
     _build.check(_build.library('csp_mlp').chipmunk_csp_mlp_mm2_a8(
-        d8.data_ptr(), sd.data_ptr(), w2.q.data_ptr(), out_cache.data_ptr(),
-        inds.data_ptr(), counts.data_ptr(), T, C, jmax, bn, bm, int(w4),
-        _stream(d8)), name)
+        d8.data_ptr(), sd.data_ptr(), w.data_ptr(), out_cache.data_ptr(),
+        inds.data_ptr(), counts.data_ptr(), T, C, w2.q.shape[0], jmax, bn,
+        bm, int(w4), bf, _stream(d8)), name)
     _build.LAUNCHES[name] += 1
     return out_cache
 

@@ -1,10 +1,12 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
 (ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of 64/128/256 with PAD_LSE rows, large
-scores, repeat calls bit-equal, kv_block 32, 64, 128 and 256, kv_valid
-inside a group's last or an earlier block, counts ending inside a tile,
-clipped counts, NaN in unselected K/V blocks, bm/bn of 256, the
-packed-KV csp kernel, keys and query rows passed as sliced views).  The kernels
+scores, repeat calls bit-equal, kv_block 8, 16, 32, 64, 128 and 256
+(1, 2 and 4 refused), kv_valid inside a group's last or an earlier
+block, counts ending inside a tile, clipped counts, NaN in unselected K/V
+blocks, bm/bn of 256, bm 512, fp8 and bf16 caches in every sparse-MLP
+kernel, NaN in unselected MLP weight blocks, the packed-KV csp kernel,
+keys and query rows passed as sliced views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -14,10 +16,10 @@ them:
 Tolerances: bf16 attention outputs to 4e-3 + 2^-6 |ref| (the kernel
 rounds p to bf16 against a running max, the plain version against the
 row max), the log2-domain lse to 1e-3, column sums to 1e-4 + 1e-3 |ref|,
-fp8 caches within one e4m3 ulp (sums in another order may round a value
-at a boundary to its neighbour); the int8-activation kernels' row
-quantization and quantized deltas bit-equal where their inputs agree, the
-probe's int8 product exact."""
+caches within one ulp of their type, fp8 e4m3 or bf16 (sums in another
+order may round a value at a boundary to its neighbour); the
+int8-activation kernels' row quantization and quantized deltas bit-equal
+where their inputs agree, the probe's int8 product exact."""
 import importlib
 
 import pytest
@@ -46,14 +48,27 @@ def randn(gen, *shape, scale=1.0):
         torch.bfloat16)
 
 
+def cache_ulp(mag, dtype):
+    """Spacing of the cache type at mag >= 0: fp8 e4m3 (2^-9 below 2^-6)
+    or bf16, taken at 2^-13 at least (an act below that is gelu's 1 + tanh
+    cancelling in float32, where two tanh a float32 ulp apart differ by
+    ~1e-7 |mid|)."""
+    if dtype == fp8.FP8:
+        return torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -6)))
+                          - 3)
+    return torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -13)))
+                      - 7)
+
+
 def assert_fp8_close(got, ref, slack=None):
-    """Equal NaNs; elsewhere within one e4m3 ulp of the larger magnitude
-    (plus ``slack``), and almost all equal."""
+    """Caches (fp8 e4m3 or bf16): equal NaNs; elsewhere within one ulp of
+    their type at the larger magnitude (plus ``slack``), and almost all
+    equal."""
+    assert got.dtype == ref.dtype
     g, r = got.float(), ref.float()
     assert torch.equal(g.isnan(), r.isnan())
     ok = ~r.isnan()
-    mag = torch.maximum(g.abs(), r.abs()).clamp(min=2.0 ** -6)
-    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 3)
+    ulp = cache_ulp(torch.maximum(g.abs(), r.abs()), got.dtype)
     if slack is not None:
         ulp = ulp + slack * 1.001
     assert bool(((g - r).abs() <= ulp)[ok].all())
@@ -93,7 +108,8 @@ def test_cuda_dense_colsum_attn_matches_plain(gen, sk, score_block):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('kv_block,kv_valid', [(128, None), (32, None),
-                                               (64, 300)])
+                                               (64, 300), (8, None),
+                                               (16, 300)])
 def test_cuda_csp_attn_matches_plain(gen, kv_block, kv_valid):
     q, k, v = (randn(gen, 1, 2, 512, 128) for _ in range(3))
     nb, jmax = 512 // kv_block, 3
@@ -111,7 +127,8 @@ def test_cuda_csp_attn_matches_plain(gen, kv_block, kv_valid):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('kv_block,kv_valid', [(128, None), (32, None),
-                                               (64, 300), (128, 470)])
+                                               (64, 300), (128, 470),
+                                               (8, 470), (16, None)])
 def test_cuda_csp_attn_hbm_matches_plain(gen, kv_block, kv_valid):
     """The packed-KV kernel against its plain version on the same packed
     tensor, and through csp_attn(mode='hbm') against the 'vmem' kernel."""
@@ -179,10 +196,11 @@ def poison_unselected(k, v, inds, counts, kv_block):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('cut', [False, True])
-@pytest.mark.parametrize('kv_block', [32, 64, 128, 256])
+@pytest.mark.parametrize('kv_block', [8, 16, 32, 64, 128, 256])
 def test_cuda_csp_kernels_gather(gen, kv_block, cut):
     """Both column-sparse kernels against their plain versions, B = 2:
-    kv_block 32, 64, 128 (and 256 for the in-place kernel), counts of 1
+    kv_block 8, 16, 32, 64, 128 (and 256 for the in-place kernel: from
+    16 boxes of 8 rows to one of 128 per key tile), counts of 1
     and jmax and counts ending inside a 128-key tile; with ``cut``,
     kv_valid inside the sequence's last block, which is the last selected
     block of group 1 and the first of group 3; NaN in every block that no
@@ -288,6 +306,25 @@ def test_cuda_csp_kernels_raise_on_what_they_do_not_take(gen):
         CA.csp_attn(q, k.cpu(), v.cpu(), inds, counts, mode='vmem')
     with pytest.raises(ValueError):
         CA.csp_attn_hbm(q, CA.pack_kv(k, v, 128).float(), inds, counts)
+    assert CA._build.LAUNCHES == n0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kv_block', [1, 2, 4])
+def test_cuda_csp_kernels_refuse_boxes_below_the_atom(gen, kv_block):
+    """kv_block 1, 2 and 4 (which the reference takes) raise in both
+    modes with the reason: a key box of fewer than 8 rows is smaller than
+    the 128-byte swizzle atom; nothing launches."""
+    q, k, v = (randn(gen, 1, 2, 256, 128) for _ in range(3))
+    nb = 256 // kv_block
+    inds = torch.zeros((1, 2, 2, 3), dtype=torch.int32, device='cuda')
+    inds[..., 1], inds[..., 2] = 1, nb - 1
+    counts = torch.full((1, 2, 2), 3, dtype=torch.int32, device='cuda')
+    n0 = dict(CA._build.LAUNCHES)
+    for mode in ('vmem', 'hbm'):
+        with pytest.raises(ValueError, match='smaller than the 128-byte '
+                           'swizzle atom'):
+            CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block, mode=mode)
     assert CA._build.LAUNCHES == n0
 
 
@@ -464,12 +501,15 @@ def test_cuda_quant_rows_matches_plain(gen):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize('kind', ['int8', 'int4'])
-@pytest.mark.parametrize('bm,bn', [(128, 128), (256, 256), (64, 256)])
+@pytest.mark.parametrize('kind,bm,bn', [
+    ('int8', 128, 128), ('int8', 256, 256), ('int8', 512, 256),
+    ('int4', 128, 128), ('int4', 256, 256), ('int4', 64, 256)])
 def test_cuda_csp_mlp_a8_matches_plain(gen, bm, bn, kind):
     """The int8-activation chain: x8/sx bit-equal; the act cache within
     one e4m3 ulp; d8/sd bit-equal wherever the acts of that (row, block)
-    agree; mm2 on the same d8/sd within one e4m3 ulp."""
+    agree; mm2 on the same d8/sd within one e4m3 ulp.  int8 weights take
+    the Hopper pair (bm a multiple of 128), int4 the mma.sync one (bm a
+    multiple of 64)."""
     T, C, N = 512, 256, 1024
     x, b1, act, out, inds, counts = mlp_case(gen, T, C, N, bm, bn)
     w1 = int8_qt(gen, N, C, C ** -0.5, kind)
@@ -542,3 +582,176 @@ def test_cuda_int8_probe_matches_plain(gen):
     torch.testing.assert_close(PR.int8_probe(af, bf),
                                PR.int8_probe_plain(af, bf), atol=1e-3,
                                rtol=1e-4)
+
+
+def agree_blocks(act_k, act_p, pinds, bm, bn):
+    """[T, jmax] bool: the two act caches agree on every neuron of the
+    (row, selected block)."""
+    M, jmax = pinds.shape
+    cols = (pinds.long()[:, :, None] * bn
+            + torch.arange(bn, device='cuda')).reshape(M, -1)
+    cols = cols.repeat_interleave(bm, 0)
+    a, b = act_k.float().gather(1, cols), act_p.float().gather(1, cols)
+    return ((a == b) | (a.isnan() & b.isnan())).reshape(
+        -1, jmax, bn).all(-1)
+
+
+def check_a8_pair(gen, x, w1, b1, w2, act, out, inds, counts, bm, bn):
+    """quant_rows and the a8 pair against their plain versions: act cache
+    within one ulp of its type; d8/sd bit-equal where the acts agree (and
+    zero past the count); mm2 on the plain d8/sd within one ulp; a second
+    call on the same inputs gives the same bits."""
+    x8, sx = CM.quant_rows(x)
+    runs = [CM.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(), inds,
+                              counts, bn=bn, bm=bm) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(a.view(torch.uint8) if a.dtype == fp8.FP8 else a,
+                           b.view(torch.uint8) if b.dtype == fp8.FP8 else b)
+    d8, sd, act_k = runs[0]
+    pinds = CA.pad_block_indices(inds, counts)
+    d8_p, sd_p, act_p = CM.csp_mlp_mm1_a8_plain(x8, sx, w1, b1, w2.scale,
+                                                act, pinds, counts, bn, bm)
+    assert_fp8_close(act_k, act_p)
+    T, jmax = sd.shape
+    agree = agree_blocks(act_k, act_p, pinds, bm, bn)
+    assert agree.float().mean().item() > 0.9
+    assert torch.equal(sd[agree], sd_p[agree])
+    assert torch.equal(d8.reshape(T, jmax, bn)[agree],
+                       d8_p.reshape(T, jmax, bn)[agree])
+    live = (torch.arange(jmax, device='cuda')[None]
+            < counts.repeat_interleave(bm)[:, None])
+    assert not bool(sd[~live].any())
+    assert not bool(d8.reshape(T, jmax, bn)[~live].any())
+    outs = [CM.csp_mlp_mm2_a8(d8_p, sd_p, w2, out.clone(), inds, counts,
+                              bn=bn, bm=bm) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(outs[0].float().nan_to_num(7.0),
+                       outs[1].float().nan_to_num(7.0))
+    assert_fp8_close(outs[0], CM.csp_mlp_mm2_a8_plain(
+        d8_p, sd_p, w2, out, pinds, counts, bn, bm))
+
+
+CACHES = {'fp8': fp8.FP8, 'bf16': torch.bfloat16}
+
+
+def cache_pair(gen, T, C, N, act_dt, out_dt):
+    act = fp8.cast(torch.randn((T, N), generator=gen, device='cuda') * 0.3,
+                   CACHES[act_dt])
+    out = fp8.cast(torch.randn((T, C), generator=gen, device='cuda'),
+                   CACHES[out_dt])
+    return act, out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bm,bn', [(128, 128), (128, 256), (512, 128),
+                                   (512, 256)])
+def test_cuda_csp_mlp_a8_hopper(gen, bm, bn, cache):
+    """The wgmma/TMA a8 pair: T = 1024, C = 384 (three k stages, three
+    column tiles), N = 2048, jmax 4 with counts of 1 and jmax; fp8 or bf16
+    caches (both of the type); NaN in the scales and bias of every neuron
+    block that no token block selects and 127 in its codes, so a read of
+    an unselected block shows.  Gates of check_a8_pair; the launches are
+    counted once per call."""
+    T, C, N, jmax = 1024, 384, 2048, 4
+    M = T // bm
+    x = randn(gen, T, C)
+    w1 = int8_qt(gen, N, C, C ** -0.5)
+    w2 = int8_qt(gen, N, C, N ** -0.5)
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    used = torch.zeros(N // bn, dtype=torch.bool, device='cuda')
+    used[CA.pad_block_indices(inds, counts).long().flatten()] = True
+    off = (~used).repeat_interleave(bn)[:, None]
+    w1 = QT.QTensor(w1.q.masked_fill(off, 127),
+                    w1.scale.masked_fill(off, float('nan')))
+    w2 = QT.QTensor(w2.q.masked_fill(off, 127),
+                    w2.scale.masked_fill(off, float('nan')))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_a8_pair(gen, x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    for k in ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8'):
+        assert CM._build.LAUNCHES[k] == n0[k] + (1 if k == 'quant_rows'
+                                                 else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('caches', [('bf16', 'bf16'), ('fp8', 'bf16')])
+@pytest.mark.parametrize('variant', ['bf16', 'int8', 'int4', 'a8w4'])
+def test_cuda_csp_mlp_bf16_caches(gen, variant, caches):
+    """The other sparse-MLP kernels with a bf16 out cache and a bf16 or fp8
+    act cache: the act cache within one ulp of its type; the packed delta
+    bit-equal where the acts agree (a8w4: d8/sd), elsewhere within the
+    act's ulp; mm2 on the plain delta within one ulp."""
+    T, C, N, bm, bn = 512, 256, 1024, 128, 128
+    x, b1, _, _, inds, counts = mlp_case(gen, T, C, N, bm, bn)
+    act, out = cache_pair(gen, T, C, N, *caches)
+    if variant == 'bf16':
+        w1, w2 = randn(gen, N, C, scale=C ** -0.5), randn(gen, N, C,
+                                                          scale=N ** -0.5)
+    else:
+        kind = 'int8' if variant == 'int8' else 'int4'
+        w1 = int8_qt(gen, N, C, C ** -0.5, kind)
+        w2 = int8_qt(gen, N, C, N ** -0.5, kind)
+    if variant == 'a8w4':
+        check_a8_pair(gen, x, w1, b1, w2, act, out, inds, counts, bm, bn)
+        return
+    pinds = CA.pad_block_indices(inds, counts)
+    pk, act_k = CM.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn,
+                               bm=bm)
+    torch.cuda.synchronize()
+    pk_p, act_p = CM.csp_mlp_mm1_plain(x, w1, b1, act, pinds, counts, bn, bm)
+    assert_fp8_close(act_k, act_p)
+    same = agree_blocks(act_k, act_p, pinds, bm, bn).repeat_interleave(bn, 1)
+    g, r = pk.float(), pk_p.float()
+    assert torch.equal(g[same], r[same])
+    cols = (pinds.long()[:, :, None] * bn + torch.arange(bn, device='cuda')
+            ).reshape(T // bm, -1).repeat_interleave(bm, 0)
+    a_p = act_p.float().gather(1, cols)
+    rnd = 2.0 ** -7 if act.dtype == torch.bfloat16 else 2.0 ** -8
+    assert bool(((g - r).abs()[~same]
+                 <= cache_ulp(a_p.abs()[~same], act.dtype) * 1.01
+                 + torch.maximum(g.abs(), r.abs())[~same] * rnd).all())
+    out_k = CM.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    assert_fp8_close(out_k, CM.csp_mlp_mm2_plain(pk_p, w2, out, pinds, counts,
+                                                 bn, bm))
+
+
+@pytest.mark.cuda
+def test_cuda_fp8_writes_keep_the_reference_overflow_rule(gen):
+    """An fp8 cache write on the card rounds as the reference's astype:
+    to nearest even up to 464 (448 for 448 < |x| <= 464, the tie at 464
+    included), NaN past 464 (bit-equal to the plain version elsewhere,
+    NaN at the same places); here through
+    csp_mlp_mm2, whose out cache is old + delta @ w2 with w2 the identity
+    on the selected block, so each entry is old + one delta."""
+    T, C, N, bn = 128, 256, 256, 128
+    deltas = torch.tensor([0.0, 10.0, 15.0, 16.0, 17.0, 30.0, -900.0,
+                           -1.0, 1e30, -17.0, 2.0 ** -12], device='cuda')
+    old = torch.full((T, C), 448.0, device='cuda')
+    old[1::2] = -448.0                  # odd rows: the negative side
+    packed = torch.zeros((T, bn), device='cuda')
+    packed[:, :len(deltas)] = deltas
+    packed[1::2] *= -1
+    packed = packed.to(torch.bfloat16)
+    w2 = torch.zeros((N, C), device='cuda')
+    w2[torch.arange(bn), torch.arange(bn)] = 1.0
+    w2 = w2.to(torch.bfloat16)
+    inds = torch.zeros((1, 1), dtype=torch.int32, device='cuda')
+    counts = torch.ones((1,), dtype=torch.int32, device='cuda')
+    out = fp8.to_fp8(old)
+    got = CM.csp_mlp_mm2(packed, w2, out.clone(), inds, counts, bn=bn, bm=T)
+    torch.cuda.synchronize()
+    ref = CM.csp_mlp_mm2_plain(packed, w2, out, inds, counts, bn, T)
+    g, r = got.float(), ref.float()
+    assert torch.equal(g.isnan(), r.isnan())
+    ok = ~r.isnan()
+    assert torch.equal(got.view(torch.uint8)[ok], ref.view(torch.uint8)[ok])
+    assert bool(g[:, 5].isnan().all())                  # 448 + 30 > 464
+    assert bool((g[:, 3].abs() == 448).all())           # 448 + 16: the tie

@@ -94,7 +94,8 @@ def test_dense_colsum_attn_matches_reference(sk, score_block):
 
 
 @pytest.mark.parametrize('kv_block,kv_valid', [(128, None), (32, None),
-                                               (32, 470)])
+                                               (32, 470), (8, None),
+                                               (16, None)])
 def test_csp_attn_matches_reference(kv_block, kv_valid):
     q, k, v = qkv(3, 512, 512)
     rng = np.random.default_rng(4)
@@ -110,7 +111,8 @@ def test_csp_attn_matches_reference(kv_block, kv_valid):
 
 
 @pytest.mark.parametrize('kv_block,kv_valid,jmax', [
-    (128, None, 3), (32, None, 6), (32, 470, 6), (64, 300, 4)])
+    (128, None, 3), (32, None, 6), (32, 470, 6), (64, 300, 4),
+    (8, 470, 6), (16, 470, 6), (8, 300, 12), (16, 300, 4)])
 def test_csp_attn_hbm_matches_reference(kv_block, kv_valid, jmax):
     """The packed-KV mode against the reference's _csp_hbm_packed_kernel in
     interpret mode: counts from 1 to jmax (positions past the count never
@@ -199,32 +201,47 @@ def test_dense_kernels_take_sliced_views():
 
 
 def _fp8_close(got, ref, extra=0.0):
-    """Equal NaNs; elsewhere at most one e4m3 ulp (at the larger of the
-    two) plus ``extra`` apart, and mostly equal.  The sums run in
-    different orders on the two sides, so a value at a rounding boundary
-    may take the neighbouring code; ``extra`` carries such a flip of an
-    act-cache entry on into the output cache."""
+    """Equal NaNs; elsewhere at most one ulp of the cache's type (fp8
+    e4m3, or bf16: the bf16 ulp), at the larger of the two, plus
+    ``extra`` apart, and mostly equal.  The sums run in different orders
+    on the two sides, so a value at a rounding boundary may take the
+    neighbouring code; ``extra`` carries such a flip of an act-cache entry
+    on into the output cache.  The bf16 ulp is taken at 2^-13 at least:
+    an act below that is gelu's 1 + tanh cancelling in float32, where the
+    two sides' tanh, a float32 ulp apart, differ by ~1e-7 |mid|."""
     g, r = got.float().cpu().numpy(), np.asarray(ref, dtype=np.float32)
     assert (np.isnan(g) == np.isnan(r)).all()
     ok = ~np.isnan(r)
-    mag = np.maximum(np.maximum(np.abs(r), np.abs(g)), 2.0 ** -6)
-    ulp = np.exp2(np.floor(np.log2(mag)) - 3)
+    if got.dtype == torch.bfloat16:
+        mag = np.maximum(np.maximum(np.abs(r), np.abs(g)), 2.0 ** -13)
+        ulp = np.exp2(np.floor(np.log2(mag)) - 7)
+    else:
+        mag = np.maximum(np.maximum(np.abs(r), np.abs(g)), 2.0 ** -6)
+        ulp = np.exp2(np.floor(np.log2(mag)) - 3)
     extra = np.broadcast_to(extra, r.shape)
     assert (np.abs(g - r)[ok] <= (ulp + extra * 1.001)[ok]).all()
     assert (g[ok] == r[ok]).mean() > 0.99
 
 
-def _out_slack(act_got, act_ref, w2):
-    """|delta act| @ |w2|: how far act-cache flips may move the output."""
+def _out_slack(act_got, act_ref, w2, old=None):
+    """|delta act| @ |w2|: how far act-cache flips may move the output.
+    With the old cache ``old`` (bf16 caches), a flipped entry's delta
+    act - old, rounded to bf16, may also move by its own bf16 rounding."""
     dact = np.abs(act_got.float().cpu().numpy()
                   - np.asarray(act_ref, dtype=np.float32))
+    if old is not None:
+        delta = np.abs(np.asarray(act_ref, np.float32)
+                       - np.asarray(old, np.float32))
+        dact = dact + (dact > 0) * delta * 2.0 ** -8
     return np.nan_to_num(dact) @ np.abs(np.asarray(w2, dtype=np.float32))
 
 
-def mlp_inputs(seed, T=256, C=256, N=512, bm=128, bn=128, jmax=3):
-    """bf16 weights and activations, fp8 e4m3 act/out caches."""
+def mlp_inputs(seed, T=256, C=256, N=512, bm=128, bn=128, jmax=3,
+               cache=ml_dtypes.float8_e4m3fn):
+    """bf16 weights and activations, act/out caches of type ``cache``
+    (fp8 e4m3 by default, or bf16)."""
     rng = np.random.default_rng(seed)
-    bf, f8 = ml_dtypes.bfloat16, ml_dtypes.float8_e4m3fn
+    bf, f8 = ml_dtypes.bfloat16, cache
     x = rng.standard_normal((T, C)).astype(bf)
     w1t = (rng.standard_normal((N, C)) * C ** -0.5).astype(bf)
     b1 = (rng.standard_normal(N) * 0.1).astype(bf)
@@ -257,14 +274,14 @@ def _qt(w, kind='int8'):
     return qj, QTensor(to_torch(qj.q), to_torch(qj.scale), qj.pack_axis)
 
 
-def _mm1_mm2_against_reference(seed, kind):
+def _mm1_mm2_against_reference(seed, kind, cache=ml_dtypes.float8_e4m3fn):
     """The two passes behind csp_mlp_fused against the reference's unfused
     kernels (_mm1_kernel, _mm2_kernel), which compute the same functions,
     with bf16 (kind None), int8 or int4 QTensor weights.  The packed delta
     bf16(act - cache) is bit-equal where the two acts are, elsewhere apart
     by the acts' difference plus bf16 rounding."""
     bm = bn = 128
-    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed)
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed, cache=cache)
     if kind:
         (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
     else:
@@ -289,8 +306,11 @@ def _mm1_mm2_against_reference(seed, kind):
     same = (a_t == a_j) | ~live
     np.testing.assert_array_equal(g[same], r[same])
     d = ~same
+    # the delta's own bf16 rounding: half an ulp of an exact fp8 difference,
+    # up to one ulp where act - old needs more bits than bf16 has
+    rnd = 2.0 ** -7 if cache == ml_dtypes.bfloat16 else 2.0 ** -8
     assert (np.abs(g - r)[d] <= np.abs(a_t - a_j)[d] * 1.001
-            + np.maximum(np.abs(g), np.abs(r))[d] * 2.0 ** -8).all()
+            + np.maximum(np.abs(g), np.abs(r))[d] * rnd).all()
     # mm2 on the same packed delta: summation order only
     out_j = j_csp_mlp_mm2(pk_j, w2_j,
                           *map(jnp.asarray, (out, inds, counts)),
@@ -459,6 +479,88 @@ def test_csp_mlp_refuses_what_the_reference_refuses():
     with pytest.raises(ValueError, match='int4-pack both'):
         csp_mlp_fused(targs[0], _qt(w1t, 'int4')[1], targs[2],
                       _qt(w2)[1], *targs[4:])
+
+
+BF16_CACHE_SEEDS = {'bf16': 21, 'wq': 22, 'w4': 23, 'a8': 24, 'a8w4': 25}
+
+
+@pytest.mark.parametrize('variant', ['bf16', 'wq', 'w4', 'a8', 'a8w4'])
+def test_csp_mlp_bf16_caches_match_reference(variant):
+    """bf16 act and out caches (the reference's default: no cache dtype in
+    the config) through csp_mlp_fused against the reference's fused kernel
+    in interpret mode, for each weight/activation variant, with
+    _fp8_close read with the bf16 ulp.  bf16/wq/w4: the out cache within
+    one ulp plus what act flips move, and the mm1/mm2 pair against
+    _mm1_kernel/_mm2_kernel.  a8/a8w4: x8/sx bit-equal; d8/sd bit-equal
+    to the reference's formulas on its acts wherever the acts of that
+    (row, block) agree; the out cache within one ulp on the rows whose
+    acts all agree."""
+    bm = bn = 128
+    seed = BF16_CACHE_SEEDS[variant]
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
+        seed, cache=ml_dtypes.bfloat16)
+    kind = {'wq': 'int8', 'a8': 'int8', 'w4': 'int4', 'a8w4': 'int4'}.get(
+        variant)
+    a8 = variant.startswith('a8')
+    if kind:
+        (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
+    else:
+        w1_j, w2_j = jnp.asarray(w1t), jnp.asarray(w2)
+        w1_t, w2_t = to_torch(w1t), to_torch(w2)
+    out_j, act_j = j_csp_mlp_fused(
+        jnp.asarray(x), w1_j, jnp.asarray(b1), w2_j,
+        *map(jnp.asarray, (act, out, inds, counts)), bn=bn, bm=bm,
+        interpret=True, a8=a8)
+    xt = to_torch(x)
+    out_t, act_t = csp_mlp_fused(xt, w1_t, to_torch(b1), w2_t,
+                                 *map(to_torch, (act, out, inds, counts)),
+                                 bn=bn, bm=bm, a8=a8)
+    assert act_t.dtype == out_t.dtype == torch.bfloat16
+    _fp8_close(act_t, act_j)
+    if not a8:
+        w2f = (jq_dequant(w2_t) if kind else w2)
+        _fp8_close(out_t, out_j, _out_slack(act_t, act_j, w2f, act))
+        _mm1_mm2_against_reference(seed, kind, cache=ml_dtypes.bfloat16)
+        return
+    x8, sx = quant_rows(xt)
+    xf = jnp.asarray(x).astype(jnp.float32)
+    sx_r = jnp.maximum(jnp.max(jnp.abs(xf), axis=1, keepdims=True),
+                       1e-6) * (1.0 / 127.0)
+    np.testing.assert_array_equal(sx.numpy(), np.asarray(sx_r)[:, 0])
+    np.testing.assert_array_equal(
+        x8.numpy(), np.asarray(jnp.clip(jnp.round(xf / sx_r), -127, 127)
+                               .astype(jnp.int8)))
+    d8, sd, _ = csp_mlp_mm1_a8(x8, sx, w1_t, to_torch(b1), w2_t.scale,
+                               to_torch(act), *map(to_torch, (inds, counts)),
+                               bn=bn, bm=bm)
+    M, jmax = inds.shape
+    T = x.shape[0]
+    cols = np.repeat((inds[..., None] * bn + np.arange(bn)).reshape(M, -1),
+                     bm, 0)
+    act_r = np.asarray(act_j, np.float32)
+    old = np.take_along_axis(np.asarray(act, np.float32), cols, 1)
+    new = np.take_along_axis(act_r, cols, 1)
+    agree = (np.take_along_axis(act_t.float().numpy(), cols, 1) == new
+             ).reshape(T, jmax, bn).all(-1)
+    w2s = np.asarray(w2_j.scale, np.float32)[:, 0][cols]
+    ds = (jnp.asarray(new - old) * jnp.asarray(w2s)).reshape(T, jmax, bn)
+    sd_r = jnp.maximum(jnp.max(jnp.abs(ds), axis=-1, keepdims=True),
+                       1e-12) * (1.0 / 127.0)
+    d8_r = np.asarray(jnp.clip(jnp.round(ds / sd_r), -127, 127)
+                      .astype(jnp.int8))
+    live = np.repeat(np.arange(jmax) < counts[:, None], bm, 0)
+    ok = agree & live
+    assert ok.sum() > 0.9 * live.sum()
+    np.testing.assert_array_equal(sd.numpy()[ok], np.asarray(sd_r)[..., 0][ok])
+    np.testing.assert_array_equal(d8.numpy().reshape(T, jmax, bn)[ok],
+                                  d8_r[ok])
+    rows = (agree | ~live).all(-1)
+    _fp8_close(out_t[torch.from_numpy(rows)], np.asarray(out_j)[rows])
+
+
+def jq_dequant(w):
+    """float32 weights of a port QTensor (codes times scales)."""
+    return _codes(w).float().numpy() * w.scale.float().numpy()
 
 
 def test_int8_probe_plain_is_the_product():
