@@ -12,8 +12,9 @@
    the bf16 kernels, the int8-weight (``wq``) and int8-activation (``a8``)
    sparse-MLP kernels (their yardstick: the dense layer's torch.matmul or
    torch._int_mm scaled by the selected share), every sparse-MLP variant
-   with bf16 caches, both csp modes at kv_block 8 and 16, and the
-   int8/bf16 tile GEMM probe.  For the short
+   with bf16 caches, the bf16 pair also at bn = 128 and with bf16 caches,
+   both csp modes at kv_block 1, 2, 4, 8 and 16, and the int8/bf16 tile
+   GEMM probe.  For the short
    rows (``csp_attn`` at FLUX, ``quant_rows``) it also gives the kernel's
    own device time from torch.profiler's kernel records (``device_ms``),
    since their ``ms`` includes the wrappers' host work.
@@ -68,9 +69,17 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
-OUR_KERNELS = ('attn_sm90_kernel',     # dense_attn, dense_colsum_attn, csp
-               'gemm_sm90_kernel',     # csp_mlp_mm1_a8, csp_mlp_mm2_a8
-               'csp_mlp_mm1', 'csp_mlp_mm2', 'quant_rows_kernel')
+# the port's kernels in a profiler trace: (label, part of the demangled
+# name), first match wins; each gemm_sm90_kernel instantiation by its Op,
+# so that the bf16 pair and the a8 pair are told apart
+OUR_KERNELS = (
+    ('attention (attn_sm90_kernel)', 'attn_sm90_kernel'),
+    ('bf16 MLP mm1 (gemm_sm90_kernel<Mm1Bf16>)', 'mm1bf16<'),
+    ('bf16 MLP mm2 (gemm_sm90_kernel<Mm2Bf16>)', 'mm2bf16<'),
+    ('a8 MLP mm1 (gemm_sm90_kernel<Mm1A8>)', 'mm1a8<'),
+    ('a8 MLP mm2 (gemm_sm90_kernel<Mm2A8>)', 'mm2a8<'),
+    ('quant_rows', 'quant_rows_kernel'),
+    ('mma.sync MLP (wq, w4, a8w4)', 'csp_mlp_'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -350,12 +359,16 @@ def kernel_phases(torch, mods):
     act_t = act.clone()
     share = nsel * bm * bn / (T_SINGLE * N)
     dense = randn(T_SINGLE, N)              # a dense delta, for fc2
+
+    def mm1():
+        return cm.csp_mlp_mm1(x, w1t, b1, act_t, minds, mcounts, bn=bn,
+                              bm=bm)
+
     rows.append(dict(
         name='csp_mlp_mm1', source='chipmunk_torch/csrc/csp_mlp.cu',
         replaces='chipmunk_tpu/kernels/csp_mlp.py:326',   # fc1 half
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cm.csp_mlp_mm1(
-            x, w1t, b1, act_t, minds, mcounts, bn=bn, bm=bm), 20),
+        max_abs_err=err, ms=time_ms(torch, mm1, 20),
+        device_ms=device_ms(torch, mm1, 20)[0],
         plain_ms=time_ms(torch, lambda: cm.csp_mlp_mm1_plain(
             x, w1t, b1, act, pminds, mcounts, bn, bm), 3),
         bound_ms=bnd, bound_by=by,
@@ -372,12 +385,15 @@ def kernel_phases(torch, mods):
     bnd, by = bound_ms(mm_flops, nsel * bm * bn * 2 + w_bytes
                        + 2 * T_SINGLE * C)
     out_t = out.clone()
+
+    def mm2():
+        return cm.csp_mlp_mm2(pk_p, w2, out_t, minds, mcounts, bn=bn, bm=bm)
+
     rows.append(dict(
         name='csp_mlp_mm2', source='chipmunk_torch/csrc/csp_mlp.cu',
         replaces='chipmunk_tpu/kernels/csp_mlp.py:326',   # fc2 half
-        max_abs_err=err,
-        ms=time_ms(torch, lambda: cm.csp_mlp_mm2(
-            pk_p, w2, out_t, minds, mcounts, bn=bn, bm=bm), 20),
+        max_abs_err=err, ms=time_ms(torch, mm2, 20),
+        device_ms=device_ms(torch, mm2, 20)[0],
         plain_ms=time_ms(torch, lambda: cm.csp_mlp_mm2_plain(
             pk_p, w2, out, pminds, mcounts, bn, bm), 3),
         bound_ms=bnd, bound_by=by,
@@ -386,6 +402,11 @@ def kernel_phases(torch, mods):
             '[12288, 3072] (bf16)', lambda: torch.matmul(dense, w2),
             share)))
     del dense
+    for r in rows[-2:]:
+        print(f"{r['name']} (FLUX, bf16 weights): "
+              f"{mm_flops / r['device_ms'] / 1e9:.1f} TFLOP/s on the device "
+              f"({r['device_ms']:.4f} ms)", flush=True)
+    bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen)
     print_rows(rows)
     return rows
 
@@ -867,6 +888,78 @@ def mlp_agree(torch, act_k, act_p, pinds, bm, bn):
     return ((a == b) | (a.isnan() & b.isnan())).reshape(-1, jmax, bn).all(-1)
 
 
+def check_packed(torch, tag, pk, pk_p, act_k, act_p, pinds, bm, bn, adt):
+    """The packed delta of a bf16-activation mm1 (R rows) against its
+    plain version: bit-equal where the acts of the (row, block) agree,
+    elsewhere within the act's ulp (cache type adt) plus the delta's own
+    bf16 rounding.  Returns the [R, jmax] agreement."""
+    agree = mlp_agree(torch, act_k, act_p, pinds, bm, bn)
+    same = agree.repeat_interleave(bn, 1)
+    g, r = pk.float(), pk_p.float()
+    if not bool(((g == r) | (g.isnan() & r.isnan()))[same].all()):
+        fail(f'{tag} packed: differs where the acts agree')
+    cols = (pinds.long()[:, :, None] * bn + torch.arange(
+        bn, device=pk.device)).reshape(len(pinds), -1) \
+        .repeat_interleave(bm, 0)
+    a_p = act_p.float().gather(1, cols)
+    rnd = 2.0 ** -7 if adt == torch.bfloat16 else 2.0 ** -8
+    d = (g - r).abs()[~same]
+    if d.numel() and not bool((d <= fp8_ulp(
+            torch, a_p[~same], adt) * 1.01 + torch.maximum(
+            g.abs(), r.abs())[~same] * rnd).all()):
+        fail(f'{tag} packed: differs by more than the act ulp')
+    return agree
+
+
+def bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen):
+    """The bf16 pair beside its main-path row, at the FLUX shape: bn = 128
+    (jmax 44, counts 26-34: about the same selected share; mm1 in
+    128-neuron sub-blocks) with fp8 caches, and bn = 256 with bf16 caches.
+    Each kernel runs whole; its plain version on the first two 512-token
+    blocks (rows 0-1023, counts 1 and jmax), where the two are compared:
+    the act cache within one ulp of its type, the packed delta as
+    check_packed, mm2 on the kernel's own delta within one ulp.  Prints
+    both kernels' times."""
+    dev, bm, T, R = 'cuda', 512, T_SINGLE, 1024
+    M = T // bm
+    for bn, jm, lo, hi, cdt in ((128, 44, 26, 35, fp8.FP8),
+                                (256, 22, 13, 18, torch.bfloat16)):
+        tag = f'csp_mlp bf16 bn {bn}, {str(cdt)[6:]} caches'
+        inds = torch.rand((M, N // bn), generator=gen, device=dev).topk(
+            jm, -1).indices.sort(-1).values.to(torch.int32)
+        counts = torch.randint(lo, hi, (M,), generator=gen, device=dev,
+                               dtype=torch.int32)
+        counts[0], counts[1] = 1, jm
+        pi = ca.pad_block_indices(inds, counts)[:R // bm]
+        pc = counts[:R // bm]
+        act = fp8.cast(torch.randn((T, N), generator=gen, device=dev) * 0.3,
+                       cdt)
+        out = fp8.cast(torch.randn((T, C), generator=gen, device=dev), cdt)
+        pk, act_k = cm.csp_mlp_mm1(x, w1t, b1, act.clone(), inds, counts,
+                                   bn=bn, bm=bm)
+        torch.cuda.synchronize()
+        pk_p, act_p = cm.csp_mlp_mm1_plain(x[:R], w1t, b1, act[:R], pi, pc,
+                                           bn, bm)
+        err = check_fp8(torch, f'{tag} act_cache', act_k[:R], act_p)
+        agree = check_packed(torch, tag, pk[:R], pk_p, act_k[:R], act_p, pi,
+                             bm, bn, cdt)
+        out_k = cm.csp_mlp_mm2(pk, w2, out.clone(), inds, counts, bn=bn,
+                               bm=bm)
+        torch.cuda.synchronize()
+        out_p = cm.csp_mlp_mm2_plain(pk[:R], w2, out[:R], pi, pc, bn, bm)
+        err_o = check_fp8(torch, f'{tag} out_cache', out_k[:R], out_p)
+        a_t, o_t = act.clone(), out.clone()
+        ms1 = time_ms(torch, lambda: cm.csp_mlp_mm1(
+            x, w1t, b1, a_t, inds, counts, bn=bn, bm=bm), 20)
+        ms2 = time_ms(torch, lambda: cm.csp_mlp_mm2(
+            pk, w2, o_t, inds, counts, bn=bn, bm=bm), 20)
+        print(f'{tag} (FLUX): act max abs err {err:.3e}, acts agree in '
+              f'{agree.float().mean().item():.4f} of (row, block) pairs, '
+              f'out max abs err {err_o:.3e}; csp_mlp_mm1 {ms1:.4f} ms, '
+              f'csp_mlp_mm2 {ms2:.4f} ms', flush=True)
+        del act, out, pk, act_k, out_k, a_t, o_t
+
+
 def bf16_cache_phases(torch, cm, ca, fp8, quant):
     """Every sparse-MLP variant (bf16, wq, w4, a8, a8w4 weights) with bf16
     caches at the main-path MLP shape (T = 4608, C = 3072, N = 12288,
@@ -940,22 +1033,8 @@ def bf16_cache_phases(torch, cm, ca, fp8, quant):
                 pk_p, act_p = cm.csp_mlp_mm1_plain(x[:R], w1, b1, act[:R],
                                                    pi, pc, bn, bm)
                 err = check_fp8(torch, f'{tag} act_cache', act_k[:R], act_p)
-                agree = mlp_agree(torch, act_k[:R], act_p, pi, bm, bn)
-                same = agree.repeat_interleave(bn, 1)
-                g, r = pk[:R].float(), pk_p.float()
-                if not bool(((g == r) | (g.isnan() & r.isnan()))[same]
-                            .all()):
-                    fail(f'{tag} packed: differs where the acts agree')
-                cols = (pi.long()[:, :, None] * bn + torch.arange(
-                    bn, device=dev)).reshape(len(pi), -1) \
-                    .repeat_interleave(bm, 0)
-                a_p = act_p.float().gather(1, cols)
-                rnd = 2.0 ** -7 if adt == torch.bfloat16 else 2.0 ** -8
-                d = (g - r).abs()[~same]
-                if d.numel() and not bool((d <= fp8_ulp(
-                        torch, a_p[~same], adt) * 1.01 + torch.maximum(
-                        g.abs(), r.abs())[~same] * rnd).all()):
-                    fail(f'{tag} packed: differs by more than the act ulp')
+                agree = check_packed(torch, tag, pk[:R], pk_p, act_k[:R],
+                                     act_p, pi, bm, bn, adt)
                 out_k = cm.csp_mlp_mm2(pk, w2, out.clone(), inds, counts,
                                        bn=bn, bm=bm)
                 torch.cuda.synchronize()
@@ -969,20 +1048,22 @@ def bf16_cache_phases(torch, cm, ca, fp8, quant):
 
 
 def small_block_csp_phases(torch, ca):
-    """csp_attn ('vmem') and csp_attn_hbm at kv_block 8 and 16 at the
-    FLUX shape (B = 1, H = 24, 4352 tokens, 34 query groups; jmax 96 and
-    48 blocks, i.e. six 128-key blocks' worth of keys; counts from 1 to
-    jmax with one group at 1 and one at jmax; kv_valid 4347 cuts the last
-    block, which group 2 selects first) against csp_attn_plain on the
-    same inputs, o to 4e-3 + 2^-6 |ref|, with NaN in every K/V block that
-    no group of its head selects (a read of one would show).  Prints each
-    kernel's time."""
+    """csp_attn ('vmem') and csp_attn_hbm at kv_block 1, 2, 4, 8 and 16 at
+    the FLUX shape (B = 1, H = 24, 4352 tokens, 34 query groups; jmax 768
+    down to 48 blocks, i.e. six 128-key blocks' worth of keys; counts from
+    1 to jmax with one group at 1 and one at jmax; kv_valid 4347 cuts the
+    last block at kv_block 8 and 16, and masks it whole below, where it
+    cuts the one before at kv_block 4; group 2 selects the last block
+    first) against csp_attn_plain on the same inputs, o to 4e-3 + 2^-6
+    |ref|, with NaN in every K/V block that no group of its head selects
+    (a read of one would show).  Below kv_block 8 both modes run the
+    packed kernel on pack_kv's 16-row slots.  Prints each kernel's time."""
     gen = torch.Generator('cuda')
     gen.manual_seed(SEED + 6)
     q, k, v = (torch.randn((B, H, S, D), generator=gen, device='cuda').to(
         torch.bfloat16) for _ in range(3))
     G, n_valid = S // 128, S - 5
-    for kv_block in (8, 16):
+    for kv_block in (1, 2, 4, 8, 16):
         nb, jmax = S // kv_block, 6 * 128 // kv_block
         inds = torch.rand((B, H, G, nb), generator=gen, device='cuda') \
             .topk(jmax, -1).indices.to(torch.int32)
@@ -1143,18 +1224,21 @@ def trace_sparse_steps(torch, run, plain_window_ms, tag):
                  schedule=schedule(wait=1, warmup=1, active=8)) as prof:
         run(window_marks(torch, marks, lambda: prof.step()))
     wall_ms = (marks[9] - marks[1]) * 1e3
-    groups, names = {}, {}
+    groups, names, ours = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key.startswith(
                 'ProfilerStep'):
             continue
         us = e.self_device_time_total
         low = e.key.lower()
-        g = ('chipmunk kernels' if any(k in low for k in OUR_KERNELS)
+        label = next((lb for lb, k in OUR_KERNELS if k in low), None)
+        g = ('chipmunk kernels' if label
              else 'GEMM (cuBLAS)' if any(k in low for k in GEMM_NAMES)
              else 'other (elementwise, reductions, copies, top-k)')
         groups[g] = groups.get(g, 0.0) + us / 1e3
         names[e.key] = names.get(e.key, 0.0) + us / 1e3
+        if label:
+            ours[label] = ours.get(label, 0.0) + us / 1e3
     busy = sum(groups.values())
     print(f'{tag} trace, steps 2-9 (7 computed sparse steps): window '
           f'{plain_window_ms:.1f} ms unprofiled ({wall_ms:.1f} ms under the '
@@ -1164,6 +1248,8 @@ def trace_sparse_steps(torch, run, plain_window_ms, tag):
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
         print(f'{tag} trace group {g}: {ms:.1f} ms '
               f'({100 * ms / plain_window_ms:.1f}% of the unprofiled window)')
+    for lb, ms in sorted(ours.items(), key=lambda kv: -kv[1]):
+        print(f'{tag} trace chipmunk {lb}: {ms:.1f} ms', flush=True)
     for n, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
         print(f'{tag} trace kernel {ms:9.2f} ms  {n[:110]}')
 

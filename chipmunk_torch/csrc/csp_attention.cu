@@ -35,16 +35,21 @@
 // [1, jmax]), loaded as 128 / RB boxes of RB = gcd(kv_block, 128) rows:
 // kv_block 128 is one block per tile, a multiple of 128 several tiles per
 // block, 64, 32, 16 and 8 two to sixteen blocks per tile (an 8-row box of
-// 64 bf16 columns is 1024 bytes, one 128-byte swizzle atom; kv_block 1, 2
-// and 4 would need boxes below the atom and are refused).  In place, block b's rows
-// start at row b * kv_block of the (d, Sk, B H) maps of K and V over their
-// head-strided views; packed, at row b * 2 * kv_block of one (d, nb * 2 *
-// kv_block, B H) map over kv, its V rows kv_block further on.  Positions
-// past counts[g] are never visited.  With each tile the producer leaves,
-// beside the barriers, the number of valid leading rows of each box: 0
-// past the count, fewer than RB where the box crosses kv_valid (keys lie
-// in ascending order inside a box, so the valid ones lead, as in the
-// reference's _partial_block_mask); the consumers mask the rest to -inf.
+// 64 bf16 columns is 1024 bytes, one 128-byte swizzle atom).  In place,
+// block b's rows start at row b * kv_block of the (d, Sk, B H) maps of K
+// and V over their head-strided views; packed, at row b * 2 * kv_block of
+// one (d, nb * 2 * kv_block, B H) map over kv, its V rows kv_block further
+// on.  kv_block 1, 2 and 4 would need boxes below the atom: for them the
+// packed layout gives each block a 16-row slot (pack_kv: K in rows 0 ..
+// kv_block - 1, V in rows 8 .. 8 + kv_block - 1, zeros elsewhere), and
+// CspKeys<8, true> loads one 8-row box per selected block, of which the
+// first kv_block rows are valid: 16 blocks a tile (both modes; the
+// wrapper packs for 'vmem' too).  Positions past counts[g] are never
+// visited.  With each tile the producer leaves, beside the barriers, the
+// number of valid leading rows of each box: 0 past the count, fewer
+// than RB where the box crosses kv_valid (keys lie in ascending order
+// inside a box, so the valid ones lead, as in the reference's
+// _partial_block_mask); the consumers mask the rest to -inf.
 // The ragged last tile: its slots past count * kv_block are filled with
 // the group's last valid box (as pad_block_indices pads with the last
 // valid block) and masked by position, so every row of every stage is
@@ -66,13 +71,16 @@ namespace sm90 {
 
 // A group's selected blocks, in boxes of RB rows (RB divides kv_block and
 // 128).  Record of a stage: valid leading rows per box, then a flag that
-// some box has fewer than RB.
-template <int RB>
+// some box has fewer than RB.  SLOT: each block fills one box whatever
+// its size (kv_block 1, 2 or 4 in 8-row slots), its first kv_block rows
+// valid; positions then count box rows, RB per block.
+template <int RB, bool SLOT = false>
 struct CspKeys {
   static constexpr int BOXES = KT / RB;
   static_assert(BOXES < REC_INTS, "record");
+  static_assert(!SLOT || RB == 8, "slots of one atom");
   const int* row;      // the group's index row
-  int n_pos;           // count * kv_block
+  int n_pos;           // count * kv_block (SLOT: count * RB)
   int kv_block, kv_valid, kstride, voff;
 
   __device__ CspKeys(const Params& p, int bh, int grp)
@@ -80,7 +88,7 @@ struct CspKeys {
         voff(p.voff) {
     const size_t gi = (size_t)bh * gridDim.x + grp;
     row = p.inds + gi * p.jmax;
-    n_pos = min(max(p.counts[gi], 1), p.jmax) * kv_block;
+    n_pos = min(max(p.counts[gi], 1), p.jmax) * (SLOT ? RB : kv_block);
   }
 
   __device__ int tiles() const { return (n_pos + KT - 1) / KT; }
@@ -90,11 +98,14 @@ struct CspKeys {
   // unrolled: 16 boxes' rows and index loads at once would not fit the
   // producer's 24 registers.
   __device__ int box(int i, int b, int& lim) const {
+    const int span = SLOT ? RB : kv_block;  // positions per block
     int pos = i * KT + b * RB;
     const bool live = pos < n_pos;
     if (!live) pos = n_pos - RB;           // the last valid box
-    const int blk = row[pos / kv_block], off = pos % kv_block;
-    lim = live ? min(max(kv_valid - (blk * kv_block + off), 0), RB) : 0;
+    const int blk = row[pos / span], off = pos % span;
+    lim = live ? min(max(kv_valid - (blk * kv_block + off), 0),
+                     SLOT ? kv_block : RB)
+               : 0;
     return blk * kstride + off;
   }
 
@@ -141,7 +152,7 @@ namespace {
 constexpr int ST = 3;   // ring stages
 
 // k and v: maps of k_rows rows per head, kv_hs elements apart.
-template <int RB>
+template <int RB, bool SLOT = false>
 int launch(const void* q, const void* k, const void* v, int k_rows,
            const Params& p, int BH, int q_hs, long long kv_hs,
            cudaStream_t stream) {
@@ -150,8 +161,8 @@ int launch(const void* q, const void* k, const void* v, int k_rows,
   if (err == 0) err = make_head_map(&tk, k, BH, k_rows, kv_hs, RB);
   if (err == 0) err = make_head_map(&tv, v, BH, k_rows, kv_hs, RB);
   if (err != 0) return err;
-  return launch_attn<ST, false, CspKeys<RB>>(tq, tk, tv, p, p.Sq / BM, BH,
-                                             ring_bytes<ST>(), stream);
+  return launch_attn<ST, false, CspKeys<RB, SLOT>>(
+      tq, tk, tv, p, p.Sq / BM, BH, ring_bytes<ST>(), stream);
 }
 
 int dispatch(const void* q, const void* k, const void* v, int k_rows,
@@ -159,6 +170,8 @@ int dispatch(const void* q, const void* k, const void* v, int k_rows,
              cudaStream_t stream) {
   if (p.Sq < BM || p.Sq % BM || p.jmax < 1 || p.kv_valid < 0)
     return (int)cudaErrorInvalidValue;
+  if (p.kv_block < 8)                      // 8-row slots (packed only)
+    return launch<8, true>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   if (p.kv_block % 128 == 0)
     return launch<128>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   if (p.kv_block % 64 == 0)
@@ -196,7 +209,7 @@ extern "C" int chipmunk_csp_attn(const void* q, const void* k, const void* v,
                                  int BH, int Sq, int Sk, int q_hs, int kv_hs,
                                  int jmax, int kv_block, int kv_valid,
                                  float tau, void* stream) {
-  if (kv_block < 1 || Sk % kv_block) return (int)cudaErrorInvalidValue;
+  if (kv_block < 8 || Sk % kv_block) return (int)cudaErrorInvalidValue;
   Params p = csp_params(o, inds, counts, Sq, Sk, jmax, kv_block, kv_valid,
                         tau);
   p.kstride = kv_block;
@@ -204,19 +217,21 @@ extern "C" int chipmunk_csp_attn(const void* q, const void* k, const void* v,
   return dispatch(q, k, v, Sk, p, BH, q_hs, kv_hs, (cudaStream_t)stream);
 }
 
-// Packed: q [BH][Sq][128] contiguous, kv [BH][nb][2 kv_block][128].
+// Packed: q [BH][Sq][128] contiguous, kv [BH][nb][2 kv_block][128], or
+// for kv_block 1, 2 and 4 [BH][nb][16][128] (K rows 0.., V rows 8..).
 extern "C" int chipmunk_csp_hbm_attn(const void* q, const void* kv,
                                      const void* inds, const void* counts,
                                      void* o, int BH, int Sq, int nb,
                                      int jmax, int kv_block, int kv_valid,
                                      float tau, void* stream) {
-  if (kv_block < 8 || kv_block > 128 || 128 % kv_block)
+  if (kv_block < 1 || kv_block > 128 || 128 % kv_block)
     return (int)cudaErrorInvalidValue;
-  const int rows = nb * 2 * kv_block;
+  const int slot = kv_block < 8 ? 8 : kv_block;   // rows of K, then of V
+  const int rows = nb * 2 * slot;
   Params p = csp_params(o, inds, counts, Sq, nb * kv_block, jmax, kv_block,
                         kv_valid, tau);
-  p.kstride = 2 * kv_block;
-  p.voff = kv_block;
+  p.kstride = 2 * slot;
+  p.voff = slot;
   return dispatch(q, kv, kv, rows, p, BH, Sq * HD, (long long)rows * HD,
                   (cudaStream_t)stream);
 }

@@ -34,14 +34,15 @@
 // delta and the cache refresh; mm2 is a GEMM whose contraction runs only
 // over the selected blocks.
 //
-// The a8 pair (int8 weights) runs on gemm_sm90.cuh: TMA row gathers into
-// a ring, s8 wgmma (m64n256k32 / m64n128k32), a producer warpgroup and two
-// consumer warpgroups of 64 rows.  s8 wgmma reads both operands K-major,
-// and w2's rows are [k][c]; mm2 reads a K-major copy of the codes ([C, N],
-// made once per weight by the wrapper, kmajor_codes) instead of
-// transposing every tile.  The bf16, wq/w4 and a8w4 kernels are mma.sync
-// (bf16 -> f32 or s8 -> s32) fed by ldmatrix from cp.async rings
-// (gemm_tile.cuh).
+// The bf16 pair and the a8 pair (int8 weights) run on gemm_sm90.cuh: TMA
+// row gathers into a ring, wgmma (bf16: m64n256k16 / m64n128k16 -> f32;
+// s8: m64n256k32 / m64n128k32 -> s32), a producer warpgroup and two
+// consumer warpgroups of 64 rows.  w2's rows are [k][c]: bf16 wgmma reads
+// it where it lies, MN-major through its transpose-B flag; s8 wgmma reads
+// both operands K-major only, so the a8 mm2 reads a K-major copy of the
+// codes ([C, N], made once per weight by the wrapper, kmajor_codes).  The
+// wq/w4 and a8w4 kernels are mma.sync (bf16 -> f32 or s8 -> s32) fed by
+// ldmatrix from cp.async rings (gemm_tile.cuh).
 //
 // The `wq` variant converts each int8 weight tile to bf16 while staging it
 // (exact) and applies the scales where the reference does: mm1 after the
@@ -161,82 +162,6 @@ __device__ __forceinline__ float2 put_codes(__nv_bfloat16* p, int a, int b) {
   *reinterpret_cast<uint32_t*>(p) = (uint32_t)a | ((uint32_t)b << 16);
   return make_float2(__uint_as_float((uint32_t)a << 16),
                      __uint_as_float((uint32_t)b << 16));
-}
-
-// ---------------------------------------------------------------- bf16
-
-// grid (T / 128, jmax * bn / 128)
-template <class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm1_kernel(const __nv_bfloat16* __restrict__ x,
-                   const __nv_bfloat16* __restrict__ w1t,
-                   const __nv_bfloat16* __restrict__ b1,
-                   CT* __restrict__ act_cache,
-                   const int* __restrict__ inds, const int* __restrict__ counts,
-                   __nv_bfloat16* __restrict__ packed, int C, int N, int jmax,
-                   int bn, int bm) {
-  const int t0 = blockIdx.x * BM, m = t0 / bm;
-  const int subs = bn / BN, j = blockIdx.y / subs, sub = blockIdx.y % subs;
-  const size_t P = (size_t)jmax * bn;
-  __nv_bfloat16* pk = packed + (size_t)t0 * P + (size_t)j * bn + sub * BN;
-  if (j >= count_of(counts, m, jmax))
-    return zero_slot(pk, BM, BN * 2, P * 2);
-  const int n0 = inds[(size_t)m * jmax + j] * bn + sub * BN;
-  const __nv_bfloat16* xa = x + (size_t)t0 * C;
-  const __nv_bfloat16* wb = w1t + (size_t)n0 * C;
-  extern __shared__ __align__(16) unsigned char smem[];
-  float acc[4][4][4] = {};
-  k_loop(reinterpret_cast<Stage1*>(smem), C / BK,
-         [&](int kt, Stage1& st) {
-           issue_rows(st.a, xa + kt * BK, C);
-           issue_rows(st.b, wb + kt * BK, C);
-         },
-         [&](const Stage1& st) { mma_stage<true>(acc, st.a, st.b); });
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const int n = n0 + col;
-    const float2 d = refresh_act(act_cache + (size_t)(t0 + row) * N + n,
-                                 acc[mt][nt][2 * h] + bf2f(b1[n]),
-                                 acc[mt][nt][2 * h + 1] + bf2f(b1[n + 1]));
-    *reinterpret_cast<uint32_t*>(pk + row * P + col) = pack_bf16(d.x, d.y);
-  });
-}
-
-// grid (T / 128, C / 128)
-template <class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm2_kernel(const __nv_bfloat16* __restrict__ packed,
-                   const __nv_bfloat16* __restrict__ w2,
-                   CT* __restrict__ out_cache,
-                   const int* __restrict__ inds, const int* __restrict__ counts,
-                   int C, int jmax, int bn, int bm) {
-  const int t0 = blockIdx.x * BM, c0 = blockIdx.y * BN, m = t0 / bm;
-  const size_t P = (size_t)jmax * bn;
-  const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK;
-  const int nk = count_of(counts, m, jmax) * per_block;
-  const __nv_bfloat16* pa = packed + (size_t)t0 * P;
-  auto a_src = [&](int kt) { return pa + (size_t)kt * BK; };
-  auto b_src = [&](int kt) {
-    const int j = kt / per_block, n = (kt % per_block) * BK;
-    return w2 + ((size_t)row_inds[j] * bn + n) * C + c0;
-  };
-  float acc[4][4][4];
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
-    acc[mt][nt][2 * h] = v.x;
-    acc[mt][nt][2 * h + 1] = v.y;
-  });
-  extern __shared__ __align__(16) unsigned char smem[];
-  k_loop(reinterpret_cast<Stage2*>(smem), nk,
-         [&](int kt, Stage2& st) {
-           issue_rows(st.a, a_src(kt), P);
-           issue_krows(st.b, b_src(kt), C);
-         },
-         [&](const Stage2& st) { mma_stage<false>(acc, st.a, st.b); });
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
-             acc[mt][nt][2 * h + 1]);
-  });
 }
 
 // --------------------------------------------- wq: int8 weights, bf16 x
@@ -616,6 +541,7 @@ struct Mm1A8 {
   static constexpr int EXTRA = GM * BN * ES;         // the act tile
   static constexpr int ST =
       1024 + 4 * (GM + BN) * GK + EXTRA + 128 <= sm90::SMEM_MAX ? 4 : 3;
+  static constexpr bool B_MN = false;
   struct Params {
     CUtensorMap act_map;     // act cache [T][N], box [128 rows][128 bytes]
     CUtensorMap d8_map;      // d8 [T][jmax BN], box [128 rows][128 bytes]
@@ -664,7 +590,8 @@ struct Mm1A8 {
   __device__ bool restart(int i) const { return i == 0; }
   __device__ bool flush(int) const { return false; }
   __device__ void issued(int, int) {}
-  __device__ void begin(int) {}
+  template <int A>
+  __device__ void begin(int (&)[A], int, unsigned char*, uint32_t) {}
   template <int A>
   __device__ void after(int, int (&)[A], int) {}
 
@@ -767,6 +694,7 @@ struct Mm1A8 {
 template <class CT>
 struct Mm2A8 {
   static constexpr int BN = 128, ST = 6, EXTRA = 0;
+  static constexpr bool B_MN = false;
   struct Params {
     const float* sd;
     CT* out;
@@ -813,7 +741,8 @@ struct Mm2A8 {
       for (int h = 0; h < 2; ++h)
         fn(4 * jj + 2 * h, r0 + 8 * h, c0 + 8 * jj + 2 * (lane & 3));
   }
-  __device__ void begin(int c) {
+  template <int A>
+  __device__ void begin(int (&)[A], int c, unsigned char*, uint32_t) {
     each(c, [&](int e, int r, int col) {
       const float2 v = ld2(p.out + (size_t)r * p.C + col);
       f[e] = v.x;
@@ -847,6 +776,246 @@ struct Mm2A8 {
   }
 };
 
+// ------------------------------------ bf16 on Hopper (gemm_sm90.cuh)
+
+// csp_mlp_mm1 replaces the fc1 half of _fused_kernel with bf16 weights
+// (chipmunk_tpu/kernels/csp_mlp.py:326) and _mm1_kernel (:93).  Bound:
+// operations, 2 bm bn C per selected (token block, neuron block), 0.098 ms
+// at the FLUX shape at 989 TFLOP/s.  The products run at the bf16 wgmma
+// rate from TMA-fed 128 x BN tiles; the epilogue follows Mm1A8's: the old
+// act tile staged by TMA under the products, the element chain free of
+// branches (f2fp8_hw, put_codes), the act tile and the delta tile stored
+// whole by TMA.
+// One CTA per (128-token tile, BN-neuron sub-block of selected block j):
+// grid (T / 128, jmax * bn / BN); A = x rows [t0, t0 + 128), B = w1t rows
+// [n0, n0 + BN), k = C in stages of 64.  Epilogue per thread (two rows,
+// BN / 4 columns): mid = sum + b1[n] and the act's code (gelu_tanh
+// rounded to the cache's type) in place of the sum; against the staged
+// old entries, which take the new codes, delta = act - old; the delta as
+// bf16 staged in the free ring.  A slot past the count writes its zeros.
+template <int BN_, class CT>
+struct Mm1Bf16 {
+  static constexpr int BN = BN_;
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = GM * BN * ES;         // the act tile
+  static constexpr int ROOM = sm90::SMEM_MAX - 1024 - EXTRA - 128;
+  static constexpr int ST = 6 * (GM + BN) * GK <= ROOM ? 6
+                            : 4 * (GM + BN) * GK <= ROOM ? 4 : 3;
+  static constexpr bool B_MN = false;
+  struct Params {
+    CUtensorMap act_map;     // act cache [T][N], box [128 rows][128 bytes]
+    CUtensorMap pk_map;      // packed [T][jmax bn] bf16, box [128][64]
+    const __nv_bfloat16* b1;
+    const int* inds;
+    const int* counts;
+    __nv_bfloat16* packed;
+    int jmax, bn, bm, C;
+  };
+  const Params& p;
+  int t0, col0, n0;          // first token, packed column, neuron
+  bool on;
+
+  __device__ Mm1Bf16(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * GM;
+    const int subs = p.bn / BN, j = blockIdx.y / subs;
+    const int m = t0 / p.bm, sub = (blockIdx.y % subs) * BN;
+    on = j < count_of(p.counts, m, p.jmax);
+    col0 = j * p.bn + sub;
+    n0 = on ? p.inds[(size_t)m * p.jmax + j] * p.bn + sub : 0;
+  }
+  __device__ bool live() const { return on; }
+  __device__ void idle() const {
+    const size_t P = (size_t)p.jmax * p.bn;
+    __nv_bfloat16* pk = p.packed + (size_t)t0 * P + col0;
+    for (int id = threadIdx.x; id < GM * BN / 8; id += blockDim.x)
+      *reinterpret_cast<uint4*>(pk + (id / (BN / 8)) * P +
+                                (id % (BN / 8)) * 8) = make_uint4(0, 0, 0, 0);
+  }
+  __device__ int tiles() const { return p.C / 64; }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < BN * ES / 128; ++b)
+      tma_load(extra + b * GM * 128, &p.act_map, bar, n0 + b * 128 / ES, t0,
+               0);
+  }
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    ka = kb = i * 64;
+    ra = t0;
+    rb = n0;
+  }
+  __device__ bool restart(int i) const { return i == 0; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  template <int A>
+  __device__ void begin(float (&)[A], int, unsigned char*, uint32_t) {}
+  template <int A>
+  __device__ void after(int, float (&)[A], int) {}
+
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int g = lane >> 2, t = lane & 3;
+    const int l0 = 64 * c + 16 * warp + g;           // tile rows l0, l0 + 8
+    // In passes, as Mm1A8.  1: mid, then the act's code in place of it.
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const float2 bb = __bfloat1622float2(__ldg(
+          reinterpret_cast<const __nv_bfloat162*>(p.b1 + n0 + 8 * jj + 2 * t)));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& a0 = acc[4 * jj + 2 * h];
+        float& a1 = acc[4 * jj + 2 * h + 1];
+        a0 = __int_as_float(act_code<CT>(gelu_tanh(a0 + bb.x)));
+        a1 = __int_as_float(act_code<CT>(gelu_tanh(a1 + bb.y)));
+      }
+    }
+    // 2: against the staged old entries, which take the new codes; the
+    // delta in place of the codes
+    mbar_wait(bar, 0);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int x = (8 * jj + 2 * t) * ES;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        float& a0 = acc[4 * jj + 2 * h];
+        float& a1 = acc[4 * jj + 2 * h + 1];
+        CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (GM * 128) +
+                                      swz128(l0 + 8 * h, x & 127));
+        const float2 old = ld2(e);
+        const float2 a = put_codes(e, __float_as_int(a0), __float_as_int(a1));
+        a0 = a.x - old.x;
+        a1 = a.y - old.y;
+      }
+    }
+    bar_sync(1, 256);                  // both consumers are past the ring
+    // 3: the delta as bf16 into the ring, BN / 64 boxes [128 rows][64]
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int jj = 0; jj < BN / 8; ++jj) {
+        const int x = (8 * jj + 2 * t) * 2;
+        *reinterpret_cast<uint32_t*>(ring + (x >> 7) * (GM * 128) +
+                                     swz128(l0 + 8 * h, x & 127)) =
+            pack_bf16(acc[4 * jj + 2 * h], acc[4 * jj + 2 * h + 1]);
+      }
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BN * ES / 128; ++b)
+        tma_store(&p.act_map, smem_u32(act_s) + b * GM * 128,
+                  n0 + b * 128 / ES, t0);
+      for (int b = 0; b < BN / 64; ++b)
+        tma_store(&p.pk_map, smem_u32(ring) + b * GM * 128, col0 + 64 * b,
+                  t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm2 replaces the fc2 half of _fused_kernel with bf16 weights
+// (same site) and _mm2_kernel (:216).  Bound: operations, 0.098 ms at the
+// FLUX shape.  The products run at the bf16 wgmma rate from TMA-fed
+// 128 x BN tiles, reading w2 where it lies: its rows are k, so B is
+// MN-major (B_MN), BN / 64 boxes of [64 k rows][64 columns] a stage, and
+// no transposed copy of the weight is kept.  The out-cache tile comes in
+// and goes out whole by TMA, staged in shared memory.
+// One CTA per (128-token tile, BN output columns): grid (T / 128, C / BN);
+// A = packed rows [t0, t0 + 128), slot j's k, B = w2 rows of block
+// inds[m, j], columns [c0, c0 + BN).  The accumulator starts as
+// f32(out_cache) (begin, from the staged tile) and sums over the
+// counts[m] valid blocks, bn / 64 stages each, with no flush; end rounds
+// it to the cache's type (put2) in the staged tile and stores that.
+template <int BN_, class CT>
+struct Mm2Bf16 {
+  static constexpr int BN = BN_;
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = GM * BN * ES;         // the out tile
+  static constexpr int ROOM = sm90::SMEM_MAX - 1024 - EXTRA - 128;
+  static constexpr int ST = 6 * (GM + BN) * GK <= ROOM ? 6
+                            : 4 * (GM + BN) * GK <= ROOM ? 4 : 3;
+  static constexpr bool B_MN = true;
+  struct Params {
+    CUtensorMap out_map;     // out cache [T][C], box [128 rows][128 bytes]
+    const int* inds;
+    const int* counts;
+    int jmax, bn, bm;
+  };
+  const Params& p;
+  int t0, c0, per, cnt;
+  const int* row;
+
+  __device__ Mm2Bf16(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * GM;
+    c0 = blockIdx.y * BN;
+    const int m = t0 / p.bm;
+    per = p.bn / 64;
+    cnt = count_of(p.counts, m, p.jmax);
+    row = p.inds + (size_t)m * p.jmax;
+  }
+  __device__ bool live() const { return true; }
+  __device__ void idle() const {}
+  __device__ int tiles() const { return cnt * per; }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < BN * ES / 128; ++b)
+      tma_load(extra + b * GM * 128, &p.out_map, bar, c0 + b * 128 / ES, t0,
+               0);
+  }
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    const int jb = i / per, kk = (i % per) * 64;
+    ka = jb * p.bn + kk;
+    ra = t0;
+    kb = c0;
+    rb = row[jb] * p.bn + kk;
+  }
+  __device__ bool restart(int) const { return false; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  template <int A>
+  __device__ void after(int, float (&)[A], int) {}
+
+  // fn(e, entry): the thread's accumulator pair e, e + 1 and its two
+  // entries in the staged tile (rows l0, l0 + 8, columns 8 jj + 2 t)
+  template <class F>
+  __device__ void each(int c, unsigned char* out_s, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int l0 = 64 * c + 16 * warp + (lane >> 2);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int x = (8 * jj + 2 * (lane & 3)) * ES;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        fn(4 * jj + 2 * h,
+           reinterpret_cast<CT*>(out_s + (x >> 7) * (GM * 128) +
+                                 swz128(l0 + 8 * h, x & 127)));
+    }
+  }
+  template <int A>
+  __device__ void begin(float (&acc)[A], int c, unsigned char* out_s,
+                        uint32_t bar) {
+    mbar_wait(bar, 0);
+    each(c, out_s, [&](int e, const CT* v) {
+      const float2 f = ld2(v);
+      acc[e] = f.x;
+      acc[e + 1] = f.y;
+    });
+  }
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char*,
+                      unsigned char* out_s, uint32_t) {
+    each(c, out_s, [&](int e, CT* v) { put2(v, acc[e], acc[e + 1]); });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BN * ES / 128; ++b)
+        tma_store(&p.out_map, smem_u32(out_s) + b * GM * 128,
+                  c0 + b * 128 / ES, t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -862,42 +1031,96 @@ int with_cache(int bf16, F f) {
 }  // namespace
 
 // Each *_bf16 flag says the cache it names is bf16; else it is fp8 e4m3.
+
+template <int BN, class CT>
+static int launch_mm1_bf16(const void* x, const void* w1t, const void* b1,
+                           void* act_cache, const void* inds,
+                           const void* counts, void* packed, int T, int C,
+                           int N, int jmax, int bn, int bm,
+                           cudaStream_t stream) {
+  using Op = Mm1Bf16<BN, CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, x, T, (long long)C * 2, GM, 2);
+  if (err == 0) err = make_byte_map(&tb, w1t, N, (long long)C * 2, BN, 2);
+  if (err == 0)
+    err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, GM,
+                        Op::ES);
+  if (err == 0)
+    err = make_byte_map(&p.pk_map, packed, T, (long long)jmax * bn * 2, GM,
+                        2);
+  if (err != 0) return err;
+  p.b1 = (const __nv_bfloat16*)b1;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.packed = (__nv_bfloat16*)packed;
+  p.jmax = jmax;
+  p.bn = bn;
+  p.bm = bm;
+  p.C = C;
+  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p,
+                                        dim3(T / GM, jmax * (bn / BN)),
+                                        stream);
+}
+
+template <int BN, class CT>
+static int launch_mm2_bf16(const void* packed, const void* w2,
+                           void* out_cache, const void* inds,
+                           const void* counts, int T, int C, int N, int jmax,
+                           int bn, int bm, cudaStream_t stream) {
+  using Op = Mm2Bf16<BN, CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, packed, T, (long long)jmax * bn * 2, GM, 2);
+  if (err == 0) err = make_byte_map(&tb, w2, N, (long long)C * 2, 64, 2);
+  if (err == 0)
+    err = make_byte_map(&p.out_map, out_cache, T, (long long)C * Op::ES, GM,
+                        Op::ES);
+  if (err != 0) return err;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.jmax = jmax;
+  p.bn = bn;
+  p.bm = bm;
+  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p, dim3(T / GM, C / BN),
+                                        stream);
+}
+
+// A CTA takes 256 neurons where bn allows, else 128 (bn a multiple of 128).
 extern "C" int chipmunk_csp_mlp_mm1(const void* x, const void* w1t,
                                     const void* b1, void* act_cache,
                                     const void* inds, const void* counts,
                                     void* packed, int T, int C, int N, int jmax,
                                     int bn, int bm, int act_bf16,
                                     void* stream) {
+  if (bn % 128 || bm % GM || T % bm || C % 64)
+    return (int)cudaErrorInvalidValue;
+  const int tile = bn % 256 ? 128 : 256;
   return with_cache(act_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    constexpr int SMEM = STAGES * (int)sizeof(Stage1);
-    static const int attr = set_smem(csp_mlp_mm1_kernel<CT>, SMEM);
-    if (attr != 0) return attr;
-    dim3 grid(T / BM, jmax * (bn / BN));
-    csp_mlp_mm1_kernel<CT><<<grid, NT, SMEM, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (const __nv_bfloat16*)w1t,
-        (const __nv_bfloat16*)b1, (CT*)act_cache, (const int*)inds,
-        (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
-    return (int)cudaGetLastError();
+    auto launch = tile == 256 ? launch_mm1_bf16<256, CT>
+                              : launch_mm1_bf16<128, CT>;
+    return launch(x, w1t, b1, act_cache, inds, counts, packed, T, C, N, jmax,
+                  bn, bm, (cudaStream_t)stream);
   });
 }
 
+// A CTA takes 256 output columns where C allows, else 128 (C a multiple
+// of 128).
 extern "C" int chipmunk_csp_mlp_mm2(const void* packed, const void* w2,
                                     void* out_cache, const void* inds,
-                                    const void* counts, int T, int C, int jmax,
-                                    int bn, int bm, int out_bf16,
+                                    const void* counts, int T, int C, int N,
+                                    int jmax, int bn, int bm, int out_bf16,
                                     void* stream) {
+  if (C % 128 || bm % GM || T % bm || bn % 64)
+    return (int)cudaErrorInvalidValue;
+  const int tile = C % 256 ? 128 : 256;
   return with_cache(out_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    constexpr int SMEM = STAGES * (int)sizeof(Stage2);
-    static const int attr = set_smem(csp_mlp_mm2_kernel<CT>, SMEM);
-    if (attr != 0) return attr;
-    dim3 grid(T / BM, C / BN);
-    csp_mlp_mm2_kernel<CT><<<grid, NT, SMEM, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)packed, (const __nv_bfloat16*)w2,
-        (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-        bm);
-    return (int)cudaGetLastError();
+    auto launch = tile == 256 ? launch_mm2_bf16<256, CT>
+                              : launch_mm2_bf16<128, CT>;
+    return launch(packed, w2, out_cache, inds, counts, T, C, N, jmax, bn, bm,
+                  (cudaStream_t)stream);
   });
 }
 

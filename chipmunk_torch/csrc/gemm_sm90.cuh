@@ -1,46 +1,56 @@
 // Hopper gathered GEMM: TMA loads of row-gathered tiles into a ring of
 // stages, wgmma from shared memory, warp-specialised.  One kernel template,
-// gemm_sm90_kernel<T, Op>: the operand type T is a template parameter (s8
-// now: the int8-activation sparse-MLP pair of csp_mlp.cu), and the work
-// and the epilogue come from Op.
+// gemm_sm90_kernel<T, Op>: the operand type T is a template parameter (s8:
+// the int8-activation sparse-MLP pair of csp_mlp.cu; bf16: the bf16-weight
+// pair), and the work and the epilogue come from Op.
 //
-// A CTA computes a [128 rows] x [Op::BN columns] tile, D = A B^T, from an
-// A map (rows of A, k contiguous) and a B map (rows of B, k contiguous):
-// both operands K-major, the only layout s8 wgmma takes.  Stage i holds
-// the 128-byte k slice Op::coords names of 128 A rows and BN B rows, each
-// one TMA box with 128-byte swizzle at a 1024-byte boundary, so the
-// descriptors are those of attn_sm90.cuh's Q K^T (SBO 1024 bytes, k-step
-// kk at byte offset 32 kk).  The gather is only the box's row (or k)
+// A CTA computes a [128 rows] x [Op::BN columns] tile, D = A B, from an
+// A map (rows of A, k contiguous: K-major) and a B map.  Stage i holds
+// the 128-byte k slice Op::coords names (128 s8 or 64 bf16 values of k)
+// of 128 A rows and of BN B columns, each box with 128-byte swizzle at a
+// 1024-byte boundary.  A, and B where Op::B_MN is false, are K-major
+// boxes [rows][128 bytes of k]: the descriptors are those of
+// attn_sm90.cuh's Q K^T (SBO 1024 bytes, k-step kk at byte offset 32 kk).
+// s8 wgmma takes only that layout.  Where Op::B_MN is true (bf16 only) B
+// is read MN-major, as it lies in a [k][n] row-major array: BN / 64 boxes
+// of [64 k rows][64 n = 128 bytes], 8 KB apart, read with wgmma's
+// transpose-B flag: LBO = 8 KB (the next 64 columns), SBO = 1024 bytes
+// (the next 8 k rows), k-step kk (16 k rows) at byte offset 2048 kk -- as
+// attn_sm90.cuh's V in P V.  The gather is only the box's row (or k)
 // coordinate: a selected neuron block is a run of rows.
 //
 //   - warpgroup 0, the producer, drops to 24 registers; one thread waits
 //     for a stage to be empty, arms its "full" mbarrier with the stage's
-//     bytes and issues its two TMA loads;
+//     bytes and issues its TMA loads;
 //   - each consumer warpgroup (240 registers) owns 64 of the 128 rows:
-//     per stage four wgmma.m64nBNk32 (s8 in, s32 accumulate), with one
-//     group in flight: stage i's products are issued before stage i - 1's
-//     are waited for, and that stage is handed back on its "empty"
-//     mbarrier (all 256 consumer threads arrive).  Where Op::flush(i) says
-//     so, the consumer waits for all its products and hands the s32 sum to
-//     Op::after (a per-block scale into an f32 sum); Op::restart(i) starts
-//     a new sum with scale-d 0 (no zeroing pass).
+//     per stage four wgmma k-steps of 32 bytes (m64nBNk32 s8 -> s32, or
+//     m64nBNk16 bf16 -> f32), with one group in flight: stage i's products
+//     are issued before stage i - 1's are waited for, and that stage is
+//     handed back on its "empty" mbarrier (all 256 consumer threads
+//     arrive).  Where Op::flush(i) says so, the consumer waits for all its
+//     products and hands the sum to Op::after (a per-block scale into an
+//     f32 sum); Op::restart(i) starts a new sum with scale-d 0 (no zeroing
+//     pass).
 //
-// Accumulator of m64nNk32 (s32) in a warpgroup, as for f32 (warp w, lane
-// = 4 g + t): d[4 j + e] holds row 16 w + g + 8 (e / 2), column 8 j + 2 t
-// + (e % 2).  So a row lies in one quad of one warp: a row reduction is
-// thread-local plus two shfl_xor.
+// Accumulator of m64nNk32 (s32) or m64nNk16 (f32) in a warpgroup (warp w,
+// lane = 4 g + t): d[4 j + e] holds row 16 w + g + 8 (e / 2), column 8 j +
+// 2 t + (e % 2).  So a row lies in one quad of one warp: a row reduction
+// is thread-local plus two shfl_xor.  Its type is Mma<T, BN>::Acc.
 //
 // Op (built by every thread from the params and blockIdx):
-//   BN, ST: columns of the tile, ring stages;
+//   BN, ST: columns of the tile, ring stages; B_MN: B's layout, as above;
 //   live(): false for a CTA with nothing to multiply; idle() then runs on
 //     all threads and the CTA ends (before any barrier);
 //   tiles(): the number of k stages (at least 1);
-//   coords(i, ka, ra, kb, rb): stage i's A box at (k byte ka, row ra) and
-//     B box at (kb, rb);
+//   coords(i, ka, ra, kb, rb): stage i's A box at (k ka, row ra) and B
+//     box at (kb, rb): K-major (k kb, row rb); MN-major (column kb, k row
+//     rb), the later boxes at columns kb + 64, kb + 128, ...;
 //   restart(i), flush(i): as above; after(i, acc, c): the flushed sum;
 //   issued(i, c): right after stage i's products are issued (to load
 //     what after() needs while they run);
-//   begin(c): before the k loop in consumer c;
+//   begin(acc, c, extra, bar): before the k loop in consumer c, with the
+//     zeroed accumulator (an Op that never restarts may load a sum into
+//     it, e.g. from the extra space once bar's phase 0 completes);
 //   EXTRA, side_load(extra, bar): shared memory past the ring (at a
 //     1024-byte boundary) and the loads into it that the producer thread
 //     issues before the first stage's, on the mbarrier bar (phase 0);
@@ -84,64 +94,58 @@ inline int make_byte_map(CUtensorMap* map, const void* base, long long rows,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-#define CHIPMUNK_S32_ACC64 \
-  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),  \
-  "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),  \
-  "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),  \
-  "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),  \
-  "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),  \
-  "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),  \
-  "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),  \
-  "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),  \
-  "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),  \
-  "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),  \
-  "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),  \
-  "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),  \
-  "+r"(d[62]), "+r"(d[63])
+// The accumulator operands of a 64-wide (ACC64) or 128-wide (ACC128)
+// register fragment, each as R(d[i]) (R: "+r" for s32, "+f" for f32), and
+// their places in the instruction (D64, D128).
+#define CHIPMUNK_ACC64(R) \
+  R(d[0]), R(d[1]), R(d[2]), R(d[3]), R(d[4]), R(d[5]), R(d[6]), R(d[7]),  \
+  R(d[8]), R(d[9]), R(d[10]), R(d[11]), R(d[12]), R(d[13]), R(d[14]),  \
+  R(d[15]), R(d[16]), R(d[17]), R(d[18]), R(d[19]), R(d[20]), R(d[21]),  \
+  R(d[22]), R(d[23]), R(d[24]), R(d[25]), R(d[26]), R(d[27]), R(d[28]),  \
+  R(d[29]), R(d[30]), R(d[31]), R(d[32]), R(d[33]), R(d[34]), R(d[35]),  \
+  R(d[36]), R(d[37]), R(d[38]), R(d[39]), R(d[40]), R(d[41]), R(d[42]),  \
+  R(d[43]), R(d[44]), R(d[45]), R(d[46]), R(d[47]), R(d[48]), R(d[49]),  \
+  R(d[50]), R(d[51]), R(d[52]), R(d[53]), R(d[54]), R(d[55]), R(d[56]),  \
+  R(d[57]), R(d[58]), R(d[59]), R(d[60]), R(d[61]), R(d[62]), R(d[63])
 
-#define CHIPMUNK_S32_D64 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
-  "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
-  "%56,%57,%58,%59,%60,%61,%62,%63}"
+#define CHIPMUNK_ACC128(R) \
+  R(d[0]), R(d[1]), R(d[2]), R(d[3]), R(d[4]), R(d[5]), R(d[6]), R(d[7]),  \
+  R(d[8]), R(d[9]), R(d[10]), R(d[11]), R(d[12]), R(d[13]), R(d[14]),  \
+  R(d[15]), R(d[16]), R(d[17]), R(d[18]), R(d[19]), R(d[20]), R(d[21]),  \
+  R(d[22]), R(d[23]), R(d[24]), R(d[25]), R(d[26]), R(d[27]), R(d[28]),  \
+  R(d[29]), R(d[30]), R(d[31]), R(d[32]), R(d[33]), R(d[34]), R(d[35]),  \
+  R(d[36]), R(d[37]), R(d[38]), R(d[39]), R(d[40]), R(d[41]), R(d[42]),  \
+  R(d[43]), R(d[44]), R(d[45]), R(d[46]), R(d[47]), R(d[48]), R(d[49]),  \
+  R(d[50]), R(d[51]), R(d[52]), R(d[53]), R(d[54]), R(d[55]), R(d[56]),  \
+  R(d[57]), R(d[58]), R(d[59]), R(d[60]), R(d[61]), R(d[62]), R(d[63]),  \
+  R(d[64]), R(d[65]), R(d[66]), R(d[67]), R(d[68]), R(d[69]), R(d[70]),  \
+  R(d[71]), R(d[72]), R(d[73]), R(d[74]), R(d[75]), R(d[76]), R(d[77]),  \
+  R(d[78]), R(d[79]), R(d[80]), R(d[81]), R(d[82]), R(d[83]), R(d[84]),  \
+  R(d[85]), R(d[86]), R(d[87]), R(d[88]), R(d[89]), R(d[90]), R(d[91]),  \
+  R(d[92]), R(d[93]), R(d[94]), R(d[95]), R(d[96]), R(d[97]), R(d[98]),  \
+  R(d[99]), R(d[100]), R(d[101]), R(d[102]), R(d[103]), R(d[104]),  \
+  R(d[105]), R(d[106]), R(d[107]), R(d[108]), R(d[109]), R(d[110]),  \
+  R(d[111]), R(d[112]), R(d[113]), R(d[114]), R(d[115]), R(d[116]),  \
+  R(d[117]), R(d[118]), R(d[119]), R(d[120]), R(d[121]), R(d[122]),  \
+  R(d[123]), R(d[124]), R(d[125]), R(d[126]), R(d[127])
 
-#define CHIPMUNK_S32_ACC128 \
-  "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),  \
-  "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),  \
-  "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]),  \
-  "+r"(d[17]), "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]),  \
-  "+r"(d[22]), "+r"(d[23]), "+r"(d[24]), "+r"(d[25]), "+r"(d[26]),  \
-  "+r"(d[27]), "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),  \
-  "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]), "+r"(d[36]),  \
-  "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),  \
-  "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]),  \
-  "+r"(d[47]), "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),  \
-  "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]), "+r"(d[56]),  \
-  "+r"(d[57]), "+r"(d[58]), "+r"(d[59]), "+r"(d[60]), "+r"(d[61]),  \
-  "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]), "+r"(d[66]),  \
-  "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),  \
-  "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]),  \
-  "+r"(d[77]), "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]),  \
-  "+r"(d[82]), "+r"(d[83]), "+r"(d[84]), "+r"(d[85]), "+r"(d[86]),  \
-  "+r"(d[87]), "+r"(d[88]), "+r"(d[89]), "+r"(d[90]), "+r"(d[91]),  \
-  "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]), "+r"(d[96]),  \
-  "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),  \
-  "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]),  \
-  "+r"(d[107]), "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]),  \
-  "+r"(d[112]), "+r"(d[113]), "+r"(d[114]), "+r"(d[115]), "+r"(d[116]),  \
-  "+r"(d[117]), "+r"(d[118]), "+r"(d[119]), "+r"(d[120]), "+r"(d[121]),  \
-  "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]), "+r"(d[126]),  \
-  "+r"(d[127])
+#define CHIPMUNK_D64 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18," \
+  "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35," \
+  "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52," \
+  "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63}"
 
-#define CHIPMUNK_S32_D128 \
-  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18,%19," \
-  "%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35,%36,%37," \
-  "%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52,%53,%54,%55," \
-  "%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69,%70,%71,%72,%73," \
-  "%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86,%87,%88,%89,%90,%91," \
-  "%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102,%103,%104,%105,%106,%107," \
-  "%108,%109,%110,%111,%112,%113,%114,%115,%116,%117,%118,%119,%120,%121," \
-  "%122,%123,%124,%125,%126,%127}"
+#define CHIPMUNK_D128 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18," \
+  "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31,%32,%33,%34,%35," \
+  "%36,%37,%38,%39,%40,%41,%42,%43,%44,%45,%46,%47,%48,%49,%50,%51,%52," \
+  "%53,%54,%55,%56,%57,%58,%59,%60,%61,%62,%63,%64,%65,%66,%67,%68,%69," \
+  "%70,%71,%72,%73,%74,%75,%76,%77,%78,%79,%80,%81,%82,%83,%84,%85,%86," \
+  "%87,%88,%89,%90,%91,%92,%93,%94,%95,%96,%97,%98,%99,%100,%101,%102," \
+  "%103,%104,%105,%106,%107,%108,%109,%110,%111,%112,%113,%114,%115,%116," \
+  "%117,%118,%119,%120,%121,%122,%123,%124,%125,%126,%127}"
+#define CHIPMUNK_S32(x) "+r"(x)
+#define CHIPMUNK_F32(x) "+f"(x)
 
 // Box (x0, row) of a 3-D map with one head from shared memory at src
 // (the async proxy's view: fence_async first); completion is tracked by
@@ -174,48 +178,89 @@ __device__ __forceinline__ uint32_t swz128(int r, int x) {
 }
 
 // One k-step (32 bytes of k) of a warpgroup's 64 x N product, both
-// operands from shared memory, K-major.
-template <typename T, int N>
+// operands from shared memory; A K-major, B K-major or (TB, bf16 only)
+// MN-major.  Acc: the accumulator's type, ACC: its registers a thread.
+template <typename T, int N, bool TB = false>
 struct Mma;
 
 template <>
 struct Mma<int8_t, 256> {
+  using Acc = int;
   static constexpr int ACC = 128;
   static __device__ __forceinline__ void issue(int (&d)[128], uint64_t da,
                                                uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " CHIPMUNK_S32_D128
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " CHIPMUNK_D128
         ", %128, %129, p;\n}\n"
-        : CHIPMUNK_S32_ACC128
+        : CHIPMUNK_ACC128(CHIPMUNK_S32)
         : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 
 template <>
 struct Mma<int8_t, 128> {
+  using Acc = int;
   static constexpr int ACC = 64;
   static __device__ __forceinline__ void issue(int (&d)[64], uint64_t da,
                                                uint64_t db, int accumulate) {
     asm volatile(
         "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " CHIPMUNK_S32_D64
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " CHIPMUNK_D64
         ", %64, %65, p;\n}\n"
-        : CHIPMUNK_S32_ACC64
+        : CHIPMUNK_ACC64(CHIPMUNK_S32)
         : "l"(da), "l"(db), "r"(accumulate));
   }
 };
 
-#undef CHIPMUNK_S32_ACC64
-#undef CHIPMUNK_S32_D64
-#undef CHIPMUNK_S32_ACC128
-#undef CHIPMUNK_S32_D128
+template <bool TB>
+struct Mma<__nv_bfloat16, 256, TB> {
+  using Acc = float;
+  static constexpr int ACC = 128;
+  static __device__ __forceinline__ void issue(float (&d)[128], uint64_t da,
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        CHIPMUNK_D128 ", %128, %129, p, 1, 1, 0, %131;\n}\n"
+        : CHIPMUNK_ACC128(CHIPMUNK_F32)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB ? 1 : 0));
+  }
+};
 
-// Pin an s32 accumulator in place (as fence_acc for f32).
+template <bool TB>
+struct Mma<__nv_bfloat16, 128, TB> {
+  using Acc = float;
+  static constexpr int ACC = 64;
+  static __device__ __forceinline__ void issue(float (&d)[64], uint64_t da,
+                                               uint64_t db, int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        CHIPMUNK_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
+        : CHIPMUNK_ACC64(CHIPMUNK_F32)
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TB ? 1 : 0));
+  }
+};
+
+#undef CHIPMUNK_ACC64
+#undef CHIPMUNK_ACC128
+#undef CHIPMUNK_D64
+#undef CHIPMUNK_D128
+#undef CHIPMUNK_S32
+#undef CHIPMUNK_F32
+
+// Pin an accumulator in place (as fence_acc), s32 or f32.
 template <int N>
 __device__ __forceinline__ void fence_iacc(int (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void fence_iacc(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
 template <class Op>
@@ -229,7 +274,7 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                  const __grid_constant__ CUtensorMap tb,
                  const __grid_constant__ typename Op::Params p) {
   constexpr int ST = Op::ST, A_TILE = GM * GK, STAGE = (GM + Op::BN) * GK;
-  using M = Mma<T, Op::BN>;
+  using M = Mma<T, Op::BN, Op::B_MN>;
   static_assert(8 * (2 * ST + 1) <= 128, "barrier area");
   Op op(p);
   if (!op.live()) {
@@ -265,7 +310,14 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
         op.coords(i, ka, ra, kb, rb);
         mbar_expect_tx(full(s), STAGE);
         tma_load(ring + s * STAGE, &ta, full(s), ka, ra, 0);
-        tma_load(ring + s * STAGE + A_TILE, &tb, full(s), kb, rb, 0);
+        const uint32_t bs = ring + s * STAGE + A_TILE;
+        if (Op::B_MN) {
+#pragma unroll
+          for (int b = 0; b < Op::BN / 64; ++b)
+            tma_load(bs + b * 64 * GK, &tb, full(s), kb + 64 * b, rb, 0);
+        } else {
+          tma_load(bs, &tb, full(s), kb, rb, 0);
+        }
       }
     }
   } else {
@@ -273,10 +325,10 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
     reg_alloc<240>();
     const int c = threadIdx.x / 128 - 1;
     const uint32_t a_off = c * 64 * GK;       // this warpgroup's 64 rows
-    int acc[M::ACC];
+    typename M::Acc acc[M::ACC];
 #pragma unroll
     for (int i = 0; i < M::ACC; ++i) acc[i] = 0;
-    op.begin(c);
+    op.begin(acc, c, smem_raw + (extra - smem_u32(smem_raw)), side);
     int pend = -1;                            // stage whose products fly
     for (int i = 0; i < n; ++i) {
       const int s = i % ST;
@@ -286,7 +338,9 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
 #pragma unroll
       for (int kk = 0; kk < GK / 32; ++kk)
         M::issue(acc, gmma_desc(a + 32 * kk, 16, 1024),
-                 gmma_desc(b + 32 * kk, 16, 1024), kk > 0 || !op.restart(i));
+                 Op::B_MN ? gmma_desc(b + 2048 * kk, 64 * GK, 1024)
+                          : gmma_desc(b + 32 * kk, 16, 1024),
+                 kk > 0 || !op.restart(i));
       wgmma_commit();
       op.issued(i, c);
       if (op.flush(i)) {

@@ -16,6 +16,12 @@ own rule, so every call takes the counterpart of the kernel JAX would:
     concat), then ``csp_attn_hbm`` gathers the selected blocks from
     it: counterpart of ``_csp_hbm_packed_kernel``.
 
+kv_block 1, 2 and 4 are smaller than the kernel's 8-row key box (one
+128-byte swizzle atom), so ``pack_kv`` gives each of their blocks a
+16-row slot (``[B*H, nb, 16, D]``: K rows first, V rows from row 8,
+zeros elsewhere) and both modes run the packed kernel on it, one box per
+selected block.  The copy holds 8 / kv_block times the bytes of K and V.
+
 Layout contract: q [B,H,Sq,D] with Sq % qg == 0; k, v [B,H,Sk,D] with
 Sk % kv_block == 0; block_inds int [B,H,G,jmax] in [0, Sk/kv_block);
 block_counts int [B,H,G], clipped to [1, jmax].  Entries of block_inds
@@ -59,13 +65,23 @@ def auto_mode(Sq: int, Sk: int, D: int, jmax: int, kv_block: int,
         else 'hbm'
 
 
+def kv_slot(kv_block: int) -> int:
+    """Rows of K (and of V) per block in the packed layout: kv_block, or 8
+    for kv_block 1, 2 and 4 (the kernel's smallest key box)."""
+    return max(kv_block, 8)
+
+
 def pack_kv(k: torch.Tensor, v: torch.Tensor, kv_block: int) -> torch.Tensor:
-    """[B,H,Sk,D] K and V -> [B*H, Sk/kv_block, 2*kv_block, D]: each
-    block's K rows, then its V rows."""
+    """[B,H,Sk,D] K and V -> [B*H, Sk/kv_block, 2*slot, D]: each block's K
+    rows, then its V rows, each in a slot of ``kv_slot(kv_block)`` rows
+    (zeros past kv_block)."""
     B, H, Sk, D = k.shape
-    nb = Sk // kv_block
-    return torch.cat([k.reshape(B * H, nb, kv_block, D),
-                      v.reshape(B * H, nb, kv_block, D)], 2)
+    nb, slot = Sk // kv_block, kv_slot(kv_block)
+    parts = [t.reshape(B * H, nb, kv_block, D) for t in (k, v)]
+    if slot > kv_block:
+        parts = [torch.nn.functional.pad(t, (0, 0, 0, slot - kv_block))
+                 for t in parts]
+    return torch.cat(parts, 2)
 
 
 def _gathered_attn(q, kg, vg, valid, qg):
@@ -117,13 +133,13 @@ def csp_attn_plain(q, k, v, block_inds, block_counts, qg: int = 128,
 def csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg: int = 128,
                        kv_block: int = 128, kv_valid: Optional[int] = None):
     """Plain version of the 'hbm' kernel over the packed layout kv
-    [B*H, nb, 2*kv_block, D] (see pack_kv)."""
+    [B*H, nb, 2*slot, D] (see pack_kv)."""
     B, H, Sq, D = q.shape
     nb = kv.shape[1]
     G, jmax = block_inds.shape[-2:]
     valid, _ = _valid(block_inds, block_counts, kv_block, kv_valid,
                       nb * kv_block)
-    kvr = kv.reshape(B, H, nb, 2, kv_block, D)
+    kvr = kv.reshape(B, H, nb, 2, kv_slot(kv_block), D)[..., :kv_block, :]
     bi = torch.arange(B, device=q.device)[:, None, None, None]
     hi = torch.arange(H, device=q.device)[None, :, None, None]
     blk = kvr[bi, hi, block_inds.long()]          # [B,H,G,jmax,2,kvb,D]
@@ -144,29 +160,19 @@ def _check_inds(q, block_inds, block_counts, G):
                          'device')
 
 
-def _small_block(kv_block: int) -> str:
-    """Why the kernels refuse kv_block 1, 2 and 4, which the reference
-    takes."""
-    if kv_block in (1, 2, 4):
-        return ('; a key box of fewer than 8 rows is smaller than the '
-                '128-byte swizzle atom (8 rows of 64 bf16) that the TMA '
-                'loads and wgmma descriptors work in')
-    return ''
-
-
 def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
                  block_counts: torch.Tensor, qg: int = 128,
                  kv_block: int = 128, kv_valid: Optional[int] = None
                  ) -> torch.Tensor:
     """Column-sparse attention over packed K+V (``pack_kv``): kv
-    [B*H, nb, 2*kv_block, D].  On the CPU block_counts must lie in
-    [1, jmax] and block_inds hold a valid block id at every position (as
-    csp_attn makes them for the plain version); the kernel clips the
+    [B*H, nb, 2*kv_slot(kv_block), D].  On the CPU block_counts must lie
+    in [1, jmax] and block_inds hold a valid block id at every position
+    (as csp_attn makes them for the plain version); the kernel clips the
     counts and reads no position past them.  Returns o [B,H,Sq,D]
     (q.dtype)."""
     B, H, Sq, D = q.shape
     BH, nb, rows, Dk = kv.shape
-    if BH != B * H or rows != 2 * kv_block or Dk != D or Sq % qg:
+    if BH != B * H or rows != 2 * kv_slot(kv_block) or Dk != D or Sq % qg:
         raise ValueError(f'csp_attn_hbm: q {tuple(q.shape)} and packed kv '
                          f'{tuple(kv.shape)} do not match (kv_block '
                          f'{kv_block}, qg {qg})')
@@ -178,10 +184,9 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
         return csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg,
                                   kv_block, kv_valid)
     check_cuda_attn('csp_attn_hbm', q, kv)
-    if qg != 128 or kv_block not in (8, 16, 32, 64, 128):
+    if qg != 128 or kv_block not in (1, 2, 4, 8, 16, 32, 64, 128):
         raise ValueError('csp_attn_hbm kernel: qg must be 128 and kv_block '
-                         f'8, 16, 32, 64 or 128 (got {qg}, {kv_block})'
-                         + _small_block(kv_block))
+                         f'a power of 2 up to 128 (got {qg}, {kv_block})')
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     Sk = nb * kv_block
@@ -227,15 +232,16 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             return csp_attn_hbm(q, pack_kv(k, v, kv_block), inds, counts,
                                 qg, kv_block, kv_valid)
         return csp_attn_plain(q, k, v, inds, counts, qg, kv_block, kv_valid)
-    if mode == 'hbm':
-        check_cuda_attn('csp_attn', q, k, v)
-        return csp_attn_hbm(q, pack_kv(k, v, kv_block), block_inds,
-                            block_counts, qg, kv_block, kv_valid)
+    if mode == 'hbm' or kv_block < 8:
+        # below 8 rows a block is read from its packed slot (module doc)
+        check_cuda_attn('csp_attn', q, k, v, strided=mode == 'vmem')
+        return csp_attn_hbm(q.contiguous(), pack_kv(k, v, kv_block),
+                            block_inds, block_counts, qg, kv_block, kv_valid)
     q_hs, kv_hs = _kv_strides('csp_attn', q, k, v)
     if qg != 128 or not (kv_block in (8, 16, 32) or kv_block % 64 == 0):
-        raise ValueError('csp_attn kernel: qg must be 128 and kv_block 8, '
-                         f'16, 32 or a multiple of 64 (got {qg}, {kv_block})'
-                         + _small_block(kv_block))
+        raise ValueError('csp_attn kernel: qg must be 128 and kv_block 1, '
+                         f'2, 4, 8, 16, 32 or a multiple of 64 (got {qg}, '
+                         f'{kv_block})')
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)

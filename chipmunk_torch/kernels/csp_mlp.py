@@ -386,8 +386,8 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
     else:
         err = lib.chipmunk_csp_mlp_mm2(
             packed.data_ptr(), w.data_ptr(), out_cache.data_ptr(),
-            inds.data_ptr(), counts.data_ptr(), T, C, jmax, bn, bm, bf,
-            _stream(packed))
+            inds.data_ptr(), counts.data_ptr(), T, C, w.shape[0], jmax, bn,
+            bm, bf, _stream(packed))
     _build.check(err, name)
     _build.LAUNCHES[name] += 1
     return out_cache

@@ -1,7 +1,7 @@
-"""Wrapper and device times of the mma.sync mm1 kernels (``a8w4``, bf16,
-``wq``) at the FLUX single-block MLP shape, on the tree at ROOT (first on
-``sys.path``), with the act cache refreshed in place across calls and
-fresh each call::
+"""Wrapper and device times of the mm1 kernels ``a8w4`` and ``wq``
+(mma.sync) and bf16 (Hopper) at the FLUX single-block MLP shape, on the
+tree at ROOT (first on ``sys.path``), with the act cache refreshed in
+place across calls and fresh each call::
 
     python3 chipmunk_torch/tools/mm1_device_times.py ROOT
 """

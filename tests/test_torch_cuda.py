@@ -1,9 +1,9 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
 (ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of 64/128/256 with PAD_LSE rows, large
-scores, repeat calls bit-equal, kv_block 8, 16, 32, 64, 128 and 256
-(1, 2 and 4 refused), kv_valid inside a group's last or an earlier
-block, counts ending inside a tile, clipped counts, NaN in unselected K/V
+scores, repeat calls bit-equal, kv_block 1, 2, 4 (16-row packed
+slots), 8, 16, 32, 64, 128 and 256, kv_valid inside a group's last or an
+earlier block, counts ending inside a tile, clipped counts, NaN in unselected K/V
 blocks, bm/bn of 256, bm 512, fp8 and bf16 caches in every sparse-MLP
 kernel, NaN in unselected MLP weight blocks, the packed-KV csp kernel,
 keys and query rows passed as sliced views).  The kernels
@@ -310,22 +310,43 @@ def test_cuda_csp_kernels_raise_on_what_they_do_not_take(gen):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('cut', [False, True])
 @pytest.mark.parametrize('kv_block', [1, 2, 4])
-def test_cuda_csp_kernels_refuse_boxes_below_the_atom(gen, kv_block):
-    """kv_block 1, 2 and 4 (which the reference takes) raise in both
-    modes with the reason: a key box of fewer than 8 rows is smaller than
-    the 128-byte swizzle atom; nothing launches."""
-    q, k, v = (randn(gen, 1, 2, 256, 128) for _ in range(3))
-    nb = 256 // kv_block
-    inds = torch.zeros((1, 2, 2, 3), dtype=torch.int32, device='cuda')
-    inds[..., 1], inds[..., 2] = 1, nb - 1
-    counts = torch.full((1, 2, 2), 3, dtype=torch.int32, device='cuda')
+def test_cuda_csp_kernels_small_blocks(gen, kv_block, cut):
+    """kv_block 1, 2 and 4 in both modes (the packed kernel over pack_kv's
+    16-row slots, one 8-row box per selected block), B = 2: counts of 1,
+    jmax = 40 (three tiles of 16 blocks, the last ragged) and 3; the
+    sequence's last block last in group 1 and first in group 3; with
+    ``cut``, kv_valid inside that block (kv_block 2 and 4) or just before
+    it (1); NaN in every block that no group selects; two calls
+    bit-equal; against csp_attn_plain."""
+    Sk = 1024
+    q = randn(gen, 2, 2, 512, 128)
+    inds, counts = csp_case(gen, kv_block, Sk=Sk, jmax=40)
+    k, v = poison_unselected(randn(gen, 2, 2, Sk, 128),
+                             randn(gen, 2, 2, Sk, 128), inds, counts,
+                             kv_block)
+    kv_valid = (Sk - max(kv_block // 2, 1)) if cut else None
+    pinds = CA.pad_block_indices(inds, counts)
+    ref = CA.csp_attn_plain(q, k, v, pinds, counts, kv_block=kv_block,
+                            kv_valid=kv_valid)
+    kv = CA.pack_kv(k, v, kv_block)
     n0 = dict(CA._build.LAUNCHES)
-    for mode in ('vmem', 'hbm'):
-        with pytest.raises(ValueError, match='smaller than the 128-byte '
-                           'swizzle atom'):
-            CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block, mode=mode)
-    assert CA._build.LAUNCHES == n0
+    runs = [[CA.csp_attn(q, k, v, inds, counts, kv_block=kv_block,
+                         kv_valid=kv_valid, mode='vmem') for _ in range(2)],
+            [CA.csp_attn_hbm(q, kv, inds, counts, kv_block=kv_block,
+                             kv_valid=kv_valid) for _ in range(2)]]
+    torch.cuda.synchronize()
+    assert CA._build.LAUNCHES['csp_attn_hbm'] == n0['csp_attn_hbm'] + 4
+    torch.testing.assert_close(
+        CA.csp_attn_hbm_plain(q, kv, pinds, counts, kv_block=kv_block,
+                              kv_valid=kv_valid).float(), ref.float(),
+        atol=1e-6, rtol=0.0)
+    assert bool(ref.isfinite().all())
+    for a, b in runs:
+        assert bool(a.isfinite().all()) and torch.equal(a, b)
+        torch.testing.assert_close(a.float(), ref.float(), atol=ATOL,
+                                   rtol=RTOL)
 
 
 @pytest.mark.cuda
@@ -678,6 +699,97 @@ def test_cuda_csp_mlp_a8_hopper(gen, bm, bn, cache):
     for k in ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8'):
         assert CM._build.LAUNCHES[k] == n0[k] + (1 if k == 'quant_rows'
                                                  else 2)
+
+
+def bits(t):
+    """The raw bits of a tensor of 1- or 2-byte elements (NaN == NaN)."""
+    return t.view(torch.uint8 if t.element_size() == 1 else torch.int16)
+
+
+def check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn):
+    """The bf16-weight pair against its plain versions: act cache within
+    one ulp of its type; the packed delta bit-equal where the acts of the
+    (row, block) agree, elsewhere within the act's ulp plus its own bf16
+    rounding, zero past the count; mm2 on the plain delta within one ulp
+    plus the f32 sum-order slack below; two calls on the same inputs give
+    the same bits.
+
+    mm2's kernel and plain version add the same K = jmax * bn products to
+    the old entry in f32, in different orders; the two sums differ by
+    about sqrt(K) 2^-24 times the sum of the terms' magnitudes, which for
+    a tiny bf16 cache entry exceeds its ulp: an entry may differ by twice
+    that more."""
+    T = x.shape[0]
+    jmax = inds.shape[1]
+    runs = [CM.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn,
+                           bm=bm) for _ in range(2)]
+    torch.cuda.synchronize()
+    for a, b in zip(*runs):
+        assert torch.equal(bits(a), bits(b))
+    pk, act_k = runs[0]
+    pinds = CA.pad_block_indices(inds, counts)
+    pk_p, act_p = CM.csp_mlp_mm1_plain(x, w1, b1, act, pinds, counts, bn, bm)
+    assert_fp8_close(act_k, act_p)
+    agree = agree_blocks(act_k, act_p, pinds, bm, bn)
+    assert agree.float().mean().item() > 0.9
+    same = agree.repeat_interleave(bn, 1)
+    g, r = pk.float(), pk_p.float()
+    assert torch.equal(g[same], r[same])
+    cols = (pinds.long()[:, :, None] * bn + torch.arange(bn, device='cuda')
+            ).reshape(T // bm, -1).repeat_interleave(bm, 0)
+    a_p = act_p.float().gather(1, cols)
+    rnd = 2.0 ** -7 if act.dtype == torch.bfloat16 else 2.0 ** -8
+    assert bool(((g - r).abs()[~same]
+                 <= cache_ulp(a_p.abs()[~same], act.dtype) * 1.01
+                 + torch.maximum(g.abs(), r.abs())[~same] * rnd).all())
+    live = (torch.arange(jmax, device='cuda')[None]
+            < counts.repeat_interleave(bm)[:, None]).repeat_interleave(bn, 1)
+    assert not bool(pk[~live].any())
+    outs = [CM.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn,
+                           bm=bm) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert torch.equal(bits(outs[0]), bits(outs[1]))
+    M, C = T // bm, out.shape[1]
+    mag = out.float().abs().reshape(M, bm, C) + pk_p.float().abs().reshape(
+        M, bm, -1) @ w2.float().abs()[CM._rows(pinds, bn)]
+    slack = 2 * (jmax * bn) ** 0.5 * 2.0 ** -24 * mag.reshape(T, C)
+    assert_fp8_close(outs[0], CM.csp_mlp_mm2_plain(pk_p, w2, out, pinds,
+                                                   counts, bn, bm), slack)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bm,bn,C', [(128, 128, 384), (128, 256, 512),
+                                     (512, 384, 384), (512, 256, 384),
+                                     (512, 128, 512)])
+def test_cuda_csp_mlp_bf16_hopper(gen, bm, bn, C, cache):
+    """The wgmma/TMA bf16 pair (mm1 in 256- or 128-neuron sub-blocks, mm2
+    reading w2 MN-major in 256- or 128-column tiles): T = 1024, C = 384
+    (six k stages, three 128-column tiles) or 512, N = 3072, jmax 4 with
+    counts of 1 and jmax; fp8 or bf16 caches (both of the type); NaN in
+    the weights and bias of every neuron block that no token block
+    selects, so a read of one shows.  Gates of check_bf16_pair; the
+    launches are counted once per call."""
+    T, N, jmax = 1024, 3072, 4
+    M = T // bm
+    x = randn(gen, T, C)
+    w1, w2 = randn(gen, N, C, scale=C ** -0.5), randn(gen, N, C,
+                                                      scale=N ** -0.5)
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    used = torch.zeros(N // bn, dtype=torch.bool, device='cuda')
+    used[CA.pad_block_indices(inds, counts).long().flatten()] = True
+    off = (~used).repeat_interleave(bn)[:, None]
+    w1, w2 = (w.masked_fill(off, float('nan')) for w in (w1, w2))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    for k in ('csp_mlp_mm1', 'csp_mlp_mm2'):
+        assert CM._build.LAUNCHES[k] == n0[k] + 2
 
 
 @pytest.mark.cuda

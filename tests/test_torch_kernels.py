@@ -147,6 +147,52 @@ def test_csp_attn_hbm_matches_reference(kv_block, kv_valid, jmax):
         np.asarray(ref_pack))
 
 
+@pytest.mark.parametrize('mode', ['vmem', 'hbm'])
+@pytest.mark.parametrize('kv_block,jmax,kv_valid', [
+    (4, 24, 470), (2, 40, 301), (1, 48, 300)])
+def test_csp_attn_small_blocks_match_reference(kv_block, jmax, kv_valid,
+                                               mode):
+    """kv_block 4, 2 and 1 (read from the padded pack's 16-row slots on
+    the card) in both modes against the reference's _csp_vmem_kernel /
+    _csp_hbm_packed_kernel in interpret mode: counts of 1 and jmax, the
+    block that kv_valid cuts (kv_block 2 and 4) selected by every group,
+    one block before kv_valid in every group."""
+    q, k, v = qkv(16, 512, 512)
+    rng = np.random.default_rng(17 + kv_block)
+    inds, counts = random_blocks(rng, (1, 2, 4), 512 // kv_block, jmax)
+    inds[..., 0] = rng.integers(0, kv_valid // kv_block, (1, 2, 4))
+    inds[..., 1] = kv_valid // kv_block          # cut, or just past kv_valid
+    counts = np.maximum(counts, 2)
+    counts.reshape(-1)[:2] = (2, jmax)
+    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=128,
+                     kv_block=kv_block, mode=mode, kv_valid=kv_valid,
+                     interpret=True)
+    o_t = csp_attn(*map(to_torch, (q, k, v, inds, counts)), qg=128,
+                   kv_block=kv_block, kv_valid=kv_valid, mode=mode)
+    np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
+                               rtol=1e-5)
+
+
+@pytest.mark.parametrize('kv_block', [1, 2, 4])
+def test_pack_kv_pads_small_blocks(kv_block):
+    """Below 8 rows pack_kv gives each block a 16-row slot: its K rows at
+    0.., its V rows at 8.., equal to the reference's pack (csp_attention.py
+    :410-413) on those rows, zeros elsewhere."""
+    _, k, v = qkv(18, 128, 256)
+    nb = 256 // kv_block
+    ref = np.asarray(jnp.concatenate(
+        [jnp.asarray(k).reshape(2, nb, kv_block, 64),
+         jnp.asarray(v).reshape(2, nb, kv_block, 64)], axis=2))
+    got = pack_kv(to_torch(k), to_torch(v), kv_block).numpy()
+    assert got.shape == (2, nb, 16, 64)
+    np.testing.assert_array_equal(got[:, :, :kv_block], ref[:, :, :kv_block])
+    np.testing.assert_array_equal(got[:, :, 8:8 + kv_block],
+                                  ref[:, :, kv_block:])
+    pad = np.ones(16, bool)
+    pad[:kv_block] = pad[8:8 + kv_block] = False
+    assert not got[:, :, pad].any()
+
+
 def test_csp_attn_auto_mode_follows_the_reference_rule():
     """'auto' applies the reference's footprint rule with its constants:
     the FLUX shape takes 'vmem', HunyuanVideo at 540p 'hbm' (the switch
