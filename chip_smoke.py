@@ -78,8 +78,10 @@ OUR_KERNELS = (
     ('bf16 MLP mm2 (gemm_sm90_kernel<Mm2Bf16>)', 'mm2bf16<'),
     ('a8 MLP mm1 (gemm_sm90_kernel<Mm1A8>)', 'mm1a8<'),
     ('a8 MLP mm2 (gemm_sm90_kernel<Mm2A8>)', 'mm2a8<'),
+    ('w4 MLP mm1 (gemm_sm90_kernel<Mm1W4>)', 'mm1w4<'),
+    ('w4 MLP mm2 (gemm_sm90_kernel<Mm2W4>)', 'mm2w4<'),
     ('quant_rows', 'quant_rows_kernel'),
-    ('mma.sync MLP (wq, w4, a8w4)', 'csp_mlp_'))
+    ('mma.sync MLP (wq, a8w4)', 'csp_mlp_'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -856,6 +858,8 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         dense_library_ms(torch, f'csp_mlp_mm1_{wq} yardstick torch.matmul '
                          f'{shape1} (dequantized bf16)',
                          lambda: torch.matmul(x, d1.t()), share))
+    rows[-1]['device_ms'] = device_ms(torch, lambda: cm.csp_mlp_mm1(
+        x, w1, b1, act_t, inds, counts, bn=bn, bm=bm), 20)[0]
 
     # ---- csp_mlp_mm2_wq on the plain packed delta
     out_k = cm.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn, bm=bm)
@@ -873,7 +877,14 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         dense_library_ms(torch, f'csp_mlp_mm2_{wq} yardstick torch.matmul '
                          f'{shape2} (dequantized bf16)',
                          lambda: torch.matmul(dense16, d2), share))
+    rows[-1]['device_ms'] = device_ms(torch, lambda: cm.csp_mlp_mm2(
+        pk_p, w2, out_t, inds, counts, bn=bn, bm=bm), 20)[0]
+    for r in rows[-2:]:
+        print(f"{r['name']} (FLUX): {ops / r['device_ms'] / 1e9:.1f} TFLOP/s "
+              f"on the device ({r['device_ms']:.4f} ms)", flush=True)
     del c1t, c2, d1, d2, dense8, dense16
+    if w4:
+        bf16_mlp_variants(torch, cm, ca, fp8, x, w1, b1, w2, gen, 'w4')
     print_rows(rows)
     return rows
 
@@ -911,8 +922,10 @@ def check_packed(torch, tag, pk, pk_p, act_k, act_p, pinds, bm, bn, adt):
     return agree
 
 
-def bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen):
-    """The bf16 pair beside its main-path row, at the FLUX shape: bn = 128
+def bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen,
+                      weights='bf16'):
+    """The bf16-activation pair (bf16 weights, or int4 ones: ``weights``
+    'w4') beside its main-path row, at the FLUX shape: bn = 128
     (jmax 44, counts 26-34: about the same selected share; mm1 in
     128-neuron sub-blocks) with fp8 caches, and bn = 256 with bf16 caches.
     Each kernel runs whole; its plain version on the first two 512-token
@@ -924,7 +937,7 @@ def bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen):
     M = T // bm
     for bn, jm, lo, hi, cdt in ((128, 44, 26, 35, fp8.FP8),
                                 (256, 22, 13, 18, torch.bfloat16)):
-        tag = f'csp_mlp bf16 bn {bn}, {str(cdt)[6:]} caches'
+        tag = f'csp_mlp {weights} bn {bn}, {str(cdt)[6:]} caches'
         inds = torch.rand((M, N // bn), generator=gen, device=dev).topk(
             jm, -1).indices.sort(-1).values.to(torch.int32)
         counts = torch.randint(lo, hi, (M,), generator=gen, device=dev,

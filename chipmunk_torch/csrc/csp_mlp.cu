@@ -8,8 +8,8 @@
 //     bf16 activations (`wq`/`w4`: csp_mlp_mm1_wq/mm2_wq) and int8 or int4
 //     weights with int8 activations (`a8`: quant_rows + csp_mlp_mm1_a8 /
 //     mm2_a8 on Hopper; `a8w4`: the same launches on mma.sync);
-//   :93 _mm1_kernel and :216 _mm2_kernel (bf16 and `wq` int8), which
-//     compute the same functions as the first two pairs.
+//   :93 _mm1_kernel and :216 _mm2_kernel (bf16, `wq` int8 and `w4` int4),
+//     which compute the same functions as the first two pairs.
 //
 //   mm1: for token tile x[t] and selected neuron block n of its bm-block,
 //        act = cast(gelu_tanh(x @ w1t[n]^T + b1[n])) to the act cache's
@@ -41,13 +41,17 @@
 // it where it lies, MN-major through its transpose-B flag; s8 wgmma reads
 // both operands K-major only, so the a8 mm2 reads a K-major copy of the
 // codes ([C, N], made once per weight by the wrapper, kmajor_codes).  The
-// wq/w4 and a8w4 kernels are mma.sync (bf16 -> f32 or s8 -> s32) fed by
-// ldmatrix from cp.async rings (gemm_tile.cuh).
+// w4 pair (int4 weights, bf16 x) runs on the same template with bf16
+// wgmma, transposed so that the weight is the A operand: its packed
+// codes arrive raw by TMA and the consumers convert them into A
+// fragments in registers (Mm1W4, Mm2W4).  The wq and a8w4 kernels are
+// mma.sync (bf16 -> f32 or s8 -> s32) fed by ldmatrix from cp.async rings
+// (gemm_tile.cuh).
 //
-// The `wq` variant converts each int8 weight tile to bf16 while staging it
-// (exact) and applies the scales where the reference does: mm1 after the
-// product (fma(mid, w1s[n], b1[n])), mm2 on the delta before it
-// (delta * bf16(w2s[k]), in bf16).
+// The `wq` and `w4` variants convert the weight codes to bf16 (exact)
+// and apply the scales where the reference does: mm1 after the product
+// (fma(mid, w1s[n], b1[n])), mm2 on the delta before it (delta *
+// bf16(w2s[k]), in bf16).
 //
 // The `a8` variant follows _fused_kernel's operation order (:359-434):
 //   quant_rows: sx = max(max_c |x|, 1e-6) / 127, x8 = clip(rint(x / sx))
@@ -1016,6 +1020,385 @@ struct Mm2Bf16 {
   }
 };
 
+// ------------------------------ w4: int4 weights, bf16 x, on Hopper
+
+__device__ __forceinline__ uint32_t bf2_u32(__nv_bfloat162 v) {
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ __nv_bfloat162 u32_bf2(uint32_t v) {
+  return *reinterpret_cast<const __nv_bfloat162*>(&v);
+}
+
+// Two offset-binary int4 codes, the nibbles at bits 0-3 and 16-19 of x,
+// as the bf16 pair code - 8, exactly: each nibble n goes into the
+// mantissa of bf16 128.0 (0x4300 | n is 128 + n), and one subtraction of
+// 136 gives n - 8.
+__device__ __forceinline__ uint32_t nib2(uint32_t x) {
+  return bf2_u32(__hsub2(u32_bf2((x & 0x000F000Fu) | 0x43004300u),
+                         u32_bf2(0x43084308u)));
+}
+
+// csp_mlp_mm1_w4 replaces _mm1_kernel with int4 weights
+// (chipmunk_tpu/kernels/csp_mlp.py:93) and the fc1 half of _fused_kernel's
+// w4 branch (:389).  Bound: operations, as the bf16 mm1 (2 bm bn C per
+// selected block, 0.107 ms at the FLUX shape at 989 TFLOP/s).  The
+// product is taken transposed, act^T = W x^T, so that the weight is
+// wgmma's A operand, built in registers: no converted tile goes through
+// shared memory, and each code is converted once per 128 x NT tile (half
+// as often per product as with the weight as B).  One CTA per (NT-token
+// tile, 128-neuron sub-block of selected block j), NT = 256 where bm
+// allows, else 128: B = x rows [t0, t0 + NT) by TMA, 64 k a stage; the
+// packed rows [n0, n0 + 128) by TMA as raw boxes of [128][128 bytes]
+// (128-byte swizzle), byte columns [128 q, 128 q + 128) each read once
+// from memory and feeding four stages: the low nibbles (k = 128 q + j)
+// and the high ones (k = C/2 + 128 q + j) of each 64-byte half.  A
+// consumer warpgroup's 64 neurons: 16 two-byte reads a thread a stage,
+// each read a bf16 pair of its m64k16 fragments (nib2).  Epilogue per
+// thread (neurons n, n + 1; NT / 4 tokens): mid = fma(sum, w1s[n],
+// b1[n]) and the act's code, then against the old act tile [NT tokens]
+// [128 neurons] staged by TMA under the products, which takes the codes;
+// the delta as bf16 staged in the free ring; both tiles stored by TMA.
+template <int NT, class CT>
+struct Mm1W4 {
+  static constexpr int BN = NT;                      // B rows: tokens
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = NT * 128 * ES;        // the act tile
+  static constexpr int RAW = 128 * 128, RS = 2, EVERY = 4, MT = 1;
+  static constexpr bool B_MN = false, CONVERT = false;
+  static constexpr int FIT =
+      (sm90::SMEM_MAX - 1024 - EXTRA - 256 - RS * RAW) / (NT * GK);
+  static constexpr int ST = FIT >= 6 ? 6 : FIT >= 4 ? 4 : FIT;
+  struct Params {
+    CUtensorMap act_map;     // act cache [T][N], box [NT rows][128 bytes]
+    CUtensorMap pk_map;      // packed [T][jmax bn] bf16, box [NT][64]
+    const float* w1s;
+    const __nv_bfloat16* b1;
+    const int* inds;
+    const int* counts;
+    __nv_bfloat16* packed;
+    int jmax, bn, bm, C;
+  };
+  const Params& p;
+  int t0, col0, n0;          // first token, packed column, neuron
+  bool on;
+
+  __device__ Mm1W4(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * NT;
+    const int subs = p.bn / 128, j = blockIdx.y / subs;
+    const int m = t0 / p.bm, sub = (blockIdx.y % subs) * 128;
+    on = j < count_of(p.counts, m, p.jmax);
+    col0 = j * p.bn + sub;
+    n0 = on ? p.inds[(size_t)m * p.jmax + j] * p.bn + sub : 0;
+  }
+  __device__ bool live() const { return on; }
+  __device__ void idle() const {
+    const size_t P = (size_t)p.jmax * p.bn;
+    __nv_bfloat16* pk = p.packed + (size_t)t0 * P + col0;
+    for (int id = threadIdx.x; id < NT * 16; id += blockDim.x)
+      *reinterpret_cast<uint4*>(pk + (id / 16) * P + (id % 16) * 8) =
+          make_uint4(0, 0, 0, 0);
+  }
+  __device__ int tiles() const { return p.C / 64; }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < ES; ++b)
+      tma_load(extra + b * NT * 128, &p.act_map, bar, n0 + b * 128 / ES, t0,
+               0);
+  }
+  // stage i: plane i % 2 of half (i / 2) % 2 of raw box i / 4
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    kb = (i & 1) * (p.C / 2) + 128 * (i >> 2) + 64 * ((i >> 1) & 1);
+    rb = t0;
+    ka = ra = 0;
+  }
+  __device__ void raw_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                           int q) const {
+    tma_load(dst, map, bar, 128 * q, n0, 0);
+  }
+  // A: fragment rows g and g + 8 of warp w are the neurons 16 w + 2 g
+  // and 16 w + 2 g + 1 of the warpgroup's 64, so that a thread's entries
+  // pair up along the act cache's rows
+  __device__ void a_frag(int i, int c, const unsigned char* raw,
+                         uint32_t (&af)[1][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int r0 = 64 * c + 16 * warp + 2 * (lane >> 2);
+    const int x0 = 64 * ((i >> 1) & 1) + 2 * (lane & 3), sh = 4 * (i & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const uint32_t v = *reinterpret_cast<const uint16_t*>(
+              raw + swz128(r0 + rr, x0 + 16 * kk + 8 * h));
+          af[0][kk][2 * h + rr] = nib2(__byte_perm(v >> sh, 0, 0x4140));
+        }
+  }
+  __device__ bool restart(int i) const { return i == 0; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  template <int A>
+  __device__ void begin(float (&)[A], int, unsigned char*, uint32_t) {}
+  template <int A>
+  __device__ void after(int, float (&)[A], int) {}
+
+  // fn(a0, a1, j, r, nl): the accumulator entries of the thread's tile
+  // token 8 j + r (r < 8: its swizzled place is that of row r plus 1024 j
+  // bytes) and neurons nl, nl + 1
+  template <class F>
+  __device__ void each(float* acc, int c, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int nl = 64 * c + 16 * warp + 2 * (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < NT / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        fn(acc[4 * j + e], acc[4 * j + e + 2], j, 2 * (lane & 3) + e, nl);
+  }
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    const int n = n0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) +
+                  2 * ((threadIdx.x & 31) >> 2);
+    const float2 ws = __ldg(reinterpret_cast<const float2*>(p.w1s + n));
+    const float2 bb = __bfloat1622float2(
+        __ldg(reinterpret_cast<const __nv_bfloat162*>(p.b1 + n)));
+    // In passes, as Mm1A8, each pair's results packed into the register
+    // of its first entry.  1: mid, then the two acts' codes (16 bits each).
+    each(acc, c, [&](float& a0, float& a1, int, int, int) {
+      a0 = __uint_as_float(
+          (uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(a0, ws.x, bb.x))) |
+          (uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(a1, ws.y, bb.y)))
+              << 16);
+    });
+    // 2: against the staged old entries, which take the new codes; the
+    // deltas as a bf16 pair
+    mbar_wait(bar, 0);
+    each(acc, c, [&](float& a0, float&, int j, int r, int nl) {
+      const int x = nl * ES;
+      CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (NT * 128) +
+                                    swz128(r, x & 127) + 1024 * j);
+      const float2 old = ld2(e);
+      const uint32_t w = __float_as_uint(a0);
+      const float2 a = put_codes(e, w & 0xffff, w >> 16);
+      a0 = __uint_as_float(pack_bf16(a.x - old.x, a.y - old.y));
+    });
+    bar_sync(1, 256);                  // both consumers are past the ring
+    // 3: the deltas into the ring, 2 boxes [NT rows][64]
+    each(acc, c, [&](float& a0, float&, int j, int r, int nl) {
+      *reinterpret_cast<uint32_t*>(ring + (nl >> 6) * (NT * 128) +
+                                   swz128(r, (nl & 63) * 2) + 1024 * j) =
+          __float_as_uint(a0);
+    });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < ES; ++b)
+        tma_store(&p.act_map, smem_u32(act_s) + b * NT * 128,
+                  n0 + b * 128 / ES, t0);
+      for (int b = 0; b < 2; ++b)
+        tma_store(&p.pk_map, smem_u32(ring) + b * NT * 128, col0 + 64 * b,
+                  t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm2_w4 replaces _mm2_kernel with int4 weights (:216) and the fc2
+// half of _fused_kernel's w4 branch (:436).  Bound: operations, 0.107 ms
+// at the FLUX shape.  Transposed as mm1: out^T = W^T delta^T, the weight
+// as A in registers.  One CTA per (128-token tile, 128 byte columns
+// [cb, cb + 128) of the packed codes), which hold the 256 output columns
+// [cb, cb + 128) (low nibbles) and [C/2 + cb, C/2 + cb + 128) (high): B =
+// the packed delta rows [t0, t0 + 128) at slot j's k, 64 k a stage; the
+// codes of the stage's 64 k rows by TMA as one raw box [64][128 bytes]
+// (128-byte swizzle), each byte read once.  A consumer warpgroup takes 64
+// byte columns and both their planes (two m64n128 tiles): two
+// ldmatrix.trans a stage give it, for k pairs, the bytes of two
+// neighbouring columns, which PRMT parts into the fragments of both (its
+// rows g and g + 8 are a column pair) and nib2 converts, per plane.  The
+// delta is multiplied by bf16(w2s[k]) in bf16 (one rounding of an exact
+// product, the reference's multiply in the packed dtype) in place in
+// each stage by warps 1-3 of the producer warpgroup.  The accumulator
+// starts as f32(out_cache) from the out tile staged by TMA (two column
+// halves), sums over the counts[m] valid blocks and is rounded into the
+// tile, which goes out by TMA.
+template <class CT>
+struct Mm2W4 {
+  static constexpr int BN = 128;                     // B rows: tokens
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = GM * 256 * ES;        // the out tile
+  static constexpr int RAW = 64 * 128, EVERY = 1, MT = 2;
+  static constexpr bool B_MN = false, CONVERT = true;
+  static constexpr int FIT =
+      (sm90::SMEM_MAX - 1024 - EXTRA - 256) / (BN * GK + RAW);
+  static constexpr int ST = FIT >= 6 ? 6 : FIT, RS = ST;
+  struct Params {
+    CUtensorMap out_map;     // out cache [T][C], box [128 rows][128 bytes]
+    const float* w2s;
+    const int* inds;
+    const int* counts;
+    int jmax, bn, bm, C;
+  };
+  const Params& p;
+  int t0, cb, per, cnt;
+  const int* row;
+
+  __device__ Mm2W4(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * GM;
+    cb = blockIdx.y * 128;
+    const int m = t0 / p.bm;
+    per = p.bn / 64;
+    cnt = count_of(p.counts, m, p.jmax);
+    row = p.inds + (size_t)m * p.jmax;
+  }
+  __device__ bool live() const { return true; }
+  __device__ void idle() const {}
+  __device__ int tiles() const { return cnt * per; }
+  // the weight row of stage i's first k; the output column of tile
+  // column x
+  __device__ int krow(int i) const {
+    return row[i / per] * p.bn + (i % per) * 64;
+  }
+  __device__ int col(int x) const {
+    return cb + x + (x >= 128 ? p.C / 2 - 128 : 0);
+  }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < 2 * ES; ++b)
+      tma_load(extra + b * GM * 128, &p.out_map, bar, col(b * 128 / ES), t0,
+               0);
+  }
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    kb = (i / per) * p.bn + (i % per) * 64;
+    rb = t0;
+    ka = ra = 0;
+  }
+  __device__ void raw_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                           int i) const {
+    tma_load(dst, map, bar, cb, krow(i), 0);
+  }
+  // A: ldmatrix.trans of k rows 16 kk + 8 hh + (0..7) at byte columns
+  // col0 .. col0 + 15 gives lane (g, t) the bytes (k 2t, 2t + 1) of the
+  // columns col0 + 2g (rows g of the fragments) and col0 + 2g + 1 (rows
+  // g + 8), low plane (af[0]) and high (af[1])
+  __device__ void a_frag(int, int c, const unsigned char* raw,
+                         uint32_t (&af)[2][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int col0 = 64 * c + 16 * warp;
+#pragma unroll
+    for (int kp = 0; kp < 2; ++kp) {
+      uint32_t v[4];
+      ldsm_x4_t(v, raw + swz128(32 * kp + lane, col0));
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int kk = 2 * kp + m / 2, hh = m % 2;
+        const uint32_t ev = __byte_perm(v[m], 0, 0x4240);
+        const uint32_t od = __byte_perm(v[m], 0, 0x4341);
+        af[0][kk][2 * hh] = nib2(ev);
+        af[0][kk][2 * hh + 1] = nib2(od);
+        af[1][kk][2 * hh] = nib2(ev >> 4);
+        af[1][kk][2 * hh + 1] = nib2(od >> 4);
+      }
+    }
+  }
+  // thread ct of 96: the delta tile's 16-byte chunks ct % 8 (k 8 (ct % 8)
+  // ..) of rows ct / 8, + 12, ..., four loads ahead of their stores; s
+  // holds the thread's 8 scales of stage i and takes those of i + 1
+  using Carry = float4[2];
+  __device__ void convert_begin(int ct, Carry& s) const {
+    const float4* sp =
+        reinterpret_cast<const float4*>(p.w2s + krow(0) + 8 * (ct % 8));
+    s[0] = __ldg(sp);
+    s[1] = __ldg(sp + 1);
+  }
+  __device__ void convert(int i, int ct, unsigned char* tile,
+                          Carry& s) const {
+    const int ch = ct % 8;
+    const float4 s0 = s[0], s1 = s[1];
+    if (i + 1 < tiles()) {      // the next stage's scales, under this one
+      const float4* sp =
+          reinterpret_cast<const float4*>(p.w2s + krow(i + 1) + 8 * ch);
+      s[0] = __ldg(sp);
+      s[1] = __ldg(sp + 1);
+    }
+    const uint32_t sc[4] = {
+        bf2_u32(__floats2bfloat162_rn(s0.x, s0.y)),
+        bf2_u32(__floats2bfloat162_rn(s0.z, s0.w)),
+        bf2_u32(__floats2bfloat162_rn(s1.x, s1.y)),
+        bf2_u32(__floats2bfloat162_rn(s1.z, s1.w))};
+    auto mul = [](uint32_t v, uint32_t s) {
+      return bf2_u32(__hmul2(u32_bf2(v), u32_bf2(s)));
+    };
+    for (int r0 = ct / 8; r0 < GM; r0 += 48) {
+      uint4 v[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        v[u] = r0 + 12 * u < GM ? *reinterpret_cast<const uint4*>(
+                                      tile + swz128(r0 + 12 * u, 16 * ch))
+                                : make_uint4(0, 0, 0, 0);
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+        if (r0 + 12 * u < GM)
+          *reinterpret_cast<uint4*>(tile + swz128(r0 + 12 * u, 16 * ch)) =
+              make_uint4(mul(v[u].x, sc[0]), mul(v[u].y, sc[1]),
+                         mul(v[u].z, sc[2]), mul(v[u].w, sc[3]));
+    }
+  }
+  __device__ bool restart(int) const { return false; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  template <int A>
+  __device__ void after(int, float (&)[A], int) {}
+
+  // fn(a0, a1, entry): the thread's accumulator entries of a token and
+  // two neighbouring columns, and the first's entry in the staged tile
+  // (tokens 8 j + 2 t (+ 1); tile columns 128 mt + 64 c + 16 warp + 2 g
+  // (+ 1))
+  template <class F>
+  __device__ void each(float* acc, int c, unsigned char* out_s, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int bc = 64 * c + 16 * warp + 2 * (lane >> 2);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = (128 * mt + bc) * ES;
+          fn(acc[64 * mt + 4 * j + e], acc[64 * mt + 4 * j + e + 2],
+             reinterpret_cast<CT*>(out_s + (x >> 7) * (GM * 128) +
+                                   swz128(2 * (lane & 3) + e, x & 127) +
+                                   1024 * j));
+        }
+  }
+  template <int A>
+  __device__ void begin(float (&acc)[A], int c, unsigned char* out_s,
+                        uint32_t bar) {
+    mbar_wait(bar, 0);
+    each(acc, c, out_s, [](float& a0, float& a1, const CT* e) {
+      const float2 v = ld2(e);
+      a0 = v.x;
+      a1 = v.y;
+    });
+  }
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char*,
+                      unsigned char* out_s, uint32_t) {
+    each(acc, c, out_s,
+         [](float& a0, float& a1, CT* e) { put2(e, a0, a1); });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < 2 * ES; ++b)
+        tma_store(&p.out_map, smem_u32(out_s) + b * GM * 128,
+                  col(b * 128 / ES), t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
 template <typename K>
 int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(
@@ -1124,7 +1507,68 @@ extern "C" int chipmunk_csp_mlp_mm2(const void* packed, const void* w2,
   });
 }
 
-// w4: the weights are int4 plane-packed ([N, C/2] bytes), else int8
+template <int NT, class CT>
+static int launch_mm1_w4(const void* x, const void* w1q, const void* w1s,
+                         const void* b1, void* act_cache, const void* inds,
+                         const void* counts, void* packed, int T, int C,
+                         int N, int jmax, int bn, int bm,
+                         cudaStream_t stream) {
+  using Op = Mm1W4<NT, CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, w1q, N, C / 2, 128);
+  if (err == 0) err = make_byte_map(&tb, x, T, (long long)C * 2, NT, 2);
+  if (err == 0)
+    err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, NT,
+                        Op::ES);
+  if (err == 0)
+    err = make_byte_map(&p.pk_map, packed, T, (long long)jmax * bn * 2, NT,
+                        2);
+  if (err != 0) return err;
+  p.w1s = (const float*)w1s;
+  p.b1 = (const __nv_bfloat16*)b1;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.packed = (__nv_bfloat16*)packed;
+  p.jmax = jmax;
+  p.bn = bn;
+  p.bm = bm;
+  p.C = C;
+  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p,
+                                        dim3(T / NT, jmax * (bn / 128)),
+                                        stream);
+}
+
+template <class CT>
+static int launch_mm2_w4(const void* packed, const void* w2q,
+                         const void* w2s, void* out_cache, const void* inds,
+                         const void* counts, int T, int C, int N, int jmax,
+                         int bn, int bm, cudaStream_t stream) {
+  using Op = Mm2W4<CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, w2q, N, C / 2, 64);
+  if (err == 0)
+    err = make_byte_map(&tb, packed, T, (long long)jmax * bn * 2, GM, 2);
+  if (err == 0)
+    err = make_byte_map(&p.out_map, out_cache, T, (long long)C * Op::ES, GM,
+                        Op::ES);
+  if (err != 0) return err;
+  p.w2s = (const float*)w2s;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.jmax = jmax;
+  p.bn = bn;
+  p.bm = bm;
+  p.C = C;
+  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p, dim3(T / GM, C / 256),
+                                        stream);
+}
+
+// w4: the weights are int4 plane-packed ([N, C/2] bytes), on the Hopper
+// kernel (bm and bn multiples of 128, C of 256; a CTA takes 256 tokens
+// where bm allows, else 128); else int8, on mma.sync.  (The mma.sync
+// kernels keep their W4 parameter; it is false in every instantiation.)
 extern "C" int chipmunk_csp_mlp_mm1_wq(const void* x, const void* w1q,
                                        const void* w1s, const void* b1,
                                        void* act_cache, const void* inds,
@@ -1132,12 +1576,18 @@ extern "C" int chipmunk_csp_mlp_mm1_wq(const void* x, const void* w1q,
                                        int T, int C, int N, int jmax, int bn,
                                        int bm, int w4, int act_bf16,
                                        void* stream) {
+  if (w4 && (bn % 128 || bm % GM || T % bm || C % 256))
+    return (int)cudaErrorInvalidValue;
   return with_cache(act_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
+    if (w4) {
+      auto launch =
+          bm % 256 ? launch_mm1_w4<128, CT> : launch_mm1_w4<256, CT>;
+      return launch(x, w1q, w1s, b1, act_cache, inds, counts, packed, T, C, N,
+                    jmax, bn, bm, (cudaStream_t)stream);
+    }
     dim3 grid(T / BM, jmax * (bn / BN));
-    auto kernel = w4 ? csp_mlp_mm1_wq_kernel<true, CT>
-                     : csp_mlp_mm1_wq_kernel<false, CT>;
-    kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+    csp_mlp_mm1_wq_kernel<false, CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)x, (const int8_t*)w1q, (const float*)w1s,
         (const __nv_bfloat16*)b1, (CT*)act_cache, (const int*)inds,
         (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
@@ -1145,17 +1595,24 @@ extern "C" int chipmunk_csp_mlp_mm1_wq(const void* x, const void* w1q,
   });
 }
 
+// w4 (int4, Hopper): C a multiple of 256, bm of 128, bn of 64; N the rows
+// of w2q
 extern "C" int chipmunk_csp_mlp_mm2_wq(const void* packed, const void* w2q,
                                        const void* w2s, void* out_cache,
                                        const void* inds, const void* counts,
-                                       int T, int C, int jmax, int bn, int bm,
-                                       int w4, int out_bf16, void* stream) {
+                                       int T, int C, int N, int jmax, int bn,
+                                       int bm, int w4, int out_bf16,
+                                       void* stream) {
+  if (w4 && (C % 256 || bm % GM || T % bm || bn % 64 ||
+             reinterpret_cast<uintptr_t>(w2s) % 16))
+    return (int)cudaErrorInvalidValue;
   return with_cache(out_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
+    if (w4)
+      return launch_mm2_w4<CT>(packed, w2q, w2s, out_cache, inds, counts, T,
+                               C, N, jmax, bn, bm, (cudaStream_t)stream);
     dim3 grid(T / BM, C / BN);
-    auto kernel = w4 ? csp_mlp_mm2_wq_kernel<true, CT>
-                     : csp_mlp_mm2_wq_kernel<false, CT>;
-    kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
+    csp_mlp_mm2_wq_kernel<false, CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
         (const __nv_bfloat16*)packed, (const int8_t*)w2q, (const float*)w2s,
         (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
         bm);

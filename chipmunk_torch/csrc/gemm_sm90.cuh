@@ -57,7 +57,31 @@
 //   end(acc, c, ring, extra, bar): after the k loop (every product done;
 //     the ring is free once both consumers are past it), with generic
 //     pointers to the ring and the extra space.
+//
+// A from registers (an Op with RAW, see Conv: the int4-weight pair of
+// csp_mlp.cu).  The int4 codes are the A operand: their bytes arrive by
+// TMA in a ring of RS raw boxes of RAW bytes past the stages, one box
+// every EVERY stages (raw_load(dst, map, bar, q) issues box q from the
+// first map, ta), and each consumer warpgroup builds its A fragments of
+// a stage from the box in registers (a_frag(i, c, box, af): MT m64 tiles
+// x 4 k-steps x 4 registers of bf16 pairs) and runs wgmma with A in
+// registers.  A stage is then only the B tile of Op::BN rows, from the
+// second map.  With CONVERT, warps 1-3 of the producer warpgroup rewrite
+// each B tile in place once it is in (convert(i, thread of 96, tile,
+// carry), after convert_begin(thread, carry); Op::Carry is what a thread
+// carries from one stage to the next, e.g. the next stage's operands
+// loaded under this one), then fence.proxy.async and an arrival on the
+// stage's "converted" mbarrier, which the consumers wait on after
+// "full".  The consumers hand a raw box back on its "free" mbarrier once
+// they have read it.  With MT = 1 their fragments alternate between two
+// register sets, so that one stage's products run while the next
+// stage's fragments are built; with MT = 2 (32 registers a set) each
+// stage's products are waited for before the next stage's fragments.
+// Register split 56 / 224 / 224 with CONVERT, else 24 / 240 / 240 (the
+// sum of the three warpgroups' is that of 168 a thread).
 #pragma once
+
+#include <type_traits>
 
 #include "attn_sm90.cuh"
 
@@ -226,6 +250,19 @@ struct Mma<__nv_bfloat16, 256, TB> {
         : CHIPMUNK_ACC128(CHIPMUNK_F32)
         : "l"(da), "l"(db), "r"(accumulate), "n"(TB ? 1 : 0));
   }
+  // A from registers (bf16 pairs of the m64k16 fragment), B K-major
+  static __device__ __forceinline__ void issue_rs(float (&d)[128],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        CHIPMUNK_D128 ", {%128, %129, %130, %131}, %132, p, 1, 1, 0;\n}\n"
+        : CHIPMUNK_ACC128(CHIPMUNK_F32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  }
 };
 
 template <bool TB>
@@ -240,6 +277,18 @@ struct Mma<__nv_bfloat16, 128, TB> {
         CHIPMUNK_D64 ", %64, %65, p, 1, 1, 0, %67;\n}\n"
         : CHIPMUNK_ACC64(CHIPMUNK_F32)
         : "l"(da), "l"(db), "r"(accumulate), "n"(TB ? 1 : 0));
+  }
+  static __device__ __forceinline__ void issue_rs(float (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        CHIPMUNK_D64 ", {%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+        : CHIPMUNK_ACC64(CHIPMUNK_F32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
   }
 };
 
@@ -263,9 +312,31 @@ __device__ __forceinline__ void fence_iacc(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
 }
 
+// An Op whose A is built in registers names RAW (bytes of a raw box), RS
+// (raw boxes in their ring), EVERY (stages one box feeds), MT (m64 tiles
+// a consumer warpgroup computes) and CONVERT (producer warps rewrite each
+// B tile; they then hold 56 registers a thread and the consumers 224).
+// Every other Op takes the defaults: A in shared memory, 24 / 240.
+template <class Op, class = void>
+struct Conv {
+  static constexpr int RAW = 0, RS = 0, EVERY = 1, MT = 1, BAR = 128;
+  static constexpr bool CONVERT = false;
+  static constexpr int PRODUCER = 24, CONSUMER = 240;
+};
+
+template <class Op>
+struct Conv<Op, std::void_t<decltype(Op::RAW)>> {
+  static constexpr int RAW = Op::RAW, RS = Op::RS, EVERY = Op::EVERY;
+  static constexpr int MT = Op::MT, BAR = 256;
+  static constexpr bool CONVERT = Op::CONVERT;
+  static constexpr int PRODUCER = CONVERT ? 56 : 24;
+  static constexpr int CONSUMER = CONVERT ? 224 : 240;
+};
+
 template <class Op>
 constexpr int gemm_smem() {
-  return 1024 + Op::ST * (GM + Op::BN) * GK + Op::EXTRA + 128;
+  return 1024 + Op::ST * ((Conv<Op>::RAW ? 0 : GM) + Op::BN) * GK +
+         Conv<Op>::RS * Conv<Op>::RAW + Op::EXTRA + Conv<Op>::BAR;
 }
 
 template <typename T, class Op>
@@ -273,9 +344,12 @@ __global__ void __launch_bounds__(384, 1)
 gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
                  const __grid_constant__ CUtensorMap tb,
                  const __grid_constant__ typename Op::Params p) {
-  constexpr int ST = Op::ST, A_TILE = GM * GK, STAGE = (GM + Op::BN) * GK;
+  using CV = Conv<Op>;
+  constexpr int ST = Op::ST, A_TILE = CV::RAW ? 0 : GM * GK;
+  constexpr int STAGE = A_TILE + Op::BN * GK;
   using M = Mma<T, Op::BN, Op::B_MN>;
-  static_assert(8 * (2 * ST + 1) <= 128, "barrier area");
+  static_assert(8 * (2 * ST + 1 + (CV::RAW ? ST + 2 * CV::RS : 0)) <= CV::BAR,
+                "barrier area");
   Op op(p);
   if (!op.live()) {
     op.idle();
@@ -283,10 +357,15 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
   }
   extern __shared__ unsigned char smem_raw[];
   const uint32_t ring = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t extra = ring + ST * STAGE, sbar = extra + Op::EXTRA;
+  const uint32_t raw = ring + ST * STAGE, extra = raw + CV::RS * CV::RAW;
+  const uint32_t sbar = extra + Op::EXTRA;
   auto full = [&](int s) { return sbar + 8 * s; };
   auto empty = [&](int s) { return sbar + 8 * (ST + s); };
   const uint32_t side = sbar + 16 * ST;
+  // A in registers: stage s converted; raw box r loaded, and read
+  auto conv = [&](int s) { return side + 8 + 8 * s; };
+  auto rfull = [&](int r) { return side + 8 + 8 * (ST + r); };
+  auto rfree = [&](int r) { return side + 8 + 8 * (ST + CV::RS + r); };
   const int n = op.tiles();
   if (threadIdx.x == 0) {
     for (int s = 0; s < ST; ++s) {
@@ -294,13 +373,20 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
       mbar_init(empty(s), 256);
     }
     mbar_init(side, 1);
+    if constexpr (CV::RAW > 0) {
+      for (int s = 0; s < ST; ++s) mbar_init(conv(s), 96);
+      for (int r = 0; r < CV::RS; ++r) {
+        mbar_init(rfull(r), 1);
+        mbar_init(rfree(r), 256);
+      }
+    }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
 
   if (threadIdx.x < 128) {
     // ------------------------------------------------------- producer
-    reg_dealloc<24>();
+    reg_dealloc<CV::PRODUCER>();
     if (threadIdx.x == 0) {
       op.side_load(extra, side);
       for (int i = 0; i < n; ++i) {
@@ -308,57 +394,133 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
         if (i >= ST) mbar_wait(empty(s), ((i / ST) - 1) & 1);
         int ka, ra, kb, rb;
         op.coords(i, ka, ra, kb, rb);
-        mbar_expect_tx(full(s), STAGE);
-        tma_load(ring + s * STAGE, &ta, full(s), ka, ra, 0);
-        const uint32_t bs = ring + s * STAGE + A_TILE;
-        if (Op::B_MN) {
-#pragma unroll
-          for (int b = 0; b < Op::BN / 64; ++b)
-            tma_load(bs + b * 64 * GK, &tb, full(s), kb + 64 * b, rb, 0);
+        if constexpr (CV::RAW > 0) {
+          // the B tile; A's raw box, once every EVERY stages
+          mbar_expect_tx(full(s), STAGE);
+          tma_load(ring + s * STAGE, &tb, full(s), kb, rb, 0);
+          if (i % CV::EVERY == 0) {
+            const int q = i / CV::EVERY, r = q % CV::RS;
+            if (q >= CV::RS) mbar_wait(rfree(r), ((q / CV::RS) - 1) & 1);
+            mbar_expect_tx(rfull(r), CV::RAW);
+            op.raw_load(raw + r * CV::RAW, &ta, rfull(r), q);
+          }
         } else {
-          tma_load(bs, &tb, full(s), kb, rb, 0);
+          mbar_expect_tx(full(s), STAGE);
+          tma_load(ring + s * STAGE, &ta, full(s), ka, ra, 0);
+          const uint32_t bs = ring + s * STAGE + A_TILE;
+          if (Op::B_MN) {
+#pragma unroll
+            for (int b = 0; b < Op::BN / 64; ++b)
+              tma_load(bs + b * 64 * GK, &tb, full(s), kb + 64 * b, rb, 0);
+          } else {
+            tma_load(bs, &tb, full(s), kb, rb, 0);
+          }
+        }
+      }
+    } else if constexpr (CV::CONVERT) {
+      // warps 1-3 rewrite each B tile in place once it is in
+      if (threadIdx.x >= 32) {
+        unsigned char* gring = smem_raw + (ring - smem_u32(smem_raw));
+        typename Op::Carry carry;            // carried from stage to stage
+        op.convert_begin(threadIdx.x - 32, carry);
+        for (int i = 0; i < n; ++i) {
+          const int s = i % ST;
+          mbar_wait(full(s), (i / ST) & 1);
+          op.convert(i, threadIdx.x - 32, gring + s * STAGE, carry);
+          fence_async();
+          mbar_arrive(conv(s));
         }
       }
     }
   } else {
     // ------------------------------------------------------- consumers
-    reg_alloc<240>();
+    reg_alloc<CV::CONSUMER>();
     const int c = threadIdx.x / 128 - 1;
     const uint32_t a_off = c * 64 * GK;       // this warpgroup's 64 rows
-    typename M::Acc acc[M::ACC];
+    typename M::Acc acc[M::ACC * CV::MT];
 #pragma unroll
-    for (int i = 0; i < M::ACC; ++i) acc[i] = 0;
+    for (int i = 0; i < M::ACC * CV::MT; ++i) acc[i] = 0;
     op.begin(acc, c, smem_raw + (extra - smem_u32(smem_raw)), side);
-    int pend = -1;                            // stage whose products fly
-    for (int i = 0; i < n; ++i) {
-      const int s = i % ST;
-      mbar_wait(full(s), (i / ST) & 1);
-      const uint32_t a = ring + s * STAGE + a_off, b = ring + s * STAGE + A_TILE;
-      wgmma_fence();
+    if constexpr (CV::RAW > 0) {
+      // A in registers: stage i's fragments from its raw box, then its
+      // products.  With one m64 tile a warpgroup (16 registers a set) the
+      // fragments alternate between two sets and stage i - 1's products
+      // are waited for after stage i's are issued; with more, one set,
+      // and each stage's products are waited for before the next.
+      constexpr bool TWO = CV::MT == 1;
+      const unsigned char* graw = smem_raw + (raw - smem_u32(smem_raw));
+      auto stage = [&](int i, uint32_t (&af)[CV::MT][4][4]) {
+        const int s = i % ST, q = i / CV::EVERY, r = q % CV::RS;
+        if (i % CV::EVERY == 0) mbar_wait(rfull(r), (q / CV::RS) & 1);
+        op.a_frag(i, c, graw + r * CV::RAW, af);
+        if (i % CV::EVERY == CV::EVERY - 1) mbar_arrive(rfree(r));
+        mbar_wait(full(s), (i / ST) & 1);
+        if constexpr (CV::CONVERT) mbar_wait(conv(s), (i / ST) & 1);
+        const uint32_t b = ring + s * STAGE;
+        wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < GK / 32; ++kk)
-        M::issue(acc, gmma_desc(a + 32 * kk, 16, 1024),
-                 Op::B_MN ? gmma_desc(b + 2048 * kk, 64 * GK, 1024)
-                          : gmma_desc(b + 32 * kk, 16, 1024),
-                 kk > 0 || !op.restart(i));
-      wgmma_commit();
-      op.issued(i, c);
-      if (op.flush(i)) {
-        wgmma_wait<0>();
-        fence_iacc(acc);
-        if (pend >= 0) mbar_arrive(empty(pend % ST));
-        mbar_arrive(empty(s));
-        pend = -1;
-        op.after(i, acc, c);
+        for (int mt = 0; mt < CV::MT; ++mt)
+#pragma unroll
+          for (int kk = 0; kk < GK / 32; ++kk)
+            M::issue_rs(*reinterpret_cast<float(*)[M::ACC]>(acc + mt * M::ACC),
+                        af[mt][kk], gmma_desc(b + 32 * kk, 16, 1024),
+                        kk > 0 || !op.restart(i));
+        wgmma_commit();
+        if constexpr (TWO) {
+          wgmma_wait<1>();
+          if (i > 0) mbar_arrive(empty((i - 1) % ST));
+        } else {
+          wgmma_wait<0>();
+          mbar_arrive(empty(s));
+        }
+      };
+      uint32_t af0[CV::MT][4][4], af1[CV::MT][4][4];
+      if constexpr (TWO) {
+        int i = 0;
+        for (; i + 1 < n; i += 2) {
+          stage(i, af0);
+          stage(i + 1, af1);
+        }
+        if (i < n) stage(i, af0);      // one set only while its products fly
       } else {
-        wgmma_wait<1>();
-        if (pend >= 0) mbar_arrive(empty(pend % ST));
-        pend = i;
+        for (int i = 0; i < n; ++i) stage(i, af0);
       }
+      wgmma_wait<0>();
+      fence_iacc(acc);
+      if (TWO) mbar_arrive(empty((n - 1) % ST));
+    } else {
+      int pend = -1;                            // stage whose products fly
+      for (int i = 0; i < n; ++i) {
+        const int s = i % ST;
+        mbar_wait(full(s), (i / ST) & 1);
+        const uint32_t a = ring + s * STAGE + a_off;
+        const uint32_t b = ring + s * STAGE + A_TILE;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < GK / 32; ++kk)
+          M::issue(acc, gmma_desc(a + 32 * kk, 16, 1024),
+                   Op::B_MN ? gmma_desc(b + 2048 * kk, 64 * GK, 1024)
+                            : gmma_desc(b + 32 * kk, 16, 1024),
+                   kk > 0 || !op.restart(i));
+        wgmma_commit();
+        op.issued(i, c);
+        if (op.flush(i)) {
+          wgmma_wait<0>();
+          fence_iacc(acc);
+          if (pend >= 0) mbar_arrive(empty(pend % ST));
+          mbar_arrive(empty(s));
+          pend = -1;
+          op.after(i, acc, c);
+        } else {
+          wgmma_wait<1>();
+          if (pend >= 0) mbar_arrive(empty(pend % ST));
+          pend = i;
+        }
+      }
+      wgmma_wait<0>();
+      fence_iacc(acc);
+      if (pend >= 0) mbar_arrive(empty(pend % ST));
     }
-    wgmma_wait<0>();
-    fence_iacc(acc);
-    if (pend >= 0) mbar_arrive(empty(pend % ST));
     op.end(acc, c, smem_raw + (ring - smem_u32(smem_raw)),
            smem_raw + (extra - smem_u32(smem_raw)), side);
   }

@@ -53,7 +53,7 @@ _SIGNATURES = {
     'chipmunk_csp_mlp_mm1': [_P] * 7 + [_I] * 7 + [_P],
     'chipmunk_csp_mlp_mm2': [_P] * 5 + [_I] * 7 + [_P],
     'chipmunk_csp_mlp_mm1_wq': [_P] * 8 + [_I] * 8 + [_P],
-    'chipmunk_csp_mlp_mm2_wq': [_P] * 6 + [_I] * 7 + [_P],
+    'chipmunk_csp_mlp_mm2_wq': [_P] * 6 + [_I] * 8 + [_P],
     'chipmunk_quant_rows': [_P] * 3 + [_I] * 2 + [_P],
     'chipmunk_csp_mlp_mm1_a8': [_P] * 11 + [_I] * 8 + [_P],
     'chipmunk_csp_mlp_mm2_a8': [_P] * 6 + [_I] * 8 + [_P],

@@ -382,7 +382,7 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
         err = lib.chipmunk_csp_mlp_mm2_wq(
             packed.data_ptr(), w.data_ptr(), _flat_scale(w2).data_ptr(),
             out_cache.data_ptr(), inds.data_ptr(), counts.data_ptr(), T, C,
-            jmax, bn, bm, int(w4), bf, _stream(packed))
+            w.shape[0], jmax, bn, bm, int(w4), bf, _stream(packed))
     else:
         err = lib.chipmunk_csp_mlp_mm2(
             packed.data_ptr(), w.data_ptr(), out_cache.data_ptr(),

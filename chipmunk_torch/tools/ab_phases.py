@@ -2,13 +2,50 @@
 print the kernel rows (``kernel_phases``, ``quant_kernel_phases`` for int8
 and int4, ``probe_phase``, ``video_kernel_phases``), called alone on the
 tree at ROOT, which goes first on ``sys.path`` (its ``chip_smoke.py`` and
-``chipmunk_torch``).  Prints one ``AB {json}`` line of times.  Run it for
+``chipmunk_torch``), and the int4-weight pair's device times on the
+int4 phase's inputs.  Prints one ``AB {json}`` line of times.  Run it for
 the parent (``git archive <parent> | tar -x -C build/parent``) and this
 tree in turns, in one call on the card::
 
-    python3 chipmunk_torch/tools/ab_phases.py ROOT [--no-video]
+    python3 chipmunk_torch/tools/ab_phases.py ROOT [--no-video | --w4]
+
+With ``--w4`` only the int4-weight pair's device times are taken (no
+other phase), as on copies of a tree with one change patched in.
 """
 import importlib, json, sys, time
+
+
+def w4_device_ms(torch, cs, cm, fp8, quant):
+    """Device ms of csp_mlp_mm1 / csp_mlp_mm2 with int4 weights on the
+    inputs of ``quant_kernel_phases(..., 'int4')`` (the same draws), for
+    trees whose chip_smoke.py does not time them on the device."""
+    dev = 'cuda'
+    gen = torch.Generator(dev)
+    gen.manual_seed(cs.SEED + 1)
+    bm, bn, jm, T, C, N = 512, 256, 22, cs.T_SINGLE, cs.C, cs.N
+    M = T // bm
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    x = randn(T, C)
+    w1, w2 = (quant.quantize(randn(N, C, scale=s), 'int4', keep_axes=(0,),
+                             pack_axis=1) for s in (C ** -0.5, N ** -0.5))
+    b1 = randn(N, scale=0.1)
+    act = fp8.to_fp8(torch.randn((T, N), generator=gen, device=dev) * 0.3)
+    out = fp8.to_fp8(torch.randn((T, C), generator=gen, device=dev))
+    inds = torch.rand((M, N // bn), generator=gen, device=dev).topk(jm, -1) \
+        .indices.sort(-1).values.to(torch.int32)
+    counts = torch.randint(13, 18, (M,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 1, jm
+    pk, _ = cm.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn, bm=bm)
+    return {
+        'csp_mlp_mm1_w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm1(
+            x, w1, b1, act, inds, counts, bn=bn, bm=bm), 20)[0],
+        'csp_mlp_mm2_w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm2(
+            pk, w2, out, inds, counts, bn=bn, bm=bm), 20)[0]}
 
 
 def main():
@@ -27,6 +64,10 @@ def main():
     print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
     mods = tuple(importlib.import_module(f'chipmunk_torch.kernels.{m}')
                  for m in ('flash_attention', 'csp_attention', 'csp_mlp'))
+    if '--w4' in sys.argv:
+        print('W4 device ms ' + json.dumps(
+            w4_device_ms(torch, cs, mods[2], fp8, quant)), flush=True)
+        return
     rows = cs.kernel_phases(torch, mods + (fp8,))
     torch.cuda.empty_cache()
     for kind in ('int8', 'int4'):
@@ -34,6 +75,8 @@ def main():
         torch.cuda.empty_cache()
     rows += cs.probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
+    w4 = w4_device_ms(torch, cs, mods[2], fp8, quant)
+    print('W4 device ms ' + json.dumps(w4), flush=True)
     out = {}
     if '--no-video' not in sys.argv:
         import os
@@ -42,7 +85,7 @@ def main():
         rows.append(vrow)
     print('AB ' + json.dumps({'root': root, 'rows': [
         {k: r.get(k) for k in ('name', 'ms', 'device_ms', 'library_ms')} for r in rows],
-        'video': out}), flush=True)
+        'video': out, 'w4_device_ms': w4}), flush=True)
 
 
 if __name__ == '__main__':

@@ -1,7 +1,9 @@
 """Compare the SASS of every kernel function of two trees whose kernels
 are built (``build/chipmunk_torch/*.so`` under each root), function by
-function, as ``cuobjdump -sass`` prints them: one line per function,
-identical, differing, or present in one tree only.  Names are matched
+function, as ``cuobjdump -sass`` prints them (with runs of whitespace
+collapsed: cuobjdump pads its columns to the widest instruction in the
+file): one line per function, identical, differing, or present in one
+tree only.  Names are matched
 with the anonymous-namespace hash and ``CspKeys``' default ``SLOT``
 argument left out::
 
@@ -30,7 +32,7 @@ def functions(path):
                 res[norm(cur)] = body
             cur, body = m.group(1), []
         elif cur and '/*' in line:
-            body.append(line.strip())
+            body.append(' '.join(line.split()))   # cuobjdump pads columns
     if cur:
         res[norm(cur)] = body
     return res

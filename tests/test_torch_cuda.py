@@ -750,8 +750,14 @@ def check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn):
     torch.cuda.synchronize()
     assert torch.equal(bits(outs[0]), bits(outs[1]))
     M, C = T // bm, out.shape[1]
-    mag = out.float().abs().reshape(M, bm, C) + pk_p.float().abs().reshape(
-        M, bm, -1) @ w2.float().abs()[CM._rows(pinds, bn)]
+    rows = CM._rows(pinds, bn)
+    pkm = pk_p.reshape(M, bm, -1)
+    if isinstance(w2, QT.QTensor):      # the terms: bf16(delta * s) * code
+        pkm = pkm * CM._scale(w2)[rows].to(pkm.dtype)[:, None, :]
+        w2m = CM._codes(w2).float().abs()[rows]
+    else:
+        w2m = w2.float().abs()[rows]
+    mag = out.float().abs().reshape(M, bm, C) + pkm.float().abs() @ w2m
     slack = 2 * (jmax * bn) ** 0.5 * 2.0 ** -24 * mag.reshape(T, C)
     assert_fp8_close(outs[0], CM.csp_mlp_mm2_plain(pk_p, w2, out, pinds,
                                                    counts, bn, bm), slack)
@@ -790,6 +796,47 @@ def test_cuda_csp_mlp_bf16_hopper(gen, bm, bn, C, cache):
     check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn)
     for k in ('csp_mlp_mm1', 'csp_mlp_mm2'):
         assert CM._build.LAUNCHES[k] == n0[k] + 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bm,bn,C', [(128, 128, 256), (128, 256, 512),
+                                     (512, 384, 768), (512, 256, 768),
+                                     (512, 128, 512)])
+def test_cuda_csp_mlp_w4_hopper(gen, bm, bn, C, cache):
+    """The wgmma/TMA int4-weight pair (csp_mlp_mm1_w4 in 256- or
+    128-neuron sub-blocks, csp_mlp_mm2_w4 in 256-column tiles of both
+    nibble planes; the packed codes converted to bf16 in shared memory):
+    T = 1024, C = 256, 512 or 768 (a nibble plane of 128, 256 or 384
+    columns: one mm2 tile's half, two, three), N = 3072, jmax 4 with
+    counts of 1 and jmax; fp8 or bf16 caches (both of the type); NaN in
+    the scales and bias of every neuron block that no token block selects
+    and code 0xFF in its bytes, so a read of one shows.  Gates of
+    check_bf16_pair (mm2's sum-order slack over the terms bf16(delta *
+    w2s) * code); each kernel is launched twice and no other kernel."""
+    T, N, jmax = 1024, 3072, 4
+    M = T // bm
+    x = randn(gen, T, C)
+    w1 = int8_qt(gen, N, C, C ** -0.5, 'int4')
+    w2 = int8_qt(gen, N, C, N ** -0.5, 'int4')
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    used = torch.zeros(N // bn, dtype=torch.bool, device='cuda')
+    used[CA.pad_block_indices(inds, counts).long().flatten()] = True
+    off = (~used).repeat_interleave(bn)[:, None]
+    w1, w2 = (QT.QTensor(w.q.masked_fill(off, 0xFF),
+                         w.scale.masked_fill(off, float('nan')), w.pack_axis)
+              for w in (w1, w2))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    for k, v in CM._build.LAUNCHES.items():
+        assert v == n0[k] + (2 if k in ('csp_mlp_mm1_w4', 'csp_mlp_mm2_w4')
+                             else 0), k
 
 
 @pytest.mark.cuda

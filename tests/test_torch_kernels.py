@@ -320,14 +320,15 @@ def _qt(w, kind='int8'):
     return qj, QTensor(to_torch(qj.q), to_torch(qj.scale), qj.pack_axis)
 
 
-def _mm1_mm2_against_reference(seed, kind, cache=ml_dtypes.float8_e4m3fn):
+def _mm1_mm2_against_reference(seed, kind, cache=ml_dtypes.float8_e4m3fn,
+                               T=256, C=256, N=512, bm=128, bn=128, jmax=3):
     """The two passes behind csp_mlp_fused against the reference's unfused
     kernels (_mm1_kernel, _mm2_kernel), which compute the same functions,
     with bf16 (kind None), int8 or int4 QTensor weights.  The packed delta
     bf16(act - cache) is bit-equal where the two acts are, elsewhere apart
     by the acts' difference plus bf16 rounding."""
-    bm = bn = 128
-    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed, cache=cache)
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
+        seed, T=T, C=C, N=N, bm=bm, bn=bn, jmax=jmax, cache=cache)
     if kind:
         (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
     else:
@@ -383,6 +384,41 @@ def test_csp_mlp_mm1_mm2_w4_match_reference():
     (the ``w4`` variants); the reference contracts each nibble plane with
     its half of x (mm1) or writes its half of the output (mm2)."""
     _mm1_mm2_against_reference(13, 'int4')
+
+
+@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache', [
+    (256, 512, 1152, 128, 384, 2, 'fp8'),
+    (256, 768, 512, 128, 128, 3, 'bf16'),
+    (1024, 256, 1024, 512, 256, 3, 'fp8'),
+    (1024, 768, 768, 512, 384, 2, 'bf16'),
+])
+def test_csp_mlp_w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
+                                                cache):
+    """The int4-weight plain pair at the shapes the card's w4 kernels take
+    at their edges (bn 384, C 512 and 768: a nibble plane of 256 and 384
+    columns, bm 512; counts of 1 and jmax; fp8 or bf16 caches), against
+    _mm1_kernel / _mm2_kernel as in _mm1_mm2_against_reference, and the
+    fused step against _fused_kernel's w4 branch: the act cache within
+    one ulp of its type, the out cache within one ulp plus what act flips
+    move."""
+    cdt = {'fp8': ml_dtypes.float8_e4m3fn, 'bf16': ml_dtypes.bfloat16}[cache]
+    seed = 40 + C // 256 + bn // 128 + bm // 128
+    _mm1_mm2_against_reference(seed, 'int4', cache=cdt, T=T, C=C, N=N,
+                               bm=bm, bn=bn, jmax=jmax)
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
+        seed, T=T, C=C, N=N, bm=bm, bn=bn, jmax=jmax, cache=cdt)
+    (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, 'int4'), _qt(w2, 'int4')
+    out_j, act_j = j_csp_mlp_fused(
+        jnp.asarray(x), w1_j, jnp.asarray(b1), w2_j,
+        *map(jnp.asarray, (act, out, inds, counts)), bn=bn, bm=bm,
+        interpret=True)
+    out_t, act_t = csp_mlp_fused(to_torch(x), w1_t, to_torch(b1), w2_t,
+                                 *map(to_torch, (act, out, inds, counts)),
+                                 bn=bn, bm=bm)
+    _fp8_close(act_t, act_j)
+    _fp8_close(out_t, out_j, _out_slack(
+        act_t, act_j, jq_dequant(w2_t),
+        act if cache == 'bf16' else None))
 
 
 def _a8_chain_against_reference(kind, cases):
