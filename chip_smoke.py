@@ -12,12 +12,13 @@
    the bf16 kernels, the int8-weight (``wq``) and int8-activation (``a8``)
    sparse-MLP kernels (their yardstick: the dense layer's torch.matmul or
    torch._int_mm scaled by the selected share), every sparse-MLP variant
-   with bf16 caches, the bf16 pair also at bn = 128 and with bf16 caches,
-   both csp modes at kv_block 1, 2, 4, 8 and 16, and the int8/bf16 tile
-   GEMM probe.  For the short
-   rows (``csp_attn`` at FLUX, ``quant_rows``) it also gives the kernel's
-   own device time from torch.profiler's kernel records (``device_ms``),
-   since their ``ms`` includes the wrappers' host work.
+   with bf16 caches, the bf16 pair and both int4-weight pairs also at
+   bn = 128 and with bf16 caches, both csp modes at kv_block 1, 2, 4, 8
+   and 16, and the int8/bf16 tile GEMM probe.  For the short rows
+   (``csp_attn`` at FLUX, ``quant_rows``) and the MLP rows of the
+   Hopper-template pairs it also gives the kernel's own device time from
+   torch.profiler's kernel records (``device_ms``), since their ``ms``
+   includes the wrappers' host work.
 3. Drives the port's two main paths, each with the launch counts set to 0
    just before and read just after: ``FluxSampler.denoise`` over the
    50-step schedule of ``configs/flux-chipmunk.yml`` at 1280x768 with the
@@ -80,8 +81,10 @@ OUR_KERNELS = (
     ('a8 MLP mm2 (gemm_sm90_kernel<Mm2A8>)', 'mm2a8<'),
     ('w4 MLP mm1 (gemm_sm90_kernel<Mm1W4>)', 'mm1w4<'),
     ('w4 MLP mm2 (gemm_sm90_kernel<Mm2W4>)', 'mm2w4<'),
+    ('a8w4 MLP mm1 (gemm_sm90_kernel<Mm1A8W4>)', 'mm1a8w4<'),
+    ('a8w4 MLP mm2 (gemm_sm90_kernel<Mm2A8W4>)', 'mm2a8w4<'),
     ('quant_rows', 'quant_rows_kernel'),
-    ('mma.sync MLP (wq, a8w4)', 'csp_mlp_'))
+    ('mma.sync MLP (wq)', 'csp_mlp_'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -709,7 +712,10 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
     library_ms: torch._int_mm (a8, on the int8 codes) or torch.matmul
     (wq/w4, on the dequantized bf16 weights) over the dense layer's
     products, scaled by the selected share (dense_library_ms); null for
-    quant_rows."""
+    quant_rows.  The a8w4 rows also carry device_ms, taken from the
+    Mm1A8W4 / Mm2A8W4 instantiations of gemm_sm90_kernel (their trace
+    labels), and the a8w4 pair runs once more at bn = 128 with bf16
+    caches (a8w4_bn128)."""
     dev = 'cuda'
     gen = torch.Generator(dev)
     gen.manual_seed(SEED + 1)
@@ -809,6 +815,11 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         + N * 10 + T * 4, PEAK_INT8_OPS,
         dense_library_ms(torch, f'csp_mlp_mm1_{a8} yardstick torch._int_mm '
                          f'{shape1}', lambda: torch._int_mm(x8, c1t), share))
+    if w4:
+        rows[-1]['device_ms'] = a8w4_device_ms(
+            torch, 'csp_mlp_mm1_a8w4 (FLUX)', 'mm1a8w4<',
+            lambda: cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act_t, inds,
+                                      counts, bn=bn, bm=bm))
 
     # ---- csp_mlp_mm2_a8 on the plain d8/sd
     out_k = cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out.clone(), inds, counts,
@@ -828,6 +839,11 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         dense_library_ms(torch, f'csp_mlp_mm2_{a8} yardstick torch._int_mm '
                          f'{shape2}', lambda: torch._int_mm(dense8, c2),
                          share))
+    if w4:
+        rows[-1]['device_ms'] = a8w4_device_ms(
+            torch, 'csp_mlp_mm2_a8w4 (FLUX)', 'mm2a8w4<',
+            lambda: cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out_t, inds, counts,
+                                      bn=bn, bm=bm))
     del d8, sd, d8_p, sd_p, act_k, act_p, out_k, out_p
 
     # ---- csp_mlp_mm1_wq
@@ -885,8 +901,77 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
     del c1t, c2, d1, d2, dense8, dense16
     if w4:
         bf16_mlp_variants(torch, cm, ca, fp8, x, w1, b1, w2, gen, 'w4')
+        a8w4_bn128(torch, cm, ca, fp8, x8, sx, w1, b1, w2, gen)
     print_rows(rows)
     return rows
+
+
+def a8w4_device_ms(torch, tag, label, fn):
+    """Device ms of the a8w4 kernel that ``fn`` launches, which must be the
+    gemm_sm90_kernel instantiation whose trace label (OUR_KERNELS) matches
+    ``label``."""
+    ms, name = device_ms(torch, fn, 20)
+    if label not in name.lower():
+        fail(f'{tag}: the longest kernel is {name[:120]}, not {label}')
+    print(f'{tag}: {ms:.4f} ms on the device ({name[:120]})', flush=True)
+    return ms
+
+
+def a8w4_bn128(torch, cm, ca, fp8, x8, sx, w1, b1, w2, gen):
+    """The int4-weight, int8-activation pair at bn = 128 (jmax 44, counts
+    26-34: about the same selected share as bn 256) with bf16 caches, at
+    the FLUX shape.  Each kernel runs whole; its plain version on the
+    first two 512-token blocks (rows 0-1023, counts 1 and jmax), where the
+    two are compared under the gates of the bn 256 rows: the act cache
+    within one ulp; d8 and sd bit-equal where the acts of the (row, block)
+    agree, zero past the count; mm2 on the kernel's own d8/sd of those
+    rows within one ulp.  Prints both kernels' device times."""
+    dev, bm, bn, jm, T, R = 'cuda', 512, 128, 44, T_SINGLE, 1024
+    M = T // bm
+    tag = 'csp_mlp a8w4 bn 128, bfloat16 caches'
+    inds = torch.rand((M, N // bn), generator=gen, device=dev).topk(
+        jm, -1).indices.sort(-1).values.to(torch.int32)
+    counts = torch.randint(26, 35, (M,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 1, jm
+    pi, pc = ca.pad_block_indices(inds, counts)[:R // bm], counts[:R // bm]
+    act = fp8.cast(torch.randn((T, N), generator=gen, device=dev) * 0.3,
+                   torch.bfloat16)
+    out = fp8.cast(torch.randn((T, C), generator=gen, device=dev),
+                   torch.bfloat16)
+    d8, sd, act_k = cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(),
+                                      inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    d8_p, sd_p, act_p = cm.csp_mlp_mm1_a8_plain(
+        x8[:R], sx[:R], w1, b1, w2.scale, act[:R], pi, pc, bn, bm)
+    err = check_fp8(torch, f'{tag} act_cache', act_k[:R], act_p)
+    agree = mlp_agree(torch, act_k[:R], act_p, pi, bm, bn)
+    d8r = d8[:R].reshape(R, jm, bn)
+    if not (torch.equal(sd[:R][agree], sd_p[agree]) and torch.equal(
+            d8r[agree], d8_p.reshape(R, jm, bn)[agree])):
+        fail(f'{tag}: d8/sd differ where the acts agree')
+    live = (torch.arange(jm, device=dev)[None]
+            < pc.repeat_interleave(bm)[:, None])
+    if bool(sd[:R][~live].any()) or bool(d8r[~live].any()):
+        fail(f'{tag}: d8/sd not zero past the count')
+    out_k = cm.csp_mlp_mm2_a8(d8, sd, w2, out.clone(), inds, counts, bn=bn,
+                              bm=bm)
+    torch.cuda.synchronize()
+    out_p = cm.csp_mlp_mm2_a8_plain(d8[:R], sd[:R], w2, out[:R], pi, pc, bn,
+                                    bm)
+    err_o = check_fp8(torch, f'{tag} out_cache', out_k[:R], out_p)
+    a_t, o_t = act.clone(), out.clone()
+    ms1 = a8w4_device_ms(torch, f'{tag}: csp_mlp_mm1_a8w4', 'mm1a8w4<',
+                         lambda: cm.csp_mlp_mm1_a8(
+                             x8, sx, w1, b1, w2.scale, a_t, inds, counts,
+                             bn=bn, bm=bm))
+    ms2 = a8w4_device_ms(torch, f'{tag}: csp_mlp_mm2_a8w4', 'mm2a8w4<',
+                         lambda: cm.csp_mlp_mm2_a8(
+                             d8, sd, w2, o_t, inds, counts, bn=bn, bm=bm))
+    print(f'{tag} (FLUX): act max abs err {err:.3e}, acts agree in '
+          f'{agree.float().mean().item():.4f} of (row, block) pairs, out max '
+          f'abs err {err_o:.3e}; device ms {ms1:.4f} + {ms2:.4f}', flush=True)
+    del act, out, d8, sd, act_k, out_k, a_t, o_t
 
 
 def mlp_agree(torch, act_k, act_p, pinds, bm, bn):

@@ -7,7 +7,7 @@
 //     bf16 weights (csp_mlp_mm1/mm2), int8 or int4 QTensor weights with
 //     bf16 activations (`wq`/`w4`: csp_mlp_mm1_wq/mm2_wq) and int8 or int4
 //     weights with int8 activations (`a8`: quant_rows + csp_mlp_mm1_a8 /
-//     mm2_a8 on Hopper; `a8w4`: the same launches on mma.sync);
+//     mm2_a8; `a8w4`: the same launches with int4 weights);
 //   :93 _mm1_kernel and :216 _mm2_kernel (bf16, `wq` int8 and `w4` int4),
 //     which compute the same functions as the first two pairs.
 //
@@ -44,9 +44,10 @@
 // w4 pair (int4 weights, bf16 x) runs on the same template with bf16
 // wgmma, transposed so that the weight is the A operand: its packed
 // codes arrive raw by TMA and the consumers convert them into A
-// fragments in registers (Mm1W4, Mm2W4).  The wq and a8w4 kernels are
-// mma.sync (bf16 -> f32 or s8 -> s32) fed by ldmatrix from cp.async rings
-// (gemm_tile.cuh).
+// fragments in registers (Mm1W4, Mm2W4).  The a8w4 pair (int4 weights,
+// int8 x) takes the same form with s8 wgmma, the codes widened to s8 in
+// registers (Mm1A8W4, Mm2A8W4).  The wq kernels are mma.sync (bf16 ->
+// f32) fed by ldmatrix from cp.async rings (gemm_tile.cuh).
 //
 // The `wq` and `w4` variants convert the weight codes to bf16 (exact)
 // and apply the scales where the reference does: mm1 after the product
@@ -307,8 +308,6 @@ csp_mlp_mm2_wq_kernel(const __nv_bfloat16* __restrict__ packed,
 
 // ---------------------------------------------- a8: int8 weights and x
 
-constexpr int BM8 = 64;        // token rows of an a8w4 CTA
-
 // x [T, C] bf16 -> x8 [T, C] int8, sx [T] f32; one CTA per row
 __global__ void __launch_bounds__(NT)
 quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
@@ -336,173 +335,6 @@ quant_rows_kernel(const __nv_bfloat16* __restrict__ x, int8_t* __restrict__ x8,
     out[i] = (uint16_t)((q8(__fdiv_rn(v.x, s)) & 0xff) |
                         ((q8(__fdiv_rn(v.y, s)) & 0xff) << 8));
   }
-}
-
-// grid (T / 64, jmax).  The a8w4 mm1 (int4 weights, int8 x), on mma.sync:
-// one CTA is 64 tokens x the whole neuron block of BNB (= bn) neurons, so
-// the row max of |ds| over the block is local: the 4 warps across the
-// block meet in shared memory.  x8 tiles go through a cp.async ring, the
-// int4 weight planes are widened to int8 through registers,
-// double-buffered.
-template <int BNB, class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm1_a8w4_kernel(const int8_t* __restrict__ x8,
-                        const float* __restrict__ sx,
-                        const int8_t* __restrict__ w1q,
-                        const float* __restrict__ w1s,
-                        const __nv_bfloat16* __restrict__ b1,
-                        const float* __restrict__ w2s,
-                        CT* __restrict__ act_cache,
-                        const int* __restrict__ inds,
-                        const int* __restrict__ counts,
-                        int8_t* __restrict__ d8, float* __restrict__ sd, int C,
-                        int N, int jmax, int bm) {
-  constexpr int NTW = BNB / 32;     // 8-wide n tiles per warp (4 across)
-  using Stage = StageS8<BM8, BNB>;
-  const int t0 = blockIdx.x * BM8, m = t0 / bm, j = blockIdx.y;
-  const size_t P = (size_t)jmax * BNB;
-  int8_t* dq = d8 + (size_t)t0 * P + (size_t)j * BNB;
-  float* so = sd + (size_t)t0 * jmax + j;
-  if (j >= count_of(counts, m, jmax)) {
-    if (threadIdx.x < BM8) so[(size_t)threadIdx.x * jmax] = 0.0f;
-    return zero_slot(dq, BM8, BNB, P);
-  }
-  const int n0 = inds[(size_t)m * jmax + j] * BNB;
-  const int8_t* xa = x8 + (size_t)t0 * C;
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float red[BM8][4];
-  int acc[2][NTW][4] = {};
-  auto compute = [&](const Stage& st) {
-    mma_stage_s8<2, NTW, false>(acc, st.a, st.b);
-  };
-  const int8_t* wb = w1q + (size_t)n0 * (C / 2);
-  constexpr int WORDS = BNB * BK8 / 4 / NT;   // B words a thread stages
-  uint32_t breg[WORDS];
-  k_loop_staged(
-      reinterpret_cast<Stage*>(smem), C / BK8,
-      [&](int kt, Stage& st) { issue_rows8<BM8>(st.a, xa + kt * BK8, C); },
-      [&](int kt) {
-        const int plane = kt * BK8 >= C / 2;
-        const int kc = kt * BK8 - (plane ? C / 2 : 0);
-#pragma unroll
-        for (int u = 0; u < WORDS; ++u) {
-          const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
-          breg[u] = w_bytes(*reinterpret_cast<const uint32_t*>(
-              wb + (size_t)n * (C / 2) + kc + 4 * w), plane);
-        }
-      },
-      [&](Stage& st) {
-#pragma unroll
-        for (int u = 0; u < WORDS; ++u) {
-          const int id = threadIdx.x + NT * u, n = id >> 4, w = id & 15;
-          *reinterpret_cast<uint32_t*>(st.b + n * LDA8 + 4 * w) = breg[u];
-        }
-      },
-      compute, [](int) {});
-  // epilogue 1: act, cache refresh, ds = delta * w2s; row max of |ds|
-  const int lane = threadIdx.x & 31, wn = (threadIdx.x >> 5) & 3;
-  float ds[2][NTW][4], rmax[2][2] = {};
-  for_each_pair_s8<2, NTW>([&](int mt, int nt, int h, int row, int col) {
-    const int n = n0 + col;
-    const float s = sx[t0 + row];
-    const float2 d = refresh_act(
-        act_cache + (size_t)(t0 + row) * N + n,
-        __fmaf_rn((float)acc[mt][nt][2 * h], __fmul_rn(s, w1s[n]),
-                  bf2f(b1[n])),
-        __fmaf_rn((float)acc[mt][nt][2 * h + 1], __fmul_rn(s, w1s[n + 1]),
-                  bf2f(b1[n + 1])));
-    const float v0 = __fmul_rn(d.x, w2s[n]), v1 = __fmul_rn(d.y, w2s[n + 1]);
-    ds[mt][nt][2 * h] = v0;
-    ds[mt][nt][2 * h + 1] = v1;
-    rmax[mt][h] = nanmax(rmax[mt][h], nanmax(fabsf(v0), fabsf(v1)));
-  });
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float v = rmax[mt][h];
-      v = nanmax(v, __shfl_xor_sync(~0u, v, 1));
-      v = nanmax(v, __shfl_xor_sync(~0u, v, 2));
-      rmax[mt][h] = v;
-    }
-  for_each_pair_s8<2, NTW>([&](int mt, int nt, int h, int row, int col) {
-    if (nt == 0 && (lane & 3) == 0) red[row][wn] = rmax[mt][h];
-  });
-  __syncthreads();
-  // epilogue 2: the block's scale per row, then d8
-  for_each_pair_s8<2, NTW>([&](int mt, int nt, int h, int row, int col) {
-    const float mx = nanmax(nanmax(red[row][0], red[row][1]),
-                            nanmax(red[row][2], red[row][3]));
-    const float s = __fmul_rn(nanmax(mx, 1e-12f), INV127);
-    *reinterpret_cast<uint16_t*>(dq + (size_t)row * P + col) = (uint16_t)(
-        (q8(__fdiv_rn(ds[mt][nt][2 * h], s)) & 0xff) |
-        ((q8(__fdiv_rn(ds[mt][nt][2 * h + 1], s)) & 0xff) << 8));
-    if (nt == 0 && wn == 0 && (lane & 3) == 0) so[(size_t)row * jmax] = s;
-  });
-}
-
-// grid (T / 64, C / 128).  The a8w4 mm2, on mma.sync: acc =
-// f32(out_cache); the k loop runs over the selected blocks' rows of w2q
-// (one nibble plane of the packed [N, C/2] bytes, transposed on the way
-// into shared memory) and flushes the int32 sum, times sd of that block,
-// into acc at every block boundary.
-template <class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm2_a8w4_kernel(const int8_t* __restrict__ d8,
-                        const float* __restrict__ sd,
-                        const int8_t* __restrict__ w2q,
-                        CT* __restrict__ out_cache,
-                        const int* __restrict__ inds,
-                        const int* __restrict__ counts, int C, int jmax, int bn,
-                        int bm) {
-  using Stage = StageS8T<BM8>;
-  const int t0 = blockIdx.x * BM8, c0 = blockIdx.y * BN8, m = t0 / bm;
-  const size_t P = (size_t)jmax * bn;
-  const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK8;
-  const int nk = count_of(counts, m, jmax) * per_block;
-  const int8_t* pa = d8 + (size_t)t0 * P;
-  const int wld = C / 2, plane = c0 >= C / 2;
-  const int cb = c0 - (plane ? C / 2 : 0);
-  float acc[2][4][4];
-  int iacc[2][4][4] = {};
-  for_each_pair_s8<2, 4>([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
-    acc[mt][nt][2 * h] = v.x;
-    acc[mt][nt][2 * h + 1] = v.y;
-  });
-  __shared__ __align__(16) Stage buf[2];
-  uint32_t breg[2][4];
-  k_loop_staged(
-      buf, nk,
-      [&](int kt, Stage& st) {
-        issue_rows8<BM8>(st.a, pa + (size_t)kt * BK8, P);
-      },
-      [&](int kt) {
-        const int j = kt / per_block, n = (kt % per_block) * BK8;
-        load_kn8(breg, w2q + ((size_t)row_inds[j] * bn + n) * wld + cb, wld,
-                 plane);
-      },
-      [&](Stage& st) { store_kn8(breg, st.b); },
-      [&](const Stage& st) { mma_stage_s8<2, 4, true>(iacc, st.a, st.b); },
-      [&](int kt) {
-        if ((kt + 1) % per_block) return;
-        const int j = kt / per_block;
-        for_each_pair_s8<2, 4>([&](int mt, int nt, int h, int row, int col) {
-          const float s = sd[(size_t)(t0 + row) * jmax + j];
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            int& v = iacc[mt][nt][2 * h + e];
-            acc[mt][nt][2 * h + e] = __fmaf_rn((float)v, s,
-                                               acc[mt][nt][2 * h + e]);
-            v = 0;
-          }
-        });
-      });
-  for_each_pair_s8<2, 4>([&](int mt, int nt, int h, int row, int col) {
-    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
-             acc[mt][nt][2 * h + 1]);
-  });
 }
 
 // ------------------------------------ a8 on Hopper (gemm_sm90.cuh)
@@ -1399,11 +1231,427 @@ struct Mm2W4 {
   }
 };
 
-template <typename K>
-int set_smem(K kernel, int bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+// ------------------------- a8w4: int4 weights, int8 x, on Hopper
+
+// The codes of four offset-binary nibbles as s8, times 16: a nibble n
+// moved into the high half of its byte with its top bit flipped is 16 (n
+// - 8) in two's complement.  lo: the low nibbles of x's four bytes; hi:
+// the high ones.  The s32 products are then 16 times the reference's
+// (|16 x 8 x 127 x C| < 2^31 for C < 132,000) and are shifted back before
+// any float step: exact, each sum being a multiple of 16.
+__device__ __forceinline__ uint32_t nib_lo16(uint32_t x) {
+  return ((x << 4) & 0xF0F0F0F0u) ^ 0x80808080u;
 }
+
+__device__ __forceinline__ uint32_t nib_hi16(uint32_t x) {
+  return (x & 0xF0F0F0F0u) ^ 0x80808080u;
+}
+
+// csp_mlp_mm1_a8 with int4 weights replaces the fc1 half of
+// _fused_kernel's a8 + w4 branch (chipmunk_tpu/kernels/csp_mlp.py:326,
+// :389-401).  Bound: operations, 2 bm bn C per selected (token block,
+// neuron block), 0.054 ms at the FLUX shape at 1979 TOP/s.  The product
+// is taken transposed, act^T = W1 x8^T, so that the codes are s8
+// wgmma's A operand, built in registers from raw TMA boxes of the packed
+// bytes: no widened copy of the weight in memory or in shared memory.
+// One CTA per (TOK-token tile, selected neuron block j) holds the whole
+// block (bn = 128 MT neurons: two consumer warpgroups of MT m64 tiles),
+// as the row max of |ds| spans it: B = x8 rows [t0, t0 + TOK) by TMA, 128
+// k a stage; the packed rows [n0, n0 + bn) by TMA as raw boxes [bn][128
+// bytes] (128-byte swizzle), byte columns [128 q, 128 q + 128) read once
+// from memory and feeding two stages, the low nibbles (k = 128 q + x) and
+// the high ones (k = C/2 + 128 q + x).  A fragment register is one 32-bit
+// read of a row: 4 consecutive k of both planes; fragment rows g and g +
+// 8 of warp w are the neurons 16 w + 2 g and 16 w + 2 g + 1, so that a
+// thread's entries pair up along the act cache's rows.  Epilogue per
+// thread (neuron pairs of its MT tiles, TOK / 4 tokens): mid = fma(sum,
+// sx[t] w1s[n], b1[n]) and the act's code; against the old act tile
+// staged by TMA under the products, which takes the codes; ds = delta *
+// w2s[n]; the row max of |ds| over the quad's rows (shfl_xor over g),
+// then over the 8 warps through shared memory; sd, and d8 staged in the
+// free ring; both tiles stored by TMA.  A slot past the count only writes
+// its zeros.
+template <int MT_, int TOK, class CT>
+struct Mm1A8W4 {
+  static constexpr int BN = TOK;                     // B rows: tokens
+  static constexpr int MT = MT_, BNB = 128 * MT_;    // the neuron block
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = TOK * BNB * ES;       // the act tile
+  static constexpr int RAW = BNB * 128, RS = 2, EVERY = 2;
+  static constexpr bool B_MN = false, CONVERT = false;
+  static constexpr int FIT =
+      (sm90::SMEM_MAX - 1024 - EXTRA - 256 - RS * RAW) / (TOK * GK);
+  static constexpr int ST = FIT >= 6 ? 6 : FIT >= 4 ? 4 : FIT;
+  static_assert(ST * TOK * GK >= TOK * BNB, "the d8 tile in the ring");
+  static_assert(RS * RAW >= 9 * TOK * 4, "the row-max exchange");
+  struct Params {
+    CUtensorMap act_map;     // act cache [T][N], box [TOK rows][128 bytes]
+    CUtensorMap d8_map;      // d8 [T][jmax bn], box [TOK rows][128 bytes]
+    const float* sx;
+    const float* w1s;
+    const __nv_bfloat16* b1;
+    const float* w2s;
+    const int* inds;
+    const int* counts;
+    int8_t* d8;
+    float* sd;
+    int C, jmax, bm;
+  };
+  const Params& p;
+  int t0, j, n0;
+  bool on;
+
+  __device__ Mm1A8W4(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * TOK;
+    j = blockIdx.y;
+    const int m = t0 / p.bm;
+    on = j < count_of(p.counts, m, p.jmax);
+    n0 = on ? p.inds[(size_t)m * p.jmax + j] * BNB : 0;
+  }
+  __device__ bool live() const { return on; }
+  __device__ void idle() const {
+    const size_t P = (size_t)p.jmax * BNB;
+    int8_t* dq = p.d8 + (size_t)t0 * P + (size_t)j * BNB;
+    for (int id = threadIdx.x; id < TOK * BNB / 16; id += blockDim.x)
+      *reinterpret_cast<uint4*>(dq + (id / (BNB / 16)) * P +
+                                (id % (BNB / 16)) * 16) =
+          make_uint4(0, 0, 0, 0);
+    if (threadIdx.x < TOK)
+      p.sd[(size_t)(t0 + threadIdx.x) * p.jmax + j] = 0.f;
+  }
+  __device__ int tiles() const { return p.C / GK; }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < BNB * ES / 128; ++b)
+      tma_load(extra + b * TOK * 128, &p.act_map, bar, n0 + b * 128 / ES,
+               t0, 0);
+  }
+  // stage i: plane i % 2 of raw box i / 2
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    kb = (i & 1) * (p.C / 2) + GK * (i >> 1);
+    rb = t0;
+    ka = ra = 0;
+  }
+  __device__ void raw_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                           int q) const {
+    tma_load(dst, map, bar, 128 * q, n0, 0);
+  }
+  __device__ void a_frag(int i, int c, const unsigned char* raw,
+                         uint32_t (&af)[MT][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      const int r0 = 64 * (MT * c + mt) + 16 * warp + 2 * (lane >> 2);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int rr = 0; rr < 2; ++rr) {
+            const uint32_t v = *reinterpret_cast<const uint32_t*>(
+                raw + swz128(r0 + rr, 32 * kk + 16 * h + 4 * (lane & 3)));
+            af[mt][kk][2 * h + rr] = (i & 1) ? nib_hi16(v) : nib_lo16(v);
+          }
+    }
+  }
+  __device__ bool restart(int i) const { return i == 0; }
+  __device__ bool flush(int) const { return false; }
+  __device__ void issued(int, int) {}
+  template <int A>
+  __device__ void begin(int (&)[A], int, unsigned char*, uint32_t) {}
+  template <int A>
+  __device__ void after(int, int (&)[A], int) {}
+
+  // fn(a0, a1, mt, jt, r, nl): the accumulator entries of the thread's
+  // tile token 8 jt + r (r < 8: its swizzled place is that of row r plus
+  // 1024 jt bytes) and neurons nl, nl + 1 of the block, tile mt
+  template <class F>
+  __device__ void each(int* acc, int c, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    constexpr int ACC = TOK / 2;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int jt = 0; jt < TOK / 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          fn(acc[ACC * mt + 4 * jt + e], acc[ACC * mt + 4 * jt + e + 2], mt,
+             jt, 2 * (lane & 3) + e,
+             64 * (MT * c + mt) + 16 * warp + 2 * (lane >> 2));
+  }
+  template <int A>
+  __device__ void end(int (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    // In passes, as Mm1A8, each pair's results packed into the register
+    // of its first entry.  1: mid, then the two acts' codes (16 bits each).
+    each(acc, c, [&](int& a0, int& a1, int, int jt, int r, int nl) {
+      const float s = __ldg(p.sx + t0 + 8 * jt + r);
+      const float2 ws = __ldg(reinterpret_cast<const float2*>(p.w1s + n0 + nl));
+      const float2 bb = __bfloat1622float2(__ldg(
+          reinterpret_cast<const __nv_bfloat162*>(p.b1 + n0 + nl)));
+      a0 = (int)((uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(
+                     (float)(a0 >> 4), __fmul_rn(s, ws.x), bb.x))) |
+                 (uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(
+                     (float)(a1 >> 4), __fmul_rn(s, ws.y), bb.y))) << 16);
+    });
+    // 2: against the staged old entries, which take the new codes; ds =
+    // delta * w2s[n] (in place of the codes) and each token's max of |ds|
+    float rmax[TOK / 8][2] = {};
+    mbar_wait(bar, 0);
+    each(acc, c, [&](int& a0, int& a1, int, int jt, int r, int nl) {
+      const float2 vs = __ldg(reinterpret_cast<const float2*>(p.w2s + n0 + nl));
+      const int x = nl * ES;
+      CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (TOK * 128) +
+                                    swz128(r, x & 127) + 1024 * jt);
+      const float2 old = ld2(e);
+      const uint32_t w = (uint32_t)a0;
+      const float2 a = put_codes(e, w & 0xffff, w >> 16);
+      const float v0 = __fmul_rn(a.x - old.x, vs.x);
+      const float v1 = __fmul_rn(a.y - old.y, vs.y);
+      a0 = __float_as_int(v0);
+      a1 = __float_as_int(v1);
+      float& m = rmax[jt][r & 1];
+      m = nanmax(m, nanmax(fabsf(v0), fabsf(v1)));
+    });
+    // 3: each token's max over the block: the quad's eight rows g, then
+    // the eight warps through shared memory past the ring (the raw boxes,
+    // free once both consumers are past them)
+#pragma unroll
+    for (int jt = 0; jt < TOK / 8; ++jt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = rmax[jt][e];
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 4));
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 8));
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 16));
+        rmax[jt][e] = v;
+      }
+    float* red = reinterpret_cast<float*>(ring + ST * TOK * GK);  // [8][TOK]
+    float* sdt = red + 8 * TOK;
+    bar_sync(1, 256);                  // both consumers are past the ring
+    if (lane < 4) {
+#pragma unroll
+      for (int jt = 0; jt < TOK / 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[(4 * c + warp) * TOK + 8 * jt + 2 * lane + e] = rmax[jt][e];
+    }
+    bar_sync(1, 256);
+    const int tid = threadIdx.x - 128;
+    if (tid < TOK) {
+      float v = red[tid];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) v = nanmax(v, red[w * TOK + tid]);
+      const float sdv = __fmul_rn(nanmax(v, 1e-12f), INV127);
+      sdt[tid] = sdv;
+      p.sd[(size_t)(t0 + tid) * p.jmax + j] = sdv;
+    }
+    bar_sync(1, 256);
+    // 4: d8 into the ring, BNB / 128 boxes [TOK rows][128 bytes]
+    each(acc, c, [&](int& a0, int& a1, int, int jt, int r, int nl) {
+      const float s = sdt[8 * jt + r];
+      *reinterpret_cast<uint16_t*>(ring + (nl >> 7) * (TOK * 128) +
+                                   swz128(r, nl & 127) + 1024 * jt) =
+          (uint16_t)((q8(div_rn(__int_as_float(a0), s)) & 0xff) |
+                     ((q8(div_rn(__int_as_float(a1), s)) & 0xff) << 8));
+    });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BNB * ES / 128; ++b)
+        tma_store(&p.act_map, smem_u32(act_s) + b * TOK * 128,
+                  n0 + b * 128 / ES, t0);
+      for (int b = 0; b < BNB / 128; ++b)
+        tma_store(&p.d8_map, smem_u32(ring) + b * TOK * 128,
+                  j * BNB + 128 * b, t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm2_a8 with int4 weights replaces the fc2 half of
+// _fused_kernel's a8 + w4 branch (same site, :413-426).  Bound:
+// operations, 0.054 ms at the FLUX shape.  Transposed as mm1: out^T =
+// W2^T d8^T, the codes as s8 wgmma's A operand in registers.  One CTA per
+// (64-token tile, 128 byte columns [cb, cb + 128) of the packed codes),
+// which hold the 256 output columns [cb, cb + 128) (low nibbles) and
+// [C/2 + cb, C/2 + cb + 128) (high): B = d8 rows [t0, t0 + 64) at slot
+// j's k, 128 k a stage; the codes of the stage's 128 k rows by TMA as one
+// raw box [128][128 bytes] (128-byte swizzle), each byte read once.  64
+// tokens, as each of the two m64 tiles a consumer warpgroup holds (its 64
+// byte columns, both planes) needs an s32 block sum and an f32 running
+// sum: 128 + 128 registers at 128 tokens, over the 240 a consumer has.
+// The s8 fragment wants 4 consecutive k of one column in a register; the
+// codes lie [k][c], so one ldmatrix.trans a k-step gives each thread two
+// k pairs of two neighbouring columns (its fragment rows g and g + 8),
+// which PRMT merges.  Its four 8 x 16-byte matrices are each the rows of
+// one k pair of each thread of a quad, the first pair (k 4t, 4t + 1) of
+// threads 0-1 with the second (4t + 2, 4t + 3) of threads 2-3 and the
+// reverse: eight rows in eight different swizzle phases, free of bank
+// conflicts, the PRMT selector swapping the halves for threads 2-3.  A
+// block's s32 sum (bn / 128 stages) goes into the f32 sum as fma(f32(sum),
+// sd[t, j], acc), the reference's order, its sd read while the block's
+// first products run.  The sum starts as f32(out_cache) from the out tile
+// staged by TMA, is rounded into the tile and goes out by TMA.
+template <class CT>
+struct Mm2A8W4 {
+  static constexpr int BN = 64;                      // B rows: tokens
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = BN * 256 * ES;        // the out tile
+  static constexpr int RAW = 128 * 128, EVERY = 1, MT = 2;
+  static constexpr bool B_MN = false, CONVERT = false;
+  static constexpr int FIT =
+      (sm90::SMEM_MAX - 1024 - EXTRA - 256) / (BN * GK + RAW);
+  static constexpr int ST = FIT >= 6 ? 6 : FIT, RS = ST;
+  struct Params {
+    CUtensorMap out_map;     // out cache [T][C], box [64 rows][128 bytes]
+    const float* sd;
+    const int* inds;
+    const int* counts;
+    int jmax, bn, bm, C;
+  };
+  const Params& p;
+  int t0, cb, per, cnt;
+  const int* row;
+  float f[64];                 // the f32 sums of the thread's entries
+  float sdr[16];               // the current block's sd of its 16 tokens
+
+  __device__ Mm2A8W4(const Params& p_) : p(p_) {
+    t0 = blockIdx.x * BN;
+    cb = blockIdx.y * 128;
+    const int m = t0 / p.bm;
+    per = p.bn / GK;
+    cnt = count_of(p.counts, m, p.jmax);
+    row = p.inds + (size_t)m * p.jmax;
+  }
+  __device__ bool live() const { return true; }
+  __device__ void idle() const {}
+  __device__ int tiles() const { return cnt * per; }
+  // the weight row of stage i's first k; the output column of tile
+  // column x
+  __device__ int krow(int i) const {
+    return row[i / per] * p.bn + (i % per) * GK;
+  }
+  __device__ int col(int x) const {
+    return cb + x + (x >= 128 ? p.C / 2 - 128 : 0);
+  }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < 2 * ES; ++b)
+      tma_load(extra + b * BN * 128, &p.out_map, bar, col(b * 128 / ES), t0,
+               0);
+  }
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    kb = (i / per) * p.bn + (i % per) * GK;
+    rb = t0;
+    ka = ra = 0;
+  }
+  __device__ void raw_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                           int i) const {
+    tma_load(dst, map, bar, cb, krow(i), 0);
+  }
+  // A: lane 8 mi + 2 u + b addresses k row 16 (mi / 2) + 4 u + 2 s + b,
+  // s = (mi % 2) ^ (u >= 2), of the warp's 16 byte columns; thread (g, t)
+  // then holds in v[2 h], v[2 h + 1] the k pairs (4 t, 4 t + 1) and (4 t +
+  // 2, 4 t + 3) of k half h (swapped for t >= 2) of the columns 16 warp +
+  // 2 g (low byte of each pair) and + 1
+  __device__ void a_frag(int, int c, const unsigned char* raw,
+                         uint32_t (&af)[2][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int mi = lane >> 3, u = (lane >> 1) & 3;
+    const int kl = 16 * (mi >> 1) + 4 * u + 2 * ((mi & 1) ^ (u >> 1)) +
+                   (lane & 1);
+    const bool sw = (lane & 3) >= 2;
+    const uint32_t sel_e = sw ? 0x2064 : 0x6420, sel_o = sw ? 0x3175 : 0x7531;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      uint32_t v[4];
+      ldsm_x4_t(v, raw + swz128(32 * kk + kl, 64 * c + 16 * warp));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const uint32_t ev = __byte_perm(v[2 * h], v[2 * h + 1], sel_e);
+        const uint32_t od = __byte_perm(v[2 * h], v[2 * h + 1], sel_o);
+        af[0][kk][2 * h] = nib_lo16(ev);
+        af[0][kk][2 * h + 1] = nib_lo16(od);
+        af[1][kk][2 * h] = nib_hi16(ev);
+        af[1][kk][2 * h + 1] = nib_hi16(od);
+      }
+    }
+  }
+  __device__ bool restart(int i) const { return i % per == 0; }
+  __device__ bool flush(int i) const { return i % per == per - 1; }
+  // at a block's first stage, its sd of the thread's tokens 8 jt + 2 t +
+  // e (read while the products run)
+  __device__ void issued(int i, int) {
+    if (i % per) return;
+    const float* s = p.sd + (size_t)(t0 + 2 * (threadIdx.x & 3)) * p.jmax +
+                     i / per;
+#pragma unroll
+    for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        sdr[2 * jt + e] = s[(size_t)(8 * jt + e) * p.jmax];
+  }
+  template <int A>
+  __device__ void after(int, int (&acc)[A], int) {
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int k = 32 * mt + 4 * jt + e;
+          f[k] = __fmaf_rn((float)(acc[k] >> 4), sdr[2 * jt + (e & 1)],
+                           f[k]);
+        }
+  }
+
+  // fn(k, entry): the thread's accumulator pair k, k + 2 (a token and two
+  // neighbouring columns) and the first's entry in the staged tile
+  // (tokens 8 jt + 2 t (+ 1); tile columns 128 mt + 64 c + 16 warp + 2 g
+  // (+ 1))
+  template <class F>
+  __device__ void each(int c, unsigned char* out_s, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int bc = 64 * c + 16 * warp + 2 * (lane >> 2);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int jt = 0; jt < 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = (128 * mt + bc) * ES;
+          fn(32 * mt + 4 * jt + e,
+             reinterpret_cast<CT*>(out_s + (x >> 7) * (BN * 128) +
+                                   swz128(2 * (lane & 3) + e, x & 127) +
+                                   1024 * jt));
+        }
+  }
+  template <int A>
+  __device__ void begin(int (&)[A], int c, unsigned char* out_s,
+                        uint32_t bar) {
+    mbar_wait(bar, 0);
+    each(c, out_s, [&](int k, const CT* e) {
+      const float2 v = ld2(e);
+      f[k] = v.x;
+      f[k + 2] = v.y;
+    });
+  }
+  template <int A>
+  __device__ void end(int (&)[A], int c, unsigned char*,
+                      unsigned char* out_s, uint32_t) {
+    each(c, out_s, [&](int k, CT* e) { put2(e, f[k], f[k + 2]); });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < 2 * ES; ++b)
+        tma_store(&p.out_map, smem_u32(out_s) + b * BN * 128,
+                  col(b * 128 / ES), t0);
+      tma_store_commit_wait();
+    }
+  }
+};
 
 // Run f with a null pointer of the cache's type: bf16 (flag set) or fp8.
 template <class F>
@@ -1658,27 +1906,40 @@ static int launch_mm1_a8(const void* x8, const void* sx, const void* w1q,
   return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / GM, jmax), stream);
 }
 
-template <int BNB, class CT>
+template <int MT, int TOK, class CT>
 static int launch_mm1_a8w4(const void* x8, const void* sx, const void* w1q,
                            const void* w1s, const void* b1, const void* w2s,
                            void* act_cache, const void* inds,
                            const void* counts, void* d8, void* sd, int T,
                            int C, int N, int jmax, int bm,
                            cudaStream_t stream) {
-  constexpr int SMEM = 2 * (int)sizeof(StageS8<BM8, BNB>);
-  static const int attr = set_smem(csp_mlp_mm1_a8w4_kernel<BNB, CT>, SMEM);
-  if (attr != 0) return attr;
-  dim3 grid(T / BM8, jmax);
-  csp_mlp_mm1_a8w4_kernel<BNB, CT><<<grid, NT, SMEM, stream>>>(
-      (const int8_t*)x8, (const float*)sx, (const int8_t*)w1q,
-      (const float*)w1s, (const __nv_bfloat16*)b1, (const float*)w2s,
-      (CT*)act_cache, (const int*)inds, (const int*)counts, (int8_t*)d8,
-      (float*)sd, C, N, jmax, bm);
-  return (int)cudaGetLastError();
+  using Op = Mm1A8W4<MT, TOK, CT>;
+  typename Op::Params p{};
+  CUtensorMap ta, tb;
+  int err = make_byte_map(&ta, w1q, N, C / 2, Op::BNB);
+  if (err == 0) err = make_byte_map(&tb, x8, T, C, TOK);
+  if (err == 0)
+    err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, TOK,
+                        Op::ES);
+  if (err == 0)
+    err = make_byte_map(&p.d8_map, d8, T, (long long)jmax * Op::BNB, TOK);
+  if (err != 0) return err;
+  p.sx = (const float*)sx;
+  p.w1s = (const float*)w1s;
+  p.b1 = (const __nv_bfloat16*)b1;
+  p.w2s = (const float*)w2s;
+  p.inds = (const int*)inds;
+  p.counts = (const int*)counts;
+  p.d8 = (int8_t*)d8;
+  p.sd = (float*)sd;
+  p.C = C;
+  p.jmax = jmax;
+  p.bm = bm;
+  return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / TOK, jmax), stream);
 }
 
-// w4: int4 weights on the mma.sync kernel; else int8 on the Hopper one
-// (bm a multiple of 128)
+// w4: int4 weights (bm a multiple of 64, C of 256; a CTA takes 128
+// tokens where bm allows, else 64); else int8 (bm a multiple of 128)
 extern "C" int chipmunk_csp_mlp_mm1_a8(const void* x8, const void* sx,
                                        const void* w1q, const void* w1s,
                                        const void* b1, const void* w2s,
@@ -1688,20 +1949,24 @@ extern "C" int chipmunk_csp_mlp_mm1_a8(const void* x8, const void* sx,
                                        int bm, int w4, int act_bf16,
                                        void* stream) {
   if (bn != 128 && bn != 256) return (int)cudaErrorInvalidValue;
-  if (!w4 && (bm % GM || C % GK)) return (int)cudaErrorInvalidValue;
+  if (w4 ? bm % 64 || T % bm || C % 256 : bm % GM || C % GK)
+    return (int)cudaErrorInvalidValue;
   return with_cache(act_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    auto launch = w4 ? (bn == 256 ? launch_mm1_a8w4<256, CT>
-                                  : launch_mm1_a8w4<128, CT>)
-                     : (bn == 256 ? launch_mm1_a8<256, CT>
-                                  : launch_mm1_a8<128, CT>);
+    const bool t128 = bm % 128 == 0;
+    auto launch =
+        w4 ? (bn == 256 ? (t128 ? launch_mm1_a8w4<2, 128, CT>
+                                : launch_mm1_a8w4<2, 64, CT>)
+                        : (t128 ? launch_mm1_a8w4<1, 128, CT>
+                                : launch_mm1_a8w4<1, 64, CT>))
+           : (bn == 256 ? launch_mm1_a8<256, CT> : launch_mm1_a8<128, CT>);
     return launch(x8, sx, w1q, w1s, b1, w2s, act_cache, inds, counts, d8, sd,
                   T, C, N, jmax, bm, (cudaStream_t)stream);
   });
 }
 
-// w2: w4 ? the int4 codes [N, C/2] (mma.sync kernel) : the K-major int8
-// codes [C, N] (Hopper kernel, bm a multiple of 128)
+// w2: w4 ? the int4 codes [N, C/2] (bm a multiple of 64, C of 256) :
+// the K-major int8 codes [C, N] (bm a multiple of 128)
 extern "C" int chipmunk_csp_mlp_mm2_a8(const void* d8, const void* sd,
                                        const void* w2, void* out_cache,
                                        const void* inds, const void* counts,
@@ -1711,12 +1976,27 @@ extern "C" int chipmunk_csp_mlp_mm2_a8(const void* d8, const void* sd,
   return with_cache(out_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
     if (w4) {
-      dim3 grid(T / BM8, C / BN8);
-      csp_mlp_mm2_a8w4_kernel<CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-          (const int8_t*)d8, (const float*)sd, (const int8_t*)w2,
-          (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-          bm);
-      return (int)cudaGetLastError();
+      using Op = Mm2A8W4<CT>;
+      if (bm % Op::BN || T % bm || bn % GK || C % 256)
+        return (int)cudaErrorInvalidValue;
+      typename Op::Params p{};
+      CUtensorMap ta, tb;
+      int err = make_byte_map(&ta, w2, N, C / 2, 128);
+      if (err == 0)
+        err = make_byte_map(&tb, d8, T, (long long)jmax * bn, Op::BN);
+      if (err == 0)
+        err = make_byte_map(&p.out_map, out_cache, T, (long long)C * Op::ES,
+                            Op::BN, Op::ES);
+      if (err != 0) return err;
+      p.sd = (const float*)sd;
+      p.inds = (const int*)inds;
+      p.counts = (const int*)counts;
+      p.jmax = jmax;
+      p.bn = bn;
+      p.bm = bm;
+      p.C = C;
+      return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / Op::BN, C / 256),
+                                     (cudaStream_t)stream);
     }
     using Op = Mm2A8<CT>;
     if (bm % GM || bn % GK || C % Op::BN) return (int)cudaErrorInvalidValue;

@@ -1,8 +1,8 @@
 // Hopper gathered GEMM: TMA loads of row-gathered tiles into a ring of
 // stages, wgmma from shared memory, warp-specialised.  One kernel template,
 // gemm_sm90_kernel<T, Op>: the operand type T is a template parameter (s8:
-// the int8-activation sparse-MLP pair of csp_mlp.cu; bf16: the bf16-weight
-// pair), and the work and the epilogue come from Op.
+// the int8-activation sparse-MLP pairs of csp_mlp.cu; bf16: the
+// bf16-activation pairs), and the work and the epilogue come from Op.
 //
 // A CTA computes a [128 rows] x [Op::BN columns] tile, D = A B, from an
 // A map (rows of A, k contiguous: K-major) and a B map.  Stage i holds
@@ -58,14 +58,16 @@
 //     the ring is free once both consumers are past it), with generic
 //     pointers to the ring and the extra space.
 //
-// A from registers (an Op with RAW, see Conv: the int4-weight pair of
-// csp_mlp.cu).  The int4 codes are the A operand: their bytes arrive by
-// TMA in a ring of RS raw boxes of RAW bytes past the stages, one box
-// every EVERY stages (raw_load(dst, map, bar, q) issues box q from the
-// first map, ta), and each consumer warpgroup builds its A fragments of
-// a stage from the box in registers (a_frag(i, c, box, af): MT m64 tiles
-// x 4 k-steps x 4 registers of bf16 pairs) and runs wgmma with A in
-// registers.  A stage is then only the B tile of Op::BN rows, from the
+// A from registers (an Op with RAW, see Conv: the int4-weight pairs of
+// csp_mlp.cu, with bf16 x (w4) or int8 x (a8w4)).  The int4 codes are
+// the A operand: their bytes arrive by TMA in a ring of RS raw boxes of
+// RAW bytes past the stages, one box every EVERY stages (raw_load(dst,
+// map, bar, q) issues box q from the first map, ta), and each consumer
+// warpgroup builds its A fragments of a stage from the box in registers
+// (a_frag(i, c, box, af): MT m64 tiles x 4 k-steps x 4 registers, bf16
+// pairs of the m64k16 fragment or four s8 of the m64k32 one) and runs
+// wgmma with A in registers.  A stage is then only the B tile of Op::BN
+// rows (BN 64, 128 or 256: the accumulator's columns), from the
 // second map.  With CONVERT, warps 1-3 of the producer warpgroup rewrite
 // each B tile in place once it is in (convert(i, thread of 96, tile,
 // carry), after convert_begin(thread, carry); Op::Carry is what a thread
@@ -76,7 +78,9 @@
 // they have read it.  With MT = 1 their fragments alternate between two
 // register sets, so that one stage's products run while the next
 // stage's fragments are built; with MT = 2 (32 registers a set) each
-// stage's products are waited for before the next stage's fragments.
+// stage's products are waited for before the next stage's fragments, and
+// there (only) issued(i, c) runs right after they are issued and
+// after(i, acc, c) where flush(i) says so, as on the path above.
 // Register split 56 / 224 / 224 with CONVERT, else 24 / 240 / 240 (the
 // sum of the three warpgroups' is that of 168 a thread).
 #pragma once
@@ -118,9 +122,16 @@ inline int make_byte_map(CUtensorMap* map, const void* base, long long rows,
   return r == CUDA_SUCCESS ? 0 : (int)cudaErrorInvalidValue;
 }
 
-// The accumulator operands of a 64-wide (ACC64) or 128-wide (ACC128)
-// register fragment, each as R(d[i]) (R: "+r" for s32, "+f" for f32), and
-// their places in the instruction (D64, D128).
+// The accumulator operands of a 32-wide (ACC32), 64-wide (ACC64) or
+// 128-wide (ACC128) register fragment, each as R(d[i]) (R: "+r" for s32,
+// "+f" for f32), and their places in the instruction (D32, D64, D128).
+#define CHIPMUNK_ACC32(R) \
+  R(d[0]), R(d[1]), R(d[2]), R(d[3]), R(d[4]), R(d[5]), R(d[6]), R(d[7]),  \
+  R(d[8]), R(d[9]), R(d[10]), R(d[11]), R(d[12]), R(d[13]), R(d[14]),  \
+  R(d[15]), R(d[16]), R(d[17]), R(d[18]), R(d[19]), R(d[20]), R(d[21]),  \
+  R(d[22]), R(d[23]), R(d[24]), R(d[25]), R(d[26]), R(d[27]), R(d[28]),  \
+  R(d[29]), R(d[30]), R(d[31])
+
 #define CHIPMUNK_ACC64(R) \
   R(d[0]), R(d[1]), R(d[2]), R(d[3]), R(d[4]), R(d[5]), R(d[6]), R(d[7]),  \
   R(d[8]), R(d[9]), R(d[10]), R(d[11]), R(d[12]), R(d[13]), R(d[14]),  \
@@ -152,6 +163,10 @@ inline int make_byte_map(CUtensorMap* map, const void* base, long long rows,
   R(d[111]), R(d[112]), R(d[113]), R(d[114]), R(d[115]), R(d[116]),  \
   R(d[117]), R(d[118]), R(d[119]), R(d[120]), R(d[121]), R(d[122]),  \
   R(d[123]), R(d[124]), R(d[125]), R(d[126]), R(d[127])
+
+#define CHIPMUNK_D32 \
+  "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18," \
+  "%19,%20,%21,%22,%23,%24,%25,%26,%27,%28,%29,%30,%31}"
 
 #define CHIPMUNK_D64 \
   "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15,%16,%17,%18," \
@@ -220,6 +235,20 @@ struct Mma<int8_t, 256> {
         : CHIPMUNK_ACC128(CHIPMUNK_S32)
         : "l"(da), "l"(db), "r"(accumulate));
   }
+  // A from registers (the m64k32 s8 fragment: 4 k of a row a register),
+  // B K-major
+  static __device__ __forceinline__ void issue_rs(int (&d)[128],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 " CHIPMUNK_D128
+        ", {%128, %129, %130, %131}, %132, p;\n}\n"
+        : CHIPMUNK_ACC128(CHIPMUNK_S32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  }
 };
 
 template <>
@@ -234,6 +263,36 @@ struct Mma<int8_t, 128> {
         ", %64, %65, p;\n}\n"
         : CHIPMUNK_ACC64(CHIPMUNK_S32)
         : "l"(da), "l"(db), "r"(accumulate));
+  }
+  static __device__ __forceinline__ void issue_rs(int (&d)[64],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 " CHIPMUNK_D64
+        ", {%64, %65, %66, %67}, %68, p;\n}\n"
+        : CHIPMUNK_ACC64(CHIPMUNK_S32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
+  }
+};
+
+template <>
+struct Mma<int8_t, 64> {     // A from registers only (64-token a8w4 tiles)
+  using Acc = int;
+  static constexpr int ACC = 32;
+  static __device__ __forceinline__ void issue_rs(int (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db,
+                                                  int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 " CHIPMUNK_D32
+        ", {%32, %33, %34, %35}, %36, p;\n}\n"
+        : CHIPMUNK_ACC32(CHIPMUNK_S32)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+          "r"(accumulate));
   }
 };
 
@@ -292,8 +351,10 @@ struct Mma<__nv_bfloat16, 128, TB> {
   }
 };
 
+#undef CHIPMUNK_ACC32
 #undef CHIPMUNK_ACC64
 #undef CHIPMUNK_ACC128
+#undef CHIPMUNK_D32
 #undef CHIPMUNK_D64
 #undef CHIPMUNK_D128
 #undef CHIPMUNK_S32
@@ -462,7 +523,8 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
         for (int mt = 0; mt < CV::MT; ++mt)
 #pragma unroll
           for (int kk = 0; kk < GK / 32; ++kk)
-            M::issue_rs(*reinterpret_cast<float(*)[M::ACC]>(acc + mt * M::ACC),
+            M::issue_rs(*reinterpret_cast<typename M::Acc(*)[M::ACC]>(
+                            acc + mt * M::ACC),
                         af[mt][kk], gmma_desc(b + 32 * kk, 16, 1024),
                         kk > 0 || !op.restart(i));
         wgmma_commit();
@@ -470,7 +532,12 @@ gemm_sm90_kernel(const __grid_constant__ CUtensorMap ta,
           wgmma_wait<1>();
           if (i > 0) mbar_arrive(empty((i - 1) % ST));
         } else {
+          op.issued(i, c);
           wgmma_wait<0>();
+          if (op.flush(i)) {
+            fence_iacc(acc);
+            op.after(i, acc, c);
+          }
           mbar_arrive(empty(s));
         }
       };

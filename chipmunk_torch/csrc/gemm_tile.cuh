@@ -3,14 +3,14 @@
 // 2 (rows) x 4 (cols).
 //
 // bf16 tiles: 128 x 128 outputs, k tiles of 32, each warp a 64 x 32 patch.
-// s8 tiles: (32 MT) x (32 NTW) outputs, k tiles of 64 bytes, each warp a
-// (16 MT) x (8 NTW) patch.  An s8 operand with k contiguous (x8, w1 rows)
-// is copied as it is; a [k][n] byte source (w2 rows, the probe's B) has no
-// ldmatrix.trans for bytes, so it is staged through registers and
-// transposed in 4x4 byte blocks (prmt) into a [n][k] tile whose 16-byte
-// chunks are XOR-swizzled: the ldmatrix reads of that tile are free of
-// bank conflicts, the stores conflict at most 2-way.  Weights staged
-// through registers may be int8 or one nibble plane of int4 (w_bytes).
+// s8 tiles (the int8 probe): (32 MT) x (32 NTW) outputs, k tiles of 64
+// bytes, each warp a (16 MT) x (8 NTW) patch.  A (k contiguous) is copied
+// as it is; the [k][n] bytes of B have no ldmatrix.trans for bytes, so
+// they are staged through registers and transposed in 4x4 byte blocks
+// (prmt) into a [n][k] tile whose 16-byte chunks are XOR-swizzled: the
+// ldmatrix reads of that tile are free of bank conflicts, the stores
+// conflict at most 2-way.  bf16 weights staged through registers may be
+// int8 or one nibble plane of int4 (w_bytes).
 #pragma once
 
 #include "common.cuh"
@@ -148,12 +148,6 @@ constexpr int BK8 = 64;          // bytes of k per tile
 constexpr int LDA8 = BK8 + 16;   // padded [row][k] byte rows
 constexpr int BN8 = 128;         // columns of a swizzled [n][k] B tile
 
-template <int ROWS_A, int ROWS_B>
-struct StageS8 {                 // both operands [row][k], padded
-  uint8_t a[ROWS_A * LDA8];
-  uint8_t b[ROWS_B * LDA8];
-};
-
 template <int ROWS_A>
 struct StageS8T {                // A [row][k] padded, B swizzled [n][k]
   uint8_t a[ROWS_A * LDA8];
@@ -199,18 +193,17 @@ __device__ __forceinline__ void kn8_block(int u, int& kw, int& cq) {
   kw = (wi >> 2) * 4 + (lane >> 3);
 }
 
-// global [64 k][128 n] bytes (row stride ld) -> registers, as w_bytes
-// gives them for ``plane``
+// global [64 k][128 n] bytes (row stride ld) -> registers
 __device__ __forceinline__ void load_kn8(uint32_t r[2][4], const int8_t* src,
-                                         size_t ld, int plane = -1) {
+                                         size_t ld) {
 #pragma unroll
   for (int u = 0; u < 2; ++u) {
     int kw, cq;
     kn8_block(u, kw, cq);
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      r[u][i] = w_bytes(*reinterpret_cast<const uint32_t*>(
-          src + (size_t)(4 * kw + i) * ld + 4 * cq), plane);
+      r[u][i] = *reinterpret_cast<const uint32_t*>(
+          src + (size_t)(4 * kw + i) * ld + 4 * cq);
   }
 }
 
@@ -230,10 +223,10 @@ __device__ __forceinline__ void store_kn8(const uint32_t r[2][4], uint8_t* sb) {
 }
 
 // One 64-byte k tile of s8 products: warp patch (16 MT) x (8 NTW).  A from
-// a padded [row][k] tile; B from a [n][k] tile, padded (SWZ false) or
-// swizzled (SWZ true).  Fragment addressing as in the bf16 mma_stage with
-// one 16-byte chunk where bf16 has 8 elements.
-template <int MT, int NTW, bool SWZ>
+// a padded [row][k] tile; B from a swizzled [n][k] tile.  Fragment
+// addressing as in the bf16 mma_stage with one 16-byte chunk where bf16
+// has 8 elements.
+template <int MT, int NTW>
 __device__ __forceinline__ void mma_stage_s8(int acc[MT][NTW][4],
                                              const uint8_t* sa,
                                              const uint8_t* sb) {
@@ -251,7 +244,7 @@ __device__ __forceinline__ void mma_stage_s8(int acc[MT][NTW][4],
       uint32_t r[4];
       const int n = wn * 8 * NTW + np * 16 + (mi >> 1) * 8 + (lane & 7);
       const int c = 2 * kk + (mi & 1);
-      ldsm_x4(r, SWZ ? sb + swz_off(n, c) : sb + n * LDA8 + c * 16);
+      ldsm_x4(r, sb + swz_off(n, c));
       b[2 * np][0] = r[0];
       b[2 * np][1] = r[1];
       b[2 * np + 1][0] = r[2];

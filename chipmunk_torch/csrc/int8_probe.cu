@@ -5,9 +5,9 @@
 // one 512 x 512 output block per grid step), which asked whether the v5e
 // matrix unit runs int8 at twice the bf16 rate before the int8-activation
 // MLP was built.  Here it asks the same of mma.sync on Hopper: the s8 probe
-// runs the tile code of the a8 sparse MLP (gemm_tile.cuh: ldmatrix of x8-
-// style rows, B staged through registers and byte-transposed as w2q is),
-// the bf16 probe the tile code of the bf16 mm2 (ldmatrix.trans of B).
+// runs the s8 tile code of gemm_tile.cuh (ldmatrix of k-contiguous rows,
+// B staged through registers and byte-transposed), the bf16 probe the
+// bf16 tile code (ldmatrix.trans of B).
 //
 // Bound on the H100: operations.  At 4096 x 3072 x 4096 it is 103 GOP:
 // 0.052 ms at 1979 TOP/s (int8), 0.104 ms at 989 TFLOP/s (bf16), against
@@ -35,7 +35,7 @@ probe_s8_kernel(const int8_t* __restrict__ a, const int8_t* __restrict__ b,
       },
       [&](int kt) { load_kn8(breg, b + (size_t)kt * BK8 * N + c0, N); },
       [&](Stage& st) { store_kn8(breg, st.b); },
-      [&](const Stage& st) { mma_stage_s8<4, 4, true>(acc, st.a, st.b); },
+      [&](const Stage& st) { mma_stage_s8<4, 4>(acc, st.a, st.b); },
       [](int) {});
   for_each_pair_s8<4, 4>([&](int mt, int nt, int h, int row, int col) {
     *reinterpret_cast<int2*>(c + (size_t)(r0 + row) * N + c0 + col) =

@@ -3,10 +3,11 @@ plain PyTorch version.
 
 Counterpart of ``_pk`` in ``scripts/bench_int8_mxu.py``: C = A @ B for
 A [M, K], B [K, N] row-major, int8 x int8 -> int32 or bf16 x bf16 ->
-float32.  It is off the sparse loop's path: it measures whether the
-hand-written ``mma.sync`` s8 tile code of the a8 MLP kernels runs near
-twice the bf16 rate on the card (``chip_smoke.py`` times it beside
-``torch._int_mm`` and ``torch.matmul``).
+float32.  It is off the sparse loop's path: it measures whether
+hand-written ``mma.sync`` s8 tile code (``csrc/gemm_tile.cuh``, which the
+first a8 MLP kernels ran on) reaches twice the bf16 rate on the card
+(``chip_smoke.py`` times it beside ``torch._int_mm`` and
+``torch.matmul``).
 """
 from __future__ import annotations
 

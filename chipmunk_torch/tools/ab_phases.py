@@ -2,23 +2,22 @@
 print the kernel rows (``kernel_phases``, ``quant_kernel_phases`` for int8
 and int4, ``probe_phase``, ``video_kernel_phases``), called alone on the
 tree at ROOT, which goes first on ``sys.path`` (its ``chip_smoke.py`` and
-``chipmunk_torch``), and the int4-weight pair's device times on the
-int4 phase's inputs.  Prints one ``AB {json}`` line of times.  Run it for
-the parent (``git archive <parent> | tar -x -C build/parent``) and this
-tree in turns, in one call on the card::
+``chipmunk_torch``), and the int4-weight pairs' device times on the int4
+phase's inputs.  Prints one ``AB {json}`` line of times.  Run it for the
+parent (``git archive <parent> | tar -x -C build/parent``) and this tree
+in turns, in one call on the card::
 
-    python3 chipmunk_torch/tools/ab_phases.py ROOT [--no-video | --w4]
+    python3 chipmunk_torch/tools/ab_phases.py ROOT [--no-video | --w4 | --a8w4]
 
-With ``--w4`` only the int4-weight pair's device times are taken (no
-other phase), as on copies of a tree with one change patched in.
+With ``--w4`` (bf16 activations) or ``--a8w4`` (int8 activations) only
+that int4-weight pair's device times are taken (no other phase).
 """
 import importlib, json, sys, time
 
 
-def w4_device_ms(torch, cs, cm, fp8, quant):
-    """Device ms of csp_mlp_mm1 / csp_mlp_mm2 with int4 weights on the
-    inputs of ``quant_kernel_phases(..., 'int4')`` (the same draws), for
-    trees whose chip_smoke.py does not time them on the device."""
+def int4_inputs(torch, cs, fp8, quant):
+    """The draws of ``quant_kernel_phases(..., 'int4')``: x, w1, b1, w2,
+    act, out, inds, counts and the tile sizes bm, bn."""
     dev = 'cuda'
     gen = torch.Generator(dev)
     gen.manual_seed(cs.SEED + 1)
@@ -40,12 +39,38 @@ def w4_device_ms(torch, cs, cm, fp8, quant):
     counts = torch.randint(13, 18, (M,), generator=gen, device=dev,
                            dtype=torch.int32)
     counts[0], counts[1] = 1, jm
+    return x, w1, b1, w2, act, out, inds, counts, bm, bn
+
+
+def w4_device_ms(torch, cs, cm, fp8, quant):
+    """Device ms of csp_mlp_mm1 / csp_mlp_mm2 with int4 weights on the
+    inputs of ``quant_kernel_phases(..., 'int4')``, for trees whose
+    chip_smoke.py does not time them on the device."""
+    x, w1, b1, w2, act, out, inds, counts, bm, bn = int4_inputs(
+        torch, cs, fp8, quant)
     pk, _ = cm.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn, bm=bm)
     return {
         'csp_mlp_mm1_w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm1(
             x, w1, b1, act, inds, counts, bn=bn, bm=bm), 20)[0],
         'csp_mlp_mm2_w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm2(
             pk, w2, out, inds, counts, bn=bn, bm=bm), 20)[0]}
+
+
+def a8w4_device_ms(torch, cs, cm, fp8, quant):
+    """Device ms of csp_mlp_mm1_a8 / csp_mlp_mm2_a8 with int4 weights on
+    the same inputs (x8 and sx from quant_rows), for trees whose
+    chip_smoke.py does not time them on the device."""
+    x, w1, b1, w2, act, out, inds, counts, bm, bn = int4_inputs(
+        torch, cs, fp8, quant)
+    x8, sx = cm.quant_rows(x)
+    d8, sd, _ = cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(),
+                                  inds, counts, bn=bn, bm=bm)
+    return {
+        'csp_mlp_mm1_a8w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm1_a8(
+            x8, sx, w1, b1, w2.scale, act, inds, counts, bn=bn, bm=bm),
+            20)[0],
+        'csp_mlp_mm2_a8w4': cs.device_ms(torch, lambda: cm.csp_mlp_mm2_a8(
+            d8, sd, w2, out, inds, counts, bn=bn, bm=bm), 20)[0]}
 
 
 def main():
@@ -64,10 +89,11 @@ def main():
     print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
     mods = tuple(importlib.import_module(f'chipmunk_torch.kernels.{m}')
                  for m in ('flash_attention', 'csp_attention', 'csp_mlp'))
-    if '--w4' in sys.argv:
-        print('W4 device ms ' + json.dumps(
-            w4_device_ms(torch, cs, mods[2], fp8, quant)), flush=True)
-        return
+    for flag, fn in (('--w4', w4_device_ms), ('--a8w4', a8w4_device_ms)):
+        if flag in sys.argv:
+            print(f'{flag[2:].upper()} device ms ' + json.dumps(
+                fn(torch, cs, mods[2], fp8, quant)), flush=True)
+            return
     rows = cs.kernel_phases(torch, mods + (fp8,))
     torch.cuda.empty_cache()
     for kind in ('int8', 'int4'):
@@ -77,6 +103,8 @@ def main():
         'chipmunk_torch.kernels.int8_probe'))
     w4 = w4_device_ms(torch, cs, mods[2], fp8, quant)
     print('W4 device ms ' + json.dumps(w4), flush=True)
+    a8w4 = a8w4_device_ms(torch, cs, mods[2], fp8, quant)
+    print('A8W4 device ms ' + json.dumps(a8w4), flush=True)
     out = {}
     if '--no-video' not in sys.argv:
         import os
@@ -85,7 +113,8 @@ def main():
         rows.append(vrow)
     print('AB ' + json.dumps({'root': root, 'rows': [
         {k: r.get(k) for k in ('name', 'ms', 'device_ms', 'library_ms')} for r in rows],
-        'video': out, 'w4_device_ms': w4}), flush=True)
+        'video': out, 'w4_device_ms': w4, 'a8w4_device_ms': a8w4}),
+        flush=True)
 
 
 if __name__ == '__main__':

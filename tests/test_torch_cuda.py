@@ -4,7 +4,7 @@ on the card, at small shapes that reach the paths the FLUX shapes do not
 scores, repeat calls bit-equal, kv_block 1, 2, 4 (16-row packed
 slots), 8, 16, 32, 64, 128 and 256, kv_valid inside a group's last or an
 earlier block, counts ending inside a tile, clipped counts, NaN in unselected K/V
-blocks, bm/bn of 256, bm 512, fp8 and bf16 caches in every sparse-MLP
+blocks, bm/bn of 256, bm 64 and 512, fp8 and bf16 caches in every sparse-MLP
 kernel, NaN in unselected MLP weight blocks, the packed-KV csp kernel,
 keys and query rows passed as sliced views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
@@ -529,8 +529,8 @@ def test_cuda_csp_mlp_a8_matches_plain(gen, bm, bn, kind):
     """The int8-activation chain: x8/sx bit-equal; the act cache within
     one e4m3 ulp; d8/sd bit-equal wherever the acts of that (row, block)
     agree; mm2 on the same d8/sd within one e4m3 ulp.  int8 weights take
-    the Hopper pair (bm a multiple of 128), int4 the mma.sync one (bm a
-    multiple of 64)."""
+    the Mm1A8/Mm2A8 pair (bm a multiple of 128), int4 the Mm1A8W4/Mm2A8W4
+    one (bm a multiple of 64)."""
     T, C, N = 512, 256, 1024
     x, b1, act, out, inds, counts = mlp_case(gen, T, C, N, bm, bn)
     w1 = int8_qt(gen, N, C, C ** -0.5, kind)
@@ -699,6 +699,48 @@ def test_cuda_csp_mlp_a8_hopper(gen, bm, bn, cache):
     for k in ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8'):
         assert CM._build.LAUNCHES[k] == n0[k] + (1 if k == 'quant_rows'
                                                  else 2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bm,bn,C', [(64, 256, 256), (64, 128, 512),
+                                     (128, 256, 768), (128, 128, 256),
+                                     (512, 128, 768), (512, 256, 512)])
+def test_cuda_csp_mlp_a8w4_hopper(gen, bm, bn, C, cache):
+    """The wgmma/TMA pair of int4 weights and int8 activations
+    (csp_mlp_mm1_a8w4: the whole neuron block a CTA, 64 or 128 tokens;
+    csp_mlp_mm2_a8w4: 64 tokens x 256 columns of both nibble planes; the
+    codes widened to s8 in registers): T = 1024, C = 256, 512 or 768 (a
+    nibble plane of 128, 256 or 384 columns), N = 2048, jmax 4 with counts
+    of 1 and jmax; fp8 or bf16 caches (both of the type); NaN in the
+    scales and bias of every neuron block that no token block selects and
+    code 0xFF in its bytes, so a read of one shows.  Gates of
+    check_a8_pair; quant_rows launched once, each kernel of the pair
+    twice, and no other kernel."""
+    T, N, jmax = 1024, 2048, 4
+    M = T // bm
+    x = randn(gen, T, C)
+    w1 = int8_qt(gen, N, C, C ** -0.5, 'int4')
+    w2 = int8_qt(gen, N, C, N ** -0.5, 'int4')
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    used = torch.zeros(N // bn, dtype=torch.bool, device='cuda')
+    used[CA.pad_block_indices(inds, counts).long().flatten()] = True
+    off = (~used).repeat_interleave(bn)[:, None]
+    w1, w2 = (QT.QTensor(w.q.masked_fill(off, 0xFF),
+                         w.scale.masked_fill(off, float('nan')), w.pack_axis)
+              for w in (w1, w2))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_a8_pair(gen, x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    for k, v in CM._build.LAUNCHES.items():
+        want = {'quant_rows': 1, 'csp_mlp_mm1_a8w4': 2,
+                'csp_mlp_mm2_a8w4': 2}.get(k, 0)
+        assert v == n0[k] + want, k
 
 
 def bits(t):

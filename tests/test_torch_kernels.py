@@ -421,17 +421,23 @@ def test_csp_mlp_w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
         act if cache == 'bf16' else None))
 
 
-def _a8_chain_against_reference(kind, cases):
+def _a8_chain_against_reference(kind, cases, C=256, N=512, jmax=3,
+                                cache=ml_dtypes.float8_e4m3fn):
     """quant_rows, csp_mlp_mm1_a8 and csp_mlp_mm2_a8 (plain versions)
     against the reference's ``csp_mlp_fused(..., a8=True)`` in interpret
     mode.  Integer products are exact on both sides and every scalar step
     runs in the same order, so on tie-free inputs (seeded; checked below)
     the act cache is bit-equal; x8/sx and d8/sd match the kernel's
     formulas (csp_mlp.py:362-368, 413-419) applied to the reference's acts
-    bit for bit; the out cache is within one e4m3 ulp."""
+    bit for bit; the out cache is within one e4m3 ulp.  With bf16 caches
+    (``cache``) a bf16 rounding tie lies within two float32 ulps of about
+    one act in 16,000, too many for tie-free seeds: the act cache is then
+    within one bf16 ulp, d8/sd bit-equal wherever the acts of the (row,
+    block) agree, the out cache within one ulp on the rows whose acts all
+    agree."""
     for T, bm, bn, seed in cases:
-        x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(seed, T=T, bm=bm,
-                                                            bn=bn)
+        x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
+            seed, T=T, C=C, N=N, bm=bm, bn=bn, jmax=jmax, cache=cache)
         (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
         out_j, act_j = j_csp_mlp_fused(
             jnp.asarray(x), w1_j, jnp.asarray(b1), w2_j,
@@ -439,7 +445,9 @@ def _a8_chain_against_reference(kind, cases):
             interpret=True, a8=True)
         xt = to_torch(x)
         x8, sx = quant_rows(xt)
-        _assert_no_fp8_ties(x8, sx, w1_t, b1, inds, counts, bn, bm)
+        fp8_cache = cache == ml_dtypes.float8_e4m3fn
+        if fp8_cache:
+            _assert_no_fp8_ties(x8, sx, w1_t, b1, inds, counts, bn, bm)
         d8, sd, act_t = csp_mlp_mm1_a8(
             x8, sx, w1_t, to_torch(b1), w2_t.scale, to_torch(act),
             *map(to_torch, (inds, counts)), bn=bn, bm=bm)
@@ -453,13 +461,18 @@ def _a8_chain_against_reference(kind, cases):
         np.testing.assert_array_equal(sx.numpy(), np.asarray(sx_r)[:, 0])
         np.testing.assert_array_equal(x8.numpy(), np.asarray(x8_r))
         act_r = np.asarray(act_j, np.float32)
-        np.testing.assert_array_equal(act_t.float().numpy(), act_r)
+        if fp8_cache:
+            np.testing.assert_array_equal(act_t.float().numpy(), act_r)
+        else:
+            _fp8_close(act_t, act_j)
         M, jmax = inds.shape
         T = x.shape[0]
         cols = np.repeat((inds[..., None] * bn + np.arange(bn))
                          .reshape(M, -1), bm, 0)            # [T, jmax*bn]
         old = np.take_along_axis(np.asarray(act, np.float32), cols, 1)
         new = np.take_along_axis(act_r, cols, 1)
+        agree = (np.take_along_axis(act_t.float().numpy(), cols, 1) == new
+                 ).reshape(T, jmax, bn).all(-1)
         w2s = np.asarray(w2_j.scale, np.float32)[:, 0][cols]
         ds = jnp.asarray(new - old) * jnp.asarray(w2s)
         ds = ds.reshape(T, jmax, bn)
@@ -468,13 +481,16 @@ def _a8_chain_against_reference(kind, cases):
         d8_r = np.asarray(jnp.clip(jnp.round(ds / sd_r), -127, 127)
                           .astype(jnp.int8))
         live = np.repeat(np.arange(jmax) < counts[:, None], bm, 0)
-        np.testing.assert_array_equal(sd.numpy()[live],
-                                      np.asarray(sd_r)[..., 0][live])
-        np.testing.assert_array_equal(d8.numpy().reshape(T, jmax, bn)[live],
-                                      d8_r[live])
+        ok = agree & live
+        assert ok.sum() > 0.9 * live.sum()
+        np.testing.assert_array_equal(sd.numpy()[ok],
+                                      np.asarray(sd_r)[..., 0][ok])
+        np.testing.assert_array_equal(d8.numpy().reshape(T, jmax, bn)[ok],
+                                      d8_r[ok])
         assert not d8.numpy().reshape(T, jmax, bn)[~live].any()
         assert not sd.numpy()[~live].any()
-        _fp8_close(out_t, out_j)
+        rows = (agree | ~live).all(-1)
+        _fp8_close(out_t[torch.from_numpy(rows)], np.asarray(out_j)[rows])
         # the wrapper runs the same chain
         out_f, act_f = csp_mlp_fused(xt, w1_t, to_torch(b1), w2_t,
                                      to_torch(act), to_torch(out),
@@ -500,6 +516,26 @@ def test_csp_mlp_a8w4_chain_matches_reference():
 
 
 A8W4_SEEDS = (11, 12)    # tie-free inputs for the int4 a8 chain
+
+
+@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache,seed', [
+    (256, 512, 1024, 64, 256, 3, 'fp8', 60),
+    (256, 768, 512, 64, 128, 3, 'bf16', 61),
+    (512, 768, 512, 128, 256, 2, 'fp8', 62),
+    (1024, 768, 768, 512, 256, 3, 'bf16', 63),
+])
+def test_csp_mlp_a8w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
+                                                  cache, seed):
+    """The int4-weight, int8-activation plain chain at the shapes the
+    card's a8w4 kernels take at their edges (bn 256, bm 64 and 512: a
+    64-token tile; C 512 and 768: a nibble plane of 256 and 384 columns;
+    counts of 1 and jmax; fp8 or bf16 caches), against _fused_kernel's
+    a8 + w4 branch as in _a8_chain_against_reference (tie-free seeds for
+    the fp8 caches; at bm 512 the selected acts are too many for one,
+    so that case takes bf16 caches)."""
+    cdt = {'fp8': ml_dtypes.float8_e4m3fn, 'bf16': ml_dtypes.bfloat16}[cache]
+    _a8_chain_against_reference('int4', ((T, bm, bn, seed),), C=C, N=N,
+                                jmax=jmax, cache=cdt)
 
 
 def raw(t):
