@@ -13,8 +13,9 @@
    sparse-MLP kernels (their yardstick: the dense layer's torch.matmul or
    torch._int_mm scaled by the selected share), every sparse-MLP variant
    with bf16 caches, the bf16 pair and both int4-weight pairs also at
-   bn = 128 and with bf16 caches, both csp modes at kv_block 1, 2, 4, 8
-   and 16, and the int8/bf16 tile GEMM probe.  For the short rows
+   bn = 128 and with bf16 caches, the a8 pair at bn = 512 (int8 and int4
+   weights), both csp modes at kv_block 1, 2, 4, 8 and 16, and the
+   int8/bf16 tile GEMM probe.  For the short rows
    (``csp_attn`` at FLUX, ``quant_rows``) and the MLP rows of the
    Hopper-template pairs it also gives the kernel's own device time from
    torch.profiler's kernel records (``device_ms``), since their ``ms``
@@ -26,10 +27,13 @@
    from a seed, (b) with the quantized weights the JAX package ships
    (``synth_quantized_flux_params``, int4 attention/modulation, int8
    sparse MLP, int4 text MLP) and the config unchanged, so every sparse
-   MLP step takes the int8-activation kernels.  Each checks that the
+   MLP step takes the int8-activation kernels, (c) with the same quantized
+   weights and ``mlp.int8_act`` off, so every sparse MLP step takes the
+   int8-weight, bf16-activation pair (``wq``).  Each checks that the
    output is finite and which kernels ran, is traced over a window of
    sparse steps, and is timed against a dense loop (sparsity and step
-   caching off) on the same weights.  A small full-width model is also run
+   caching off) on the same weights ((c) against (b)'s: the dense path
+   does not read ``int8_act``).  A small full-width model is also run
    through each loop on the card and, with the plain versions, on the
    CPU, and the two must agree: each weight/activation variant, and the
    MLP with no cache dtype in the config (bf16 caches).
@@ -83,12 +87,15 @@ OUR_KERNELS = (
     ('w4 MLP mm2 (gemm_sm90_kernel<Mm2W4>)', 'mm2w4<'),
     ('a8w4 MLP mm1 (gemm_sm90_kernel<Mm1A8W4>)', 'mm1a8w4<'),
     ('a8w4 MLP mm2 (gemm_sm90_kernel<Mm2A8W4>)', 'mm2a8w4<'),
-    ('quant_rows', 'quant_rows_kernel'),
-    ('mma.sync MLP (wq)', 'csp_mlp_'))
+    ('wq MLP mm1 (gemm_sm90_kernel<Mm1Wq>)', 'mm1wq<'),
+    ('wq MLP mm2 (gemm_sm90_kernel<Mm2Wq>)', 'mm2wq<'),
+    ('quant_rows', 'quant_rows_kernel'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
               'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')
+WQ_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1_wq',
+           'csp_mlp_mm2_wq')
 SPEC = ('int4', 'int4', 'int8', 'int4')    # QuantSpec of bench.py:62-67
 GEMM_NAMES = ('nvjet', 'gemm', 'cutlass', 'xmma', 'gemv')
 
@@ -709,13 +716,16 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
       csp_mlp_mm1_wq    act cache within one ulp; packed delta bit-equal
        (int4: _w4)      where the acts agree, else within the act's ulp;
       csp_mlp_mm2_wq    run on the plain packed delta: within one ulp.
+    The wq pair runs as csp_mlp_fused calls it (mm1 multiplies the delta
+    by bf16(w2s), mm2 takes it prescaled); its device times alone (mm2
+    scaling in place) are printed too.
     library_ms: torch._int_mm (a8, on the int8 codes) or torch.matmul
     (wq/w4, on the dequantized bf16 weights) over the dense layer's
     products, scaled by the selected share (dense_library_ms); null for
     quant_rows.  The a8w4 rows also carry device_ms, taken from the
     Mm1A8W4 / Mm2A8W4 instantiations of gemm_sm90_kernel (their trace
-    labels), and the a8w4 pair runs once more at bn = 128 with bf16
-    caches (a8w4_bn128)."""
+    labels), as do the wq and w4 rows, and the a8w4 pair runs once more at
+    bn = 128 with bf16 caches (a8w4_bn128)."""
     dev = 'cuda'
     gen = torch.Generator(dev)
     gen.manual_seed(SEED + 1)
@@ -816,7 +826,7 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         dense_library_ms(torch, f'csp_mlp_mm1_{a8} yardstick torch._int_mm '
                          f'{shape1}', lambda: torch._int_mm(x8, c1t), share))
     if w4:
-        rows[-1]['device_ms'] = a8w4_device_ms(
+        rows[-1]['device_ms'] = kernel_device_ms(
             torch, 'csp_mlp_mm1_a8w4 (FLUX)', 'mm1a8w4<',
             lambda: cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act_t, inds,
                                       counts, bn=bn, bm=bm))
@@ -840,17 +850,20 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
                          f'{shape2}', lambda: torch._int_mm(dense8, c2),
                          share))
     if w4:
-        rows[-1]['device_ms'] = a8w4_device_ms(
+        rows[-1]['device_ms'] = kernel_device_ms(
             torch, 'csp_mlp_mm2_a8w4 (FLUX)', 'mm2a8w4<',
             lambda: cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out_t, inds, counts,
                                       bn=bn, bm=bm))
     del d8, sd, d8_p, sd_p, act_k, act_p, out_k, out_p
 
-    # ---- csp_mlp_mm1_wq
+    # ---- csp_mlp_mm1_wq, as the main path calls it (csp_mlp_fused): with
+    # int8 weights mm1 multiplies the packed delta by bf16(w2s) for mm2
+    s2, pre = ({}, {}) if w4 else ({'w2': w2}, {'prescaled': True})
     pk, act_k = cm.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn,
-                               bm=bm)
+                               bm=bm, **s2)
     torch.cuda.synchronize()
-    pk_p, act_p = cm.csp_mlp_mm1_plain(x, w1, b1, act, pinds, counts, bn, bm)
+    pk_u, act_p = cm.csp_mlp_mm1_plain(x, w1, b1, act, pinds, counts, bn, bm)
+    pk_p = pk_u if w4 else cm._prescale(pk_u, w2, pinds, bn)
     err = check_fp8(torch, f'csp_mlp_mm1_{wq} act_cache', act_k, act_p)
     a_p, a_k = act_p.float().gather(1, cols), act_k.float().gather(1, cols)
     live = (torch.arange(jm * bn, device=dev)[None]
@@ -866,7 +879,7 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
     act_t = act.clone()
     row(f'csp_mlp_mm1_{wq}', 'chipmunk_tpu/kernels/csp_mlp.py:93', err,
         time_ms(torch, lambda: cm.csp_mlp_mm1(
-            x, w1, b1, act_t, inds, counts, bn=bn, bm=bm), 20),
+            x, w1, b1, act_t, inds, counts, bn=bn, bm=bm, **s2), 20),
         time_ms(torch, lambda: cm.csp_mlp_mm1_plain(
             x, w1, b1, act, pinds, counts, bn, bm), 3),
         ops, T * C * 2 + w_rows * wC + 2 * sel_bytes + pk.numel() * 2
@@ -874,30 +887,46 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         dense_library_ms(torch, f'csp_mlp_mm1_{wq} yardstick torch.matmul '
                          f'{shape1} (dequantized bf16)',
                          lambda: torch.matmul(x, d1.t()), share))
-    rows[-1]['device_ms'] = device_ms(torch, lambda: cm.csp_mlp_mm1(
-        x, w1, b1, act_t, inds, counts, bn=bn, bm=bm), 20)[0]
+    rows[-1]['device_ms'] = kernel_device_ms(
+        torch, f'csp_mlp_mm1_{wq} (FLUX)', f'mm1{wq}<',
+        lambda: cm.csp_mlp_mm1(x, w1, b1, act_t, inds, counts, bn=bn, bm=bm,
+                               **s2))
 
-    # ---- csp_mlp_mm2_wq on the plain packed delta
-    out_k = cm.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn, bm=bm)
+    # ---- csp_mlp_mm2_wq on the plain packed delta (scaled as mm1 gives
+    # it), against the plain version on the unscaled one
+    out_k = cm.csp_mlp_mm2(pk_p, w2, out.clone(), inds, counts, bn=bn, bm=bm,
+                           **pre)
     torch.cuda.synchronize()
-    out_p = cm.csp_mlp_mm2_plain(pk_p, w2, out, pinds, counts, bn, bm)
+    out_p = cm.csp_mlp_mm2_plain(pk_u, w2, out, pinds, counts, bn, bm)
     err = check_fp8(torch, f'csp_mlp_mm2_{wq} out_cache', out_k, out_p)
     out_t = out.clone()
     row(f'csp_mlp_mm2_{wq}', 'chipmunk_tpu/kernels/csp_mlp.py:216', err,
         time_ms(torch, lambda: cm.csp_mlp_mm2(
-            pk_p, w2, out_t, inds, counts, bn=bn, bm=bm), 20),
+            pk_p, w2, out_t, inds, counts, bn=bn, bm=bm, **pre), 20),
         time_ms(torch, lambda: cm.csp_mlp_mm2_plain(
-            pk_p, w2, out, pinds, counts, bn, bm), 3),
+            pk_u, w2, out, pinds, counts, bn, bm), 3),
         ops, sel_bytes * 2 + w_rows * wC + N * 4 + 2 * T * C,
         PEAK_BF16_FLOPS,
         dense_library_ms(torch, f'csp_mlp_mm2_{wq} yardstick torch.matmul '
                          f'{shape2} (dequantized bf16)',
                          lambda: torch.matmul(dense16, d2), share))
-    rows[-1]['device_ms'] = device_ms(torch, lambda: cm.csp_mlp_mm2(
-        pk_p, w2, out_t, inds, counts, bn=bn, bm=bm), 20)[0]
+    rows[-1]['device_ms'] = kernel_device_ms(
+        torch, f'csp_mlp_mm2_{wq} (FLUX)', f'mm2{wq}<',
+        lambda: cm.csp_mlp_mm2(pk_p, w2, out_t, inds, counts, bn=bn, bm=bm,
+                               **pre))
+    if not w4:                 # the pair called alone: mm2 scales in place
+        kernel_device_ms(torch, 'csp_mlp_mm1_wq alone (FLUX)', 'mm1wq<',
+                         lambda: cm.csp_mlp_mm1(x, w1, b1, act_t, inds,
+                                                counts, bn=bn, bm=bm))
+        kernel_device_ms(torch, 'csp_mlp_mm2_wq alone (FLUX)', 'mm2wq<',
+                         lambda: cm.csp_mlp_mm2(pk_u, w2, out_t, inds,
+                                                counts, bn=bn, bm=bm))
     for r in rows[-2:]:
         print(f"{r['name']} (FLUX): {ops / r['device_ms'] / 1e9:.1f} TFLOP/s "
-              f"on the device ({r['device_ms']:.4f} ms)", flush=True)
+              f"on the device ({r['device_ms']:.4f} ms), "
+              f"{r['device_ms'] / r['library_ms']:.2f}x the library call on "
+              f"the selected share ({r['library_ms']:.4f} ms), bound "
+              f"{r['bound_ms']:.4f} ms", flush=True)
     del c1t, c2, d1, d2, dense8, dense16
     if w4:
         bf16_mlp_variants(torch, cm, ca, fp8, x, w1, b1, w2, gen, 'w4')
@@ -906,8 +935,8 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
     return rows
 
 
-def a8w4_device_ms(torch, tag, label, fn):
-    """Device ms of the a8w4 kernel that ``fn`` launches, which must be the
+def kernel_device_ms(torch, tag, label, fn):
+    """Device ms of the kernel that ``fn`` launches, which must be the
     gemm_sm90_kernel instantiation whose trace label (OUR_KERNELS) matches
     ``label``."""
     ms, name = device_ms(torch, fn, 20)
@@ -961,17 +990,74 @@ def a8w4_bn128(torch, cm, ca, fp8, x8, sx, w1, b1, w2, gen):
                                     bm)
     err_o = check_fp8(torch, f'{tag} out_cache', out_k[:R], out_p)
     a_t, o_t = act.clone(), out.clone()
-    ms1 = a8w4_device_ms(torch, f'{tag}: csp_mlp_mm1_a8w4', 'mm1a8w4<',
+    ms1 = kernel_device_ms(torch, f'{tag}: csp_mlp_mm1_a8w4', 'mm1a8w4<',
                          lambda: cm.csp_mlp_mm1_a8(
                              x8, sx, w1, b1, w2.scale, a_t, inds, counts,
                              bn=bn, bm=bm))
-    ms2 = a8w4_device_ms(torch, f'{tag}: csp_mlp_mm2_a8w4', 'mm2a8w4<',
+    ms2 = kernel_device_ms(torch, f'{tag}: csp_mlp_mm2_a8w4', 'mm2a8w4<',
                          lambda: cm.csp_mlp_mm2_a8(
                              d8, sd, w2, o_t, inds, counts, bn=bn, bm=bm))
     print(f'{tag} (FLUX): act max abs err {err:.3e}, acts agree in '
           f'{agree.float().mean().item():.4f} of (row, block) pairs, out max '
           f'abs err {err_o:.3e}; device ms {ms1:.4f} + {ms2:.4f}', flush=True)
     del act, out, d8, sd, act_k, out_k, a_t, o_t
+
+
+def a8_wide_blocks(torch, cm, ca, fp8, quant):
+    """The int8-activation pair at bn = 512 (mm1's split mode: two
+    256-neuron sub-blocks, then the pass that forms sd and d8 over the
+    whole block), int8 and int4 weights, fp8 caches, at a small shape (T =
+    1024, C = 768, N = 3072, bm = 128, jmax 3 with counts of 1 and jmax):
+    the act cache within one ulp; d8 and sd bit-equal where the acts of
+    the (row, block) agree, zero past the count; mm2 on the plain d8/sd
+    within one ulp."""
+    dev, T, C, N, bm, bn, jm = 'cuda', 1024, 768, 3072, 128, 512, 3
+    M = T // bm
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED + 5)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * scale).to(
+            torch.bfloat16)
+
+    x, b1 = randn(T, C), randn(N, scale=0.1)
+    inds = torch.rand((M, N // bn), generator=gen, device=dev).argsort(
+        -1)[:, :jm].to(torch.int32)
+    counts = torch.arange(M, device=dev, dtype=torch.int32) % jm + 1
+    pinds = ca.pad_block_indices(inds, counts)
+    act = fp8.to_fp8(torch.randn((T, N), generator=gen, device=dev) * 0.3)
+    out = fp8.to_fp8(torch.randn((T, C), generator=gen, device=dev))
+    live = (torch.arange(jm, device=dev)[None]
+            < counts.repeat_interleave(bm)[:, None])
+    x8, sx = cm.quant_rows(x)
+    for kind in ('int8', 'int4'):
+        tag = f'csp_mlp a8 bn 512, {kind} weights'
+        w1, w2 = (quant.quantize(randn(N, C, scale=s), kind, keep_axes=(0,),
+                                 pack_axis=1 if kind == 'int4' else None)
+                  for s in (C ** -0.5, N ** -0.5))
+        d8, sd, act_k = cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale,
+                                          act.clone(), inds, counts, bn=bn,
+                                          bm=bm)
+        torch.cuda.synchronize()
+        d8_p, sd_p, act_p = cm.csp_mlp_mm1_a8_plain(
+            x8, sx, w1, b1, w2.scale, act, pinds, counts, bn, bm)
+        err = check_fp8(torch, f'{tag} act_cache', act_k, act_p)
+        agree = mlp_agree(torch, act_k, act_p, pinds, bm, bn)
+        d8r = d8.reshape(T, jm, bn)
+        if not (torch.equal(sd[agree], sd_p[agree]) and torch.equal(
+                d8r[agree], d8_p.reshape(T, jm, bn)[agree])):
+            fail(f'{tag}: d8/sd differ where the acts agree')
+        if bool(sd[~live].any()) or bool(d8r[~live].any()):
+            fail(f'{tag}: d8/sd not zero past the count')
+        out_k = cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out.clone(), inds, counts,
+                                  bn=bn, bm=bm)
+        torch.cuda.synchronize()
+        err_o = check_fp8(torch, f'{tag} out_cache', out_k,
+                          cm.csp_mlp_mm2_a8_plain(d8_p, sd_p, w2, out, pinds,
+                                                  counts, bn, bm))
+        print(f'{tag}: act max abs err {err:.3e}, acts agree in '
+              f'{agree.float().mean().item():.4f} of (row, block) pairs, '
+              f'out max abs err {err_o:.3e}', flush=True)
 
 
 def mlp_agree(torch, act_k, act_p, pinds, bm, bn):
@@ -1352,13 +1438,14 @@ def trace_sparse_steps(torch, run, plain_window_ms, tag):
         print(f'{tag} trace kernel {ms:9.2f} ms  {n[:110]}')
 
 
-def drive_path(torch, kern, tm, ck, model, tag, expect, params=None):
+def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
+               dense=True):
     """One main path at full size: the sparse loop with every launch count
     set to 0 just before it and read just after (each kernel of
     ``expect`` must have launched, every other kernel not), the trace over
-    a window of its sparse steps, and the dense loop (sparsity and step
-    caching off) on the same weights.  Returns (launches, sparse s,
-    dense s)."""
+    a window of its sparse steps, and (with ``dense``) the dense loop
+    (sparsity and step caching off) on the same weights.  Returns
+    (launches, sparse s, dense s or None)."""
     kern.reset_launches()
     marks = {}
     out, sparse_s = run_loop(torch, tm, ck, model, H_IMG, W_IMG, 'cuda',
@@ -1385,6 +1472,8 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None):
                                    'cuda', callback=cb, params=params),
         (marks[9] - marks[1]) * 1e3, tag)
     torch.cuda.empty_cache()
+    if not dense:
+        return launches, sparse_s, None
     dense_ck = ck.replace(
         attn=dataclasses.replace(ck.attn, is_enabled=False),
         mlp=dataclasses.replace(ck.mlp, is_enabled=False),
@@ -1623,6 +1712,7 @@ def main():
                                      kind)
         torch.cuda.empty_cache()
     bf16_cache_phases(torch, mods[2], mods[1], fp8, quant)
+    a8_wide_blocks(torch, mods[2], mods[1], fp8, quant)
     small_block_csp_phases(torch, mods[1])
     prows = probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
@@ -1662,6 +1752,22 @@ def main():
           f'({q_dense_s:.3f} s), {bf16_dense_s / q_sparse_s:.3f}x against '
           f'the bf16 dense loop ({bf16_dense_s:.3f} s); bf16 sparse loop '
           f'{bf16_sparse_s:.3f} s', flush=True)
+
+    # (c) the same weights with mlp.int8_act off: every sparse MLP step
+    # takes the wq pair, as often as the bf16 loop takes its pair; the
+    # dense yardstick is (b)'s dense loop (the dense path does not read
+    # int8_act)
+    no_a8 = ck.replace(mlp=dataclasses.replace(ck.mlp, int8_act=False))
+    wlaunches, w_sparse_s, _ = drive_path(
+        torch, kern, tm, no_a8, model, 'quantized int8_act off', WQ_PATH,
+        qparams, dense=False)
+    for k in ('csp_mlp_mm1_wq', 'csp_mlp_mm2_wq'):
+        if wlaunches[k] != launches['csp_mlp_mm1']:
+            fail(f'quantized int8_act off: {wlaunches[k]} {k} launches, '
+                 f'the bf16 loop {launches["csp_mlp_mm1"]} of its pair')
+    print(f'quantized int8_act off sparse loop {w_sparse_s:.3f} s: '
+          f'{q_dense_s / w_sparse_s:.3f}x against the quantized dense loop '
+          f'({q_dense_s:.3f} s); int8_act on {q_sparse_s:.3f} s', flush=True)
     del qparams
     torch.cuda.empty_cache()
 
@@ -1717,9 +1823,10 @@ def main():
     for r in rows:
         r['route'] = 'cuda'
         r['launches'] = launches[r['name']]
-    for r in qrows + prows:             # this slice's path (wq, probe: 0)
+    for r in qrows + prows:             # the quantized paths (probe: 0)
         r['route'] = 'cuda'
-        r['launches'] = qlaunches[r['name']]
+        r['launches'] = (wlaunches if r['name'] in WQ_PATH
+                         else qlaunches)[r['name']]
     vrow['route'] = 'cuda'
     vrow['launches'] = vlaunches[vrow['name']]
     rows += qrows + prows + [vrow]

@@ -17,8 +17,8 @@
 //        positions past the count give 0)
 //   mm2: out_cache[t] = cast(out_cache[t] + delta[t] @ w2[selected rows])
 //        with f32 accumulation over all selected blocks.
-// A cache write rounds as the reference's astype: fp8 with __NV_NOSAT
-// (NaN above 464), bf16 to nearest even (put2).
+// A cache write rounds as the reference's astype: fp8 with NaN above 464
+// (f2fp8_hw), bf16 to nearest even (put2).
 //
 // Bound on the H100: operations.  At the FLUX shape (T = 4608 tokens,
 // C = 3072, ~15 selected 256-neuron blocks per 512-token block) each pass
@@ -34,20 +34,20 @@
 // delta and the cache refresh; mm2 is a GEMM whose contraction runs only
 // over the selected blocks.
 //
-// The bf16 pair and the a8 pair (int8 weights) run on gemm_sm90.cuh: TMA
-// row gathers into a ring, wgmma (bf16: m64n256k16 / m64n128k16 -> f32;
-// s8: m64n256k32 / m64n128k32 -> s32), a producer warpgroup and two
-// consumer warpgroups of 64 rows.  w2's rows are [k][c]: bf16 wgmma reads
-// it where it lies, MN-major through its transpose-B flag; s8 wgmma reads
-// both operands K-major only, so the a8 mm2 reads a K-major copy of the
-// codes ([C, N], made once per weight by the wrapper, kmajor_codes).  The
-// w4 pair (int4 weights, bf16 x) runs on the same template with bf16
-// wgmma, transposed so that the weight is the A operand: its packed
-// codes arrive raw by TMA and the consumers convert them into A
-// fragments in registers (Mm1W4, Mm2W4).  The a8w4 pair (int4 weights,
-// int8 x) takes the same form with s8 wgmma, the codes widened to s8 in
-// registers (Mm1A8W4, Mm2A8W4).  The wq kernels are mma.sync (bf16 ->
-// f32) fed by ldmatrix from cp.async rings (gemm_tile.cuh).
+// Every pair runs on gemm_sm90.cuh: TMA row gathers into a ring, wgmma
+// (bf16: m64n256k16 / m64n128k16 -> f32; s8: m64n256k32 / m64n128k32 ->
+// s32), a producer warpgroup and two consumer warpgroups of 64 rows.  The
+// bf16 pair and the a8 pair (int8 weights) read both operands from shared
+// memory.  w2's rows are [k][c]: bf16 wgmma reads it where it lies,
+// MN-major through its transpose-B flag; s8 wgmma reads both operands
+// K-major only, so the a8 mm2 reads a K-major copy of the codes ([C, N],
+// made once per weight by the wrapper, kmajor_codes).  The quantized
+// weights with bf16 x (wq: int8, w4: int4) take bf16 wgmma transposed, so
+// that the weight is the A operand: its codes arrive raw by TMA and the
+// consumers convert them into A fragments in registers (Mm1Wq / Mm2Wq,
+// Mm1W4 / Mm2W4).  The a8w4 pair (int4 weights, int8 x) takes the same
+// form with s8 wgmma, the codes widened to s8 in registers (Mm1A8W4,
+// Mm2A8W4).
 //
 // The `wq` and `w4` variants convert the weight codes to bf16 (exact)
 // and apply the scales where the reference does: mm1 after the product
@@ -63,8 +63,15 @@
 //   mm2: acc = f32(out_cache); for each valid block j in order:
 //        acc = fma(f32(int32(d8_j . w2q[block j])), sd_j, acc)
 // The row max of |ds| spans the whole neuron block, so one mm1 CTA covers
-// all bn (<= 256) neurons of its rows.  mm2 flushes its int32 sum into the
-// f32 accumulator at every block boundary (each block has its own scale).
+// all bn (<= 256) neurons of its rows.  A wider block (bn > 256: 128
+// tokens x 512 neurons of s32 sums do not fit two consumer warpgroups'
+// registers) is split: the same Ops run per 256- (or 128-) neuron
+// sub-block and write ds (f32) and each row's sub-block max of |ds|
+// (Mm1A8Part, Mm1A8W4Part), and a second kernel takes the max of the
+// partials for sd and writes d8 (a8_split_finish_kernel): the same
+// operations in the same order, so the same bits.  mm2 flushes its int32
+// sum into the f32 accumulator at every block boundary (each block has its
+// own scale).
 // int32 range: |x8 . w1q| <= C * 127^2 = 4.96e7 at C = 3072 and
 // |d8 . w2q| <= bn * 127^2, far inside 2^31.  The scalar steps are spelled
 // out with the _rn intrinsics: each multiply-add the reference's XLA fuses
@@ -74,10 +81,8 @@
 #include <type_traits>
 
 #include "gemm_sm90.cuh"
-#include "gemm_tile.cuh"
 
 using namespace chipmunk;
-using namespace chipmunk::tile;
 
 namespace {
 
@@ -86,17 +91,6 @@ namespace {
 // kernel reads an index past the count.
 __device__ __forceinline__ int count_of(const int* counts, int m, int jmax) {
   return min(max(counts[m], 1), jmax);
-}
-
-// An unselected slot: zero its [rows x bytes] slice of a row-major array
-// (row stride ld bytes), so consumers may read all jmax slots.
-__device__ __forceinline__ void zero_slot(void* dst, int rows, int bytes,
-                                          size_t ld) {
-  for (int id = threadIdx.x; id < rows * bytes / 16; id += NT) {
-    const int row = id / (bytes / 16), c = (id % (bytes / 16)) * 16;
-    *reinterpret_cast<uint4*>(static_cast<uint8_t*>(dst) + row * ld + c) =
-        make_uint4(0, 0, 0, 0);
-  }
 }
 
 // Two neighbouring cache entries (fp8 e4m3 as uint8_t, or bf16) as
@@ -122,25 +116,6 @@ __device__ __forceinline__ float2 put2(__nv_bfloat16* p, float a, float b) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(a, b);
   *reinterpret_cast<__nv_bfloat162*>(p) = v;
   return __bfloat1622float2(v);
-}
-
-// The act of two neighbouring neurons, gelu_tanh(mid) rounded to the
-// cache's type, written to the cache; returns its delta against the old
-// cache entries.  (The mma.sync mm1 epilogues; fp8 through the software
-// f2fp8, which is faster there.)
-__device__ __forceinline__ float2 refresh_act(uint8_t* cache, float mid0,
-                                              float mid1) {
-  const float2 old = ld2(cache);
-  const uint8_t a0 = f2fp8(gelu_tanh(mid0)), a1 = f2fp8(gelu_tanh(mid1));
-  *reinterpret_cast<uint16_t*>(cache) = (uint16_t)(a0 | (a1 << 8));
-  return make_float2(fp82f(a0) - old.x, fp82f(a1) - old.y);
-}
-
-__device__ __forceinline__ float2 refresh_act(__nv_bfloat16* cache,
-                                              float mid0, float mid1) {
-  const float2 old = ld2(cache);
-  const float2 a = put2(cache, gelu_tanh(mid0), gelu_tanh(mid1));
-  return make_float2(a.x - old.x, a.y - old.y);
 }
 
 // The code of x rounded to the cache's type (as put2 rounds it), and two
@@ -169,144 +144,9 @@ __device__ __forceinline__ float2 put_codes(__nv_bfloat16* p, int a, int b) {
                      __uint_as_float((uint32_t)b << 16));
 }
 
-// --------------------------------------------- wq: int8 weights, bf16 x
-
-// grid (T / 128, jmax * bn / 128).  As csp_mlp_mm1_kernel; the w1 tile
-// [128 n][32 k] int8 (W4: one nibble plane of the packed [N, C/2] bytes)
-// arrives through registers and is stored as bf16.
-template <bool W4, class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm1_wq_kernel(const __nv_bfloat16* __restrict__ x,
-                      const int8_t* __restrict__ w1q,
-                      const float* __restrict__ w1s,
-                      const __nv_bfloat16* __restrict__ b1,
-                      CT* __restrict__ act_cache,
-                      const int* __restrict__ inds,
-                      const int* __restrict__ counts,
-                      __nv_bfloat16* __restrict__ packed, int C, int N,
-                      int jmax, int bn, int bm) {
-  const int t0 = blockIdx.x * BM, m = t0 / bm;
-  const int subs = bn / BN, j = blockIdx.y / subs, sub = blockIdx.y % subs;
-  const size_t P = (size_t)jmax * bn;
-  __nv_bfloat16* pk = packed + (size_t)t0 * P + (size_t)j * bn + sub * BN;
-  if (j >= count_of(counts, m, jmax))
-    return zero_slot(pk, BM, BN * 2, P * 2);
-  const int n0 = inds[(size_t)m * jmax + j] * bn + sub * BN;
-  const __nv_bfloat16* xa = x + (size_t)t0 * C;
-  const int wld = W4 ? C / 2 : C;         // bytes per weight row
-  const int8_t* wb = w1q + (size_t)n0 * wld;
-  __shared__ __align__(16) Stage1 buf[2];
-  uint32_t breg[4];            // 4 words of [128 n][32 k] bytes a thread
-  float acc[4][4][4] = {};
-  k_loop_staged(
-      buf, C / BK,
-      [&](int kt, Stage1& st) { issue_rows(st.a, xa + kt * BK, C); },
-      [&](int kt) {
-        // k < C/2 is the low nibble plane of column k, k >= C/2 the high
-        // plane of column k - C/2
-        const int plane = W4 ? kt * BK >= C / 2 : -1;
-        const int kc = kt * BK - (plane > 0 ? C / 2 : 0);
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int id = threadIdx.x + NT * u, n = id >> 3, kq = id & 7;
-          breg[u] = w_bytes(*reinterpret_cast<const uint32_t*>(
-              wb + (size_t)n * wld + kc + 4 * kq), plane);
-        }
-      },
-      [&](Stage1& st) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int id = threadIdx.x + NT * u, n = id >> 3, kq = id & 7;
-          *reinterpret_cast<uint2*>(st.b + n * LDA + 4 * kq) =
-              s8x4_to_bf16(breg[u]);
-        }
-      },
-      [&](const Stage1& st) { mma_stage<true>(acc, st.a, st.b); },
-      [](int) {});
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const int n = n0 + col;
-    const float2 d = refresh_act(
-        act_cache + (size_t)(t0 + row) * N + n,
-        __fmaf_rn(acc[mt][nt][2 * h], w1s[n], bf2f(b1[n])),
-        __fmaf_rn(acc[mt][nt][2 * h + 1], w1s[n + 1], bf2f(b1[n + 1])));
-    *reinterpret_cast<uint32_t*>(pk + row * P + col) = pack_bf16(d.x, d.y);
-  });
-}
-
-struct Stage2Q {               // Stage2 + the bf16 scales of its 32 k rows
-  Stage2 s;
-  __nv_bfloat162 scale[BK / 2];
-};
-
-// grid (T / 128, C / 128).  As csp_mlp_mm2_kernel; the w2 tile [32 k][128
-// c] int8 (W4: one nibble plane of the packed [N, C/2] bytes) arrives
-// through registers and is stored as bf16, and the packed delta's
-// fragments are multiplied by bf16(w2s[k]) before the product.
-template <bool W4, class CT>
-__global__ void __launch_bounds__(NT)
-csp_mlp_mm2_wq_kernel(const __nv_bfloat16* __restrict__ packed,
-                      const int8_t* __restrict__ w2q,
-                      const float* __restrict__ w2s,
-                      CT* __restrict__ out_cache,
-                      const int* __restrict__ inds,
-                      const int* __restrict__ counts, int C, int jmax, int bn,
-                      int bm) {
-  const int t0 = blockIdx.x * BM, c0 = blockIdx.y * BN, m = t0 / bm;
-  const size_t P = (size_t)jmax * bn;
-  const int* row_inds = inds + (size_t)m * jmax;
-  const int per_block = bn / BK;
-  const int nk = count_of(counts, m, jmax) * per_block;
-  const __nv_bfloat16* pa = packed + (size_t)t0 * P;
-  // output columns c < C/2 are the low nibble plane of byte column c,
-  // c >= C/2 the high plane of byte column c - C/2
-  const int wld = W4 ? C / 2 : C, plane = W4 ? c0 >= C / 2 : -1;
-  const int cb = c0 - (plane > 0 ? C / 2 : 0);
-  float acc[4][4][4];
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    const float2 v = ld2(out_cache + (size_t)(t0 + row) * C + c0 + col);
-    acc[mt][nt][2 * h] = v.x;
-    acc[mt][nt][2 * h + 1] = v.y;
-  });
-  __shared__ __align__(16) Stage2Q buf[2];
-  uint32_t breg[4];            // 4 words of [32 k][128 c] bytes a thread
-  float2 sreg = make_float2(0.f, 0.f);
-  k_loop_staged(
-      buf, nk,
-      [&](int kt, Stage2Q& st) { issue_rows(st.s.a, pa + (size_t)kt * BK, P); },
-      [&](int kt) {
-        const int j = kt / per_block, n = (kt % per_block) * BK;
-        const size_t k0 = (size_t)row_inds[j] * bn + n;
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int id = threadIdx.x + NT * u, k = id >> 5, cq = id & 31;
-          breg[u] = w_bytes(*reinterpret_cast<const uint32_t*>(
-              w2q + (k0 + k) * wld + cb + 4 * cq), plane);
-        }
-        if (threadIdx.x < BK / 2)
-          sreg = make_float2(w2s[k0 + 2 * threadIdx.x],
-                             w2s[k0 + 2 * threadIdx.x + 1]);
-      },
-      [&](Stage2Q& st) {
-#pragma unroll
-        for (int u = 0; u < 4; ++u) {
-          const int id = threadIdx.x + NT * u, k = id >> 5, cq = id & 31;
-          *reinterpret_cast<uint2*>(st.s.b + k * LDB + 4 * cq) =
-              s8x4_to_bf16(breg[u]);
-        }
-        if (threadIdx.x < BK / 2)
-          st.scale[threadIdx.x] = __floats2bfloat162_rn(sreg.x, sreg.y);
-      },
-      [&](const Stage2Q& st) {
-        mma_stage<false>(acc, st.s.a, st.s.b, st.scale);
-      },
-      [](int) {});
-  for_each_pair([&](int mt, int nt, int h, int row, int col) {
-    put2(out_cache + (size_t)(t0 + row) * C + c0 + col, acc[mt][nt][2 * h],
-             acc[mt][nt][2 * h + 1]);
-  });
-}
-
 // ---------------------------------------------- a8: int8 weights and x
+
+constexpr int NT = 256;             // threads of a quant_rows CTA
 
 // x [T, C] bf16 -> x8 [T, C] int8, sx [T] f32; one CTA per row
 __global__ void __launch_bounds__(NT)
@@ -514,6 +354,129 @@ struct Mm1A8 {
     }
   }
 };
+
+// A neuron block wider than 256 (bn a multiple of 128): Mm1A8 per BN-neuron
+// sub-block s of selected block j, grid (T / 128, jmax * bn / BN).  Its
+// epilogue refreshes the act cache as Mm1A8's and writes ds (f32, [T][jmax
+// bn]) and each row's max of |ds| over the sub-block (pmax [T][jmax S], S
+// = bn / BN); a8_split_finish_kernel then forms sd and d8.  A slot past
+// the count writes nothing (the second kernel writes its zeros).
+template <int BN_, class CT>
+struct Mm1A8Part : Mm1A8<BN_, CT> {
+  using Base = Mm1A8<BN_, CT>;
+  using Base::BN;
+  struct Params : Base::Params {
+    float* ds;
+    float* pmax;
+    int bn;
+  };
+  const Params& q;
+  int s;                     // the sub-block
+
+  __device__ Mm1A8Part(const Params& p_) : Base(p_), q(p_) {
+    const int S = q.bn / BN, m = this->t0 / q.bm;
+    this->j = blockIdx.y / S;
+    s = blockIdx.y % S;
+    this->on = this->j < count_of(q.counts, m, q.jmax);
+    this->n0 = this->on ? q.inds[(size_t)m * q.jmax + this->j] * q.bn + s * BN
+                        : 0;
+  }
+  __device__ void idle() const {}
+
+  // One pass per entry (this mode is off the main path): mid, the act
+  // rounded to the cache's type into the staged old entries, ds = delta *
+  // w2s[n] to memory and the row max of |ds|, in Mm1A8's operations
+  template <int A>
+  __device__ void end(int (&acc)[A], int c, unsigned char*,
+                      unsigned char* act_s, uint32_t bar) {
+    constexpr int ES = Base::ES;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int t = lane & 3, l0 = 64 * c + 16 * warp + (lane >> 2);
+    const int t0 = this->t0, j = this->j, n0 = this->n0, S = q.bn / BN;
+    const size_t P = (size_t)q.jmax * q.bn;
+    float* ds = q.ds + (size_t)(t0 + l0) * P + j * q.bn + s * BN + 2 * t;
+    float rmax[2] = {0.f, 0.f};
+    mbar_wait(bar, 0);
+#pragma unroll
+    for (int jj = 0; jj < BN / 8; ++jj) {
+      const int col = 8 * jj + 2 * t, n = n0 + col, x = col * ES;
+      const float2 ws = __ldg(reinterpret_cast<const float2*>(q.w1s + n));
+      const float2 bb = __bfloat1622float2(
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(q.b1 + n)));
+      const float2 vs = __ldg(reinterpret_cast<const float2*>(q.w2s + n));
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const float sx = __ldg(q.sx + t0 + l0 + 8 * h);
+        CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (GM * 128) +
+                                      swz128(l0 + 8 * h, x & 127));
+        const float2 old = ld2(e);
+        const float2 a = put_codes(
+            e,
+            act_code<CT>(gelu_tanh(__fmaf_rn(
+                (float)acc[4 * jj + 2 * h], __fmul_rn(sx, ws.x), bb.x))),
+            act_code<CT>(gelu_tanh(__fmaf_rn(
+                (float)acc[4 * jj + 2 * h + 1], __fmul_rn(sx, ws.y), bb.y))));
+        const float v0 = __fmul_rn(a.x - old.x, vs.x);
+        const float v1 = __fmul_rn(a.y - old.y, vs.y);
+        *reinterpret_cast<float2*>(ds + 8 * h * P + 8 * jj) =
+            make_float2(v0, v1);
+        rmax[h] = nanmax(rmax[h], nanmax(fabsf(v0), fabsf(v1)));
+      }
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float v = rmax[h];
+      v = nanmax(v, __shfl_xor_sync(~0u, v, 1));
+      v = nanmax(v, __shfl_xor_sync(~0u, v, 2));
+      if (t == 0)
+        q.pmax[((size_t)(t0 + l0 + 8 * h) * q.jmax + j) * S + s] = v;
+    }
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BN * ES / 128; ++b)
+        tma_store(&q.act_map, smem_u32(act_s) + b * GM * 128,
+                  n0 + b * 128 / ES, t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// d8 and sd of a split a8 mm1 (Mm1A8Part, Mm1A8W4Part): for row t and a
+// valid slot j, sd = max(max of the S sub-block maxima, 1e-12) / 127 and
+// d8 = clip(rint(ds / sd)), as the one-pass epilogues; zeros past the
+// count.  One CTA a row; a pass over 4 bn bytes, with no products.
+__global__ void __launch_bounds__(NT)
+a8_split_finish_kernel(const float* __restrict__ ds,
+                       const float* __restrict__ pmax,
+                       const int* __restrict__ counts, int8_t* __restrict__ d8,
+                       float* __restrict__ sd, int jmax, int bn, int S,
+                       int bm) {
+  const size_t t = blockIdx.x, P = (size_t)jmax * bn;
+  const int cnt = count_of(counts, (int)(t / bm), jmax);
+  for (int j = 0; j < jmax; ++j) {
+    float sdv = 0.f;
+    if (j < cnt) {
+      const float* pm = pmax + (t * jmax + j) * S;
+      float v = pm[0];
+      for (int k = 1; k < S; ++k) v = nanmax(v, pm[k]);
+      sdv = __fmul_rn(nanmax(v, 1e-12f), INV127);
+    }
+    if (threadIdx.x == 0) sd[t * jmax + j] = sdv;
+    for (int x = 4 * threadIdx.x; x < bn; x += 4 * NT) {
+      uint32_t w = 0;
+      if (j < cnt) {
+        const float4 v =
+            *reinterpret_cast<const float4*>(ds + t * P + j * bn + x);
+        w = (q8(div_rn(v.x, sdv)) & 0xff) |
+            ((q8(div_rn(v.y, sdv)) & 0xff) << 8) |
+            ((q8(div_rn(v.z, sdv)) & 0xff) << 16) |
+            ((uint32_t)(q8(div_rn(v.w, sdv)) & 0xff) << 24);
+      }
+      *reinterpret_cast<uint32_t*>(d8 + t * P + j * bn + x) = w;
+    }
+  }
+}
 
 // csp_mlp_mm2_a8 replaces the fc2 half of _fused_kernel with a8 (same
 // site).  Bound: operations, 0.054 ms at the FLUX shape.  The products run
@@ -871,6 +834,17 @@ __device__ __forceinline__ uint32_t nib2(uint32_t x) {
                          u32_bf2(0x43084308u)));
 }
 
+// Two int8 codes, the bytes at bits 0-7 and 16-23 of x, as the bf16 pair
+// of their values, exactly, for all 256 codes: the low 7 bits go into the
+// mantissa of bf16 128.0 (128 + m), and the sign bit selects what is
+// subtracted, 128.0 or 256.0 (0x4380): m - 128 s.  Two LOP3 and a bf16
+// subtract; faster on an H100 than the float route (two I2F and a pack) in
+// both wq kernels.
+__device__ __forceinline__ uint32_t s8x2(uint32_t x) {
+  return bf2_u32(__hsub2(u32_bf2((x & 0x007F007Fu) | 0x43004300u),
+                         u32_bf2((x & 0x00800080u) | 0x43004300u)));
+}
+
 // csp_mlp_mm1_w4 replaces _mm1_kernel with int4 weights
 // (chipmunk_tpu/kernels/csp_mlp.py:93) and the fc1 half of _fused_kernel's
 // w4 branch (:389).  Bound: operations, as the bf16 mm1 (2 bm bn C per
@@ -1033,6 +1007,109 @@ struct Mm1W4 {
         tma_store(&p.pk_map, smem_u32(ring) + b * NT * 128, col0 + 64 * b,
                   t0);
       tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm1_wq replaces _mm1_kernel with int8 weights
+// (chipmunk_tpu/kernels/csp_mlp.py:93, :118-131) and the fc1 half of
+// _fused_kernel's wq branch (:398-404).  Bound: operations, as the bf16
+// mm1 (2 bm bn C per selected block, 0.107 ms at the FLUX shape at 989
+// TFLOP/s).  Mm1W4 with one code a byte: transposed (act^T = W x^T), the
+// codes as wgmma's A operand built in registers from raw TMA boxes of the
+// [N, C] codes, [128 neurons][128 bytes] (128-byte swizzle), each byte
+// read once from memory and feeding two stages of 64 k (k = 128 q + x).
+// A fragment register is one two-byte read of a row (k, k + 1), one PRMT
+// and s8x2.  x by TMA (NT tokens a CTA), the grid, the two fragment sets
+// and the epilogue (mid = fma(sum, w1s[n], b1[n]), the act's code, the
+// delta against the staged old act tile) are Mm1W4's.
+template <int NT, class CT, bool S2>
+struct Mm1Wq : Mm1W4<NT, CT> {
+  using Base = Mm1W4<NT, CT>;
+  static constexpr int EVERY = 2;
+  struct Params : Base::Params {
+    const float* w2s;        // S2: w2's row scales
+  };
+  const Params& q;
+
+  __device__ Mm1Wq(const Params& p_) : Base(p_), q(p_) {}
+  // stage i: k [64 i, 64 i + 64), half i % 2 of raw box i / 2
+  __device__ void coords(int i, int& ka, int& ra, int& kb, int& rb) const {
+    kb = 64 * i;
+    rb = this->t0;
+    ka = ra = 0;
+  }
+  // A: fragment rows g and g + 8 of warp w are the neurons 16 w + 2 g and
+  // 16 w + 2 g + 1 of the warpgroup's 64, as Mm1W4's
+  __device__ void a_frag(int i, int c, const unsigned char* raw,
+                         uint32_t (&af)[1][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int r0 = 64 * c + 16 * warp + 2 * (lane >> 2);
+    const int x0 = 64 * (i & 1) + 2 * (lane & 3);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const uint32_t v = *reinterpret_cast<const uint16_t*>(
+              raw + swz128(r0 + rr, x0 + 16 * kk + 8 * h));
+          af[0][kk][2 * h + rr] = s8x2(__byte_perm(v, 0, 0x4140));
+        }
+  }
+
+  // S2 (the csp_mlp_fused path): Mm1W4::end with each packed delta
+  // multiplied by bf16(w2s[n]) in bf16 (one rounding of an exact product:
+  // the reference's multiply, which csp_mlp_mm2_wq otherwise makes in its
+  // producer), so that mm2 reads the delta as it is (Mm2Wq's PRE)
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    if constexpr (!S2) {
+      Base::end(acc, c, ring, act_s, bar);
+    } else {
+      constexpr int ES = Base::ES;
+      const int n = this->n0 + 64 * c + 16 * ((threadIdx.x / 32) % 4) +
+                    2 * ((threadIdx.x & 31) >> 2);
+      const float2 ws = __ldg(reinterpret_cast<const float2*>(q.w1s + n));
+      const float2 bb = __bfloat1622float2(
+          __ldg(reinterpret_cast<const __nv_bfloat162*>(q.b1 + n)));
+      const float2 s2 = __ldg(reinterpret_cast<const float2*>(q.w2s + n));
+      const __nv_bfloat162 sc = __floats2bfloat162_rn(s2.x, s2.y);
+      this->each(acc, c, [&](float& a0, float& a1, int, int, int) {
+        a0 = __uint_as_float(
+            (uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(a0, ws.x, bb.x))) |
+            (uint32_t)act_code<CT>(gelu_tanh(__fmaf_rn(a1, ws.y, bb.y)))
+                << 16);
+      });
+      mbar_wait(bar, 0);
+      this->each(acc, c, [&](float& a0, float&, int j, int r, int nl) {
+        const int x = nl * ES;
+        CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (NT * 128) +
+                                      swz128(r, x & 127) + 1024 * j);
+        const float2 old = ld2(e);
+        const uint32_t w = __float_as_uint(a0);
+        const float2 a = put_codes(e, w & 0xffff, w >> 16);
+        a0 = __uint_as_float(bf2_u32(
+            __hmul2(u32_bf2(pack_bf16(a.x - old.x, a.y - old.y)), sc)));
+      });
+      bar_sync(1, 256);                // both consumers are past the ring
+      this->each(acc, c, [&](float& a0, float&, int j, int r, int nl) {
+        *reinterpret_cast<uint32_t*>(ring + (nl >> 6) * (NT * 128) +
+                                     swz128(r, (nl & 63) * 2) + 1024 * j) =
+            __float_as_uint(a0);
+      });
+      fence_async();
+      bar_sync(1, 256);
+      if (threadIdx.x == 128) {
+        for (int b = 0; b < ES; ++b)
+          tma_store(&q.act_map, smem_u32(act_s) + b * NT * 128,
+                    this->n0 + b * 128 / ES, this->t0);
+        for (int b = 0; b < 2; ++b)
+          tma_store(&q.pk_map, smem_u32(ring) + b * NT * 128,
+                    this->col0 + 64 * b, this->t0);
+        tma_store_commit_wait();
+      }
     }
   }
 };
@@ -1226,6 +1303,114 @@ struct Mm2W4 {
       for (int b = 0; b < 2 * ES; ++b)
         tma_store(&p.out_map, smem_u32(out_s) + b * GM * 128,
                   col(b * 128 / ES), t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// csp_mlp_mm2_wq replaces _mm2_kernel with int8 weights (:216, :249-256)
+// and the fc2 half of _fused_kernel's wq branch (:446-452).  Bound:
+// operations, 0.107 ms at the FLUX shape.  Mm2W4 with one code a byte:
+// out^T = W^T delta^T, the codes of the stage's 64 k rows by TMA as MT raw
+// boxes [64][128 bytes] (128-byte swizzle), each byte read once: a CTA
+// per (128 tokens, CW = 128 MT output columns [cb, cb + CW)); a consumer
+// warpgroup takes 64 columns of each box (MT m64 tiles).  Two
+// ldmatrix.trans a box and stage give a thread, for k pairs, the bytes of
+// two neighbouring columns, which one PRMT parts into its fragment rows g
+// and g + 8 (a column pair) and s8x2 converts.  The delta is scaled by
+// bf16(w2s[k]) in place by the producer's warps 1-3 (Mm2W4::convert), or,
+// with PRE (the csp_mlp_fused path), arrives scaled from Mm1Wq's epilogue
+// (22% faster at the FLUX shape on an H100).  The out tile comes in and
+// goes out by TMA.  MT 2 (256 columns) where C allows, else 1 (two
+// fragment sets; 60% slower at the FLUX shape: the scaling is paid twice
+// per product).
+template <int MT_, class CT, bool PRE>
+struct Mm2Wq : Mm2W4<CT> {
+  using Base = Mm2W4<CT>;
+  static constexpr bool CONVERT = !PRE;
+  static constexpr int MT = MT_, CW = 128 * MT_;    // output columns
+  static constexpr int ES = sizeof(CT);              // bytes of an entry
+  static constexpr int EXTRA = GM * CW * ES;         // the out tile
+  static constexpr int RAW = MT * 64 * 128;
+  static constexpr int FIT =
+      (sm90::SMEM_MAX - 1024 - EXTRA - 256) / (Base::BN * GK + RAW);
+  static constexpr int ST = FIT >= 6 ? 6 : FIT, RS = ST;
+
+  __device__ Mm2Wq(const typename Base::Params& p_) : Base(p_) {
+    this->cb = blockIdx.y * CW;
+  }
+  __device__ void side_load(uint32_t extra, uint32_t bar) const {
+    mbar_expect_tx(bar, EXTRA);
+    for (int b = 0; b < MT * ES; ++b)
+      tma_load(extra + b * GM * 128, &this->p.out_map, bar,
+               this->cb + b * 128 / ES, this->t0, 0);
+  }
+  __device__ void raw_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                           int i) const {
+    for (int b = 0; b < MT; ++b)
+      tma_load(dst + b * 64 * 128, map, bar, this->cb + 128 * b,
+               this->krow(i), 0);
+  }
+  // A: as Mm2W4's, the box of tile mt at byte 8192 mt
+  __device__ void a_frag(int, int c, const unsigned char* raw,
+                         uint32_t (&af)[MT][4][4]) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int col0 = 64 * c + 16 * warp;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int kp = 0; kp < 2; ++kp) {
+        uint32_t v[4];
+        ldsm_x4_t(v, raw + 64 * 128 * mt + swz128(32 * kp + lane, col0));
+#pragma unroll
+        for (int m = 0; m < 4; ++m) {
+          const int kk = 2 * kp + m / 2, hh = m % 2;
+          af[mt][kk][2 * hh] = s8x2(__byte_perm(v[m], 0, 0x4240));
+          af[mt][kk][2 * hh + 1] = s8x2(__byte_perm(v[m], 0, 0x4341));
+        }
+      }
+  }
+
+  // fn(a0, a1, entry): as Mm2W4::each, over the MT tiles (tile columns
+  // 128 mt + 64 c + 16 warp + 2 g (+ 1))
+  template <class F>
+  __device__ void each(float* acc, int c, unsigned char* out_s, F fn) const {
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int bc = 64 * c + 16 * warp + 2 * (lane >> 2);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int x = (128 * mt + bc) * ES;
+          fn(acc[64 * mt + 4 * j + e], acc[64 * mt + 4 * j + e + 2],
+             reinterpret_cast<CT*>(out_s + (x >> 7) * (GM * 128) +
+                                   swz128(2 * (lane & 3) + e, x & 127) +
+                                   1024 * j));
+        }
+  }
+  template <int A>
+  __device__ void begin(float (&acc)[A], int c, unsigned char* out_s,
+                        uint32_t bar) {
+    mbar_wait(bar, 0);
+    each(acc, c, out_s, [](float& a0, float& a1, const CT* e) {
+      const float2 v = ld2(e);
+      a0 = v.x;
+      a1 = v.y;
+    });
+  }
+  template <int A>
+  __device__ void end(float (&acc)[A], int c, unsigned char*,
+                      unsigned char* out_s, uint32_t) {
+    each(acc, c, out_s,
+         [](float& a0, float& a1, CT* e) { put2(e, a0, a1); });
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < MT * ES; ++b)
+        tma_store(&this->p.out_map, smem_u32(out_s) + b * GM * 128,
+                  this->cb + b * 128 / ES, this->t0);
       tma_store_commit_wait();
     }
   }
@@ -1465,6 +1650,107 @@ struct Mm1A8W4 {
       for (int b = 0; b < BNB / 128; ++b)
         tma_store(&p.d8_map, smem_u32(ring) + b * TOK * 128,
                   j * BNB + 128 * b, t0);
+      tma_store_commit_wait();
+    }
+  }
+};
+
+// A neuron block wider than 256: Mm1A8W4 per BNB-neuron sub-block s of
+// selected block j, grid (T / TOK, jmax * bn / BNB), in the split mode of
+// Mm1A8Part (the act cache refreshed; ds and each token's sub-block max
+// of |ds| written; sd and d8 by a8_split_finish_kernel).
+template <int MT_, int TOK, class CT>
+struct Mm1A8W4Part : Mm1A8W4<MT_, TOK, CT> {
+  using Base = Mm1A8W4<MT_, TOK, CT>;
+  using Base::BNB;
+  struct Params : Base::Params {
+    float* ds;
+    float* pmax;
+    int bn;
+  };
+  const Params& q;
+  int s;                     // the sub-block
+
+  __device__ Mm1A8W4Part(const Params& p_) : Base(p_), q(p_) {
+    const int S = q.bn / BNB, m = this->t0 / q.bm;
+    this->j = blockIdx.y / S;
+    s = blockIdx.y % S;
+    this->on = this->j < count_of(q.counts, m, q.jmax);
+    this->n0 = this->on
+                   ? q.inds[(size_t)m * q.jmax + this->j] * q.bn + s * BNB
+                   : 0;
+  }
+  __device__ void idle() const {}
+
+  // One pass per entry, as Mm1A8Part's, in Mm1A8W4's operations; then each
+  // token's max of |ds| over the quad's rows and the eight warps (through
+  // the raw boxes, free once both consumers are past them)
+  template <int A>
+  __device__ void end(int (&acc)[A], int c, unsigned char* ring,
+                      unsigned char* act_s, uint32_t bar) {
+    constexpr int ES = Base::ES;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x & 31;
+    const int t0 = this->t0, j = this->j, n0 = this->n0, S = q.bn / BNB;
+    const size_t P = (size_t)q.jmax * q.bn;
+    float* ds = q.ds + (size_t)t0 * P + j * q.bn + s * BNB;
+    float rmax[TOK / 8][2] = {};
+    mbar_wait(bar, 0);
+    this->each(acc, c, [&](int& a0, int& a1, int, int jt, int r, int nl) {
+      const float sx = __ldg(q.sx + t0 + 8 * jt + r);
+      const float2 ws = __ldg(reinterpret_cast<const float2*>(q.w1s + n0 + nl));
+      const float2 bb = __bfloat1622float2(__ldg(
+          reinterpret_cast<const __nv_bfloat162*>(q.b1 + n0 + nl)));
+      const float2 vs = __ldg(reinterpret_cast<const float2*>(q.w2s + n0 + nl));
+      const int x = nl * ES;
+      CT* e = reinterpret_cast<CT*>(act_s + (x >> 7) * (TOK * 128) +
+                                    swz128(r, x & 127) + 1024 * jt);
+      const float2 old = ld2(e);
+      const float2 a = put_codes(
+          e,
+          act_code<CT>(gelu_tanh(__fmaf_rn((float)(a0 >> 4),
+                                           __fmul_rn(sx, ws.x), bb.x))),
+          act_code<CT>(gelu_tanh(__fmaf_rn((float)(a1 >> 4),
+                                           __fmul_rn(sx, ws.y), bb.y))));
+      const float v0 = __fmul_rn(a.x - old.x, vs.x);
+      const float v1 = __fmul_rn(a.y - old.y, vs.y);
+      *reinterpret_cast<float2*>(ds + (8 * jt + r) * P + nl) =
+          make_float2(v0, v1);
+      float& m = rmax[jt][r & 1];
+      m = nanmax(m, nanmax(fabsf(v0), fabsf(v1)));
+    });
+#pragma unroll
+    for (int jt = 0; jt < TOK / 8; ++jt)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = rmax[jt][e];
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 4));
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 8));
+        v = nanmax(v, __shfl_xor_sync(~0u, v, 16));
+        rmax[jt][e] = v;
+      }
+    float* red = reinterpret_cast<float*>(ring + Base::ST * TOK * GK);
+    bar_sync(1, 256);                  // both consumers are past the ring
+    if (lane < 4) {
+#pragma unroll
+      for (int jt = 0; jt < TOK / 8; ++jt)
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+          red[(4 * c + warp) * TOK + 8 * jt + 2 * lane + e] = rmax[jt][e];
+    }
+    bar_sync(1, 256);
+    const int tid = threadIdx.x - 128;
+    if (tid < TOK) {
+      float v = red[tid];
+#pragma unroll
+      for (int w = 1; w < 8; ++w) v = nanmax(v, red[w * TOK + tid]);
+      q.pmax[((size_t)(t0 + tid) * q.jmax + j) * S + s] = v;
+    }
+    fence_async();
+    bar_sync(1, 256);
+    if (threadIdx.x == 128) {
+      for (int b = 0; b < BNB * ES / 128; ++b)
+        tma_store(&q.act_map, smem_u32(act_s) + b * TOK * 128,
+                  n0 + b * 128 / ES, t0);
       tma_store_commit_wait();
     }
   }
@@ -1755,16 +2041,23 @@ extern "C" int chipmunk_csp_mlp_mm2(const void* packed, const void* w2,
   });
 }
 
-template <int NT, class CT>
-static int launch_mm1_w4(const void* x, const void* w1q, const void* w1s,
-                         const void* b1, void* act_cache, const void* inds,
-                         const void* counts, void* packed, int T, int C,
-                         int N, int jmax, int bn, int bm,
-                         cudaStream_t stream) {
-  using Op = Mm1W4<NT, CT>;
+template <class P, class = void>
+struct has_w2s : std::false_type {};
+template <class P>
+struct has_w2s<P, std::void_t<decltype(P::w2s)>> : std::true_type {};
+
+// The quantized-weight mm1 with bf16 x (Mm1W4 or Mm1Wq): wbytes, the
+// bytes of a row of codes (C / 2 or C); w2s for Mm1Wq's S2.
+template <class Op>
+static int launch_mm1_q(const void* x, const void* w1q, const void* w1s,
+                        const void* b1, void* act_cache, const void* inds,
+                        const void* counts, void* packed, const void* w2s,
+                        int T, int C, int N, int jmax, int bn, int bm,
+                        int wbytes, cudaStream_t stream) {
+  constexpr int NT = Op::BN;
   typename Op::Params p{};
   CUtensorMap ta, tb;
-  int err = make_byte_map(&ta, w1q, N, C / 2, 128);
+  int err = make_byte_map(&ta, w1q, N, wbytes, 128);
   if (err == 0) err = make_byte_map(&tb, x, T, (long long)C * 2, NT, 2);
   if (err == 0)
     err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, NT,
@@ -1782,20 +2075,22 @@ static int launch_mm1_w4(const void* x, const void* w1q, const void* w1s,
   p.bn = bn;
   p.bm = bm;
   p.C = C;
+  if constexpr (has_w2s<typename Op::Params>::value) p.w2s = (const float*)w2s;
   return launch_gemm<__nv_bfloat16, Op>(ta, tb, p,
                                         dim3(T / NT, jmax * (bn / 128)),
                                         stream);
 }
 
-template <class CT>
-static int launch_mm2_w4(const void* packed, const void* w2q,
-                         const void* w2s, void* out_cache, const void* inds,
-                         const void* counts, int T, int C, int N, int jmax,
-                         int bn, int bm, cudaStream_t stream) {
-  using Op = Mm2W4<CT>;
+// The quantized-weight mm2 with a bf16 delta (Mm2W4 or Mm2Wq): wbytes as
+// above, tiles the CTAs across C.
+template <class Op>
+static int launch_mm2_q(const void* packed, const void* w2q, const void* w2s,
+                        void* out_cache, const void* inds, const void* counts,
+                        int T, int C, int N, int jmax, int bn, int bm,
+                        int wbytes, int tiles, cudaStream_t stream) {
   typename Op::Params p{};
   CUtensorMap ta, tb;
-  int err = make_byte_map(&ta, w2q, N, C / 2, 64);
+  int err = make_byte_map(&ta, w2q, N, wbytes, 64);
   if (err == 0)
     err = make_byte_map(&tb, packed, T, (long long)jmax * bn * 2, GM, 2);
   if (err == 0)
@@ -1809,62 +2104,65 @@ static int launch_mm2_w4(const void* packed, const void* w2q,
   p.bn = bn;
   p.bm = bm;
   p.C = C;
-  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p, dim3(T / GM, C / 256),
+  return launch_gemm<__nv_bfloat16, Op>(ta, tb, p, dim3(T / GM, tiles),
                                         stream);
 }
 
-// w4: the weights are int4 plane-packed ([N, C/2] bytes), on the Hopper
-// kernel (bm and bn multiples of 128, C of 256; a CTA takes 256 tokens
-// where bm allows, else 128); else int8, on mma.sync.  (The mma.sync
-// kernels keep their W4 parameter; it is false in every instantiation.)
+// w4: the weights are int4 plane-packed ([N, C/2] bytes; C a multiple of
+// 256), else int8 ([N, C]; C of 128).  bm and bn multiples of 128; a CTA
+// takes 256 tokens where bm allows, else 128.  w2s (int8 only; else
+// null): the packed delta comes out multiplied by bf16(w2s[n]), for
+// chipmunk_csp_mlp_mm2_wq with prescaled (the csp_mlp_fused path).
 extern "C" int chipmunk_csp_mlp_mm1_wq(const void* x, const void* w1q,
                                        const void* w1s, const void* b1,
                                        void* act_cache, const void* inds,
                                        const void* counts, void* packed,
-                                       int T, int C, int N, int jmax, int bn,
-                                       int bm, int w4, int act_bf16,
-                                       void* stream) {
-  if (w4 && (bn % 128 || bm % GM || T % bm || C % 256))
+                                       const void* w2s, int T, int C, int N,
+                                       int jmax, int bn, int bm, int w4,
+                                       int act_bf16, void* stream) {
+  if (bn % 128 || bm % GM || T % bm || C % (w4 ? 256 : 128) ||
+      (w4 && w2s != nullptr))
     return (int)cudaErrorInvalidValue;
   return with_cache(act_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    if (w4) {
-      auto launch =
-          bm % 256 ? launch_mm1_w4<128, CT> : launch_mm1_w4<256, CT>;
-      return launch(x, w1q, w1s, b1, act_cache, inds, counts, packed, T, C, N,
-                    jmax, bn, bm, (cudaStream_t)stream);
-    }
-    dim3 grid(T / BM, jmax * (bn / BN));
-    csp_mlp_mm1_wq_kernel<false, CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)x, (const int8_t*)w1q, (const float*)w1s,
-        (const __nv_bfloat16*)b1, (CT*)act_cache, (const int*)inds,
-        (const int*)counts, (__nv_bfloat16*)packed, C, N, jmax, bn, bm);
-    return (int)cudaGetLastError();
+    const bool t256 = bm % 256 == 0, s2 = w2s != nullptr;
+    auto launch =
+        w4 ? (t256 ? launch_mm1_q<Mm1W4<256, CT>>
+                   : launch_mm1_q<Mm1W4<128, CT>>)
+        : s2 ? (t256 ? launch_mm1_q<Mm1Wq<256, CT, true>>
+                     : launch_mm1_q<Mm1Wq<128, CT, true>>)
+             : (t256 ? launch_mm1_q<Mm1Wq<256, CT, false>>
+                     : launch_mm1_q<Mm1Wq<128, CT, false>>);
+    return launch(x, w1q, w1s, b1, act_cache, inds, counts, packed, w2s, T,
+                  C, N, jmax, bn, bm, w4 ? C / 2 : C, (cudaStream_t)stream);
   });
 }
 
-// w4 (int4, Hopper): C a multiple of 256, bm of 128, bn of 64; N the rows
-// of w2q
+// w4: int4 (C a multiple of 256, 256 columns a CTA: both planes of 128
+// byte columns), else int8 (C of 128; 256 columns a CTA where C allows,
+// else 128).  bm a multiple of 128, bn of 64; N the rows of w2q; w2s at a
+// 16-byte boundary.  prescaled (int8 only): the packed delta is already
+// multiplied by bf16(w2s[k]) (chipmunk_csp_mlp_mm1_wq with w2s).
 extern "C" int chipmunk_csp_mlp_mm2_wq(const void* packed, const void* w2q,
                                        const void* w2s, void* out_cache,
                                        const void* inds, const void* counts,
                                        int T, int C, int N, int jmax, int bn,
-                                       int bm, int w4, int out_bf16,
-                                       void* stream) {
-  if (w4 && (C % 256 || bm % GM || T % bm || bn % 64 ||
-             reinterpret_cast<uintptr_t>(w2s) % 16))
+                                       int bm, int w4, int prescaled,
+                                       int out_bf16, void* stream) {
+  if (C % (w4 ? 256 : 128) || bm % GM || T % bm || bn % 64 ||
+      reinterpret_cast<uintptr_t>(w2s) % 16 || (w4 && prescaled))
     return (int)cudaErrorInvalidValue;
   return with_cache(out_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    if (w4)
-      return launch_mm2_w4<CT>(packed, w2q, w2s, out_cache, inds, counts, T,
-                               C, N, jmax, bn, bm, (cudaStream_t)stream);
-    dim3 grid(T / BM, C / BN);
-    csp_mlp_mm2_wq_kernel<false, CT><<<grid, NT, 0, (cudaStream_t)stream>>>(
-        (const __nv_bfloat16*)packed, (const int8_t*)w2q, (const float*)w2s,
-        (CT*)out_cache, (const int*)inds, (const int*)counts, C, jmax, bn,
-        bm);
-    return (int)cudaGetLastError();
+    const bool c256 = C % 256 == 0;
+    auto launch = w4 ? launch_mm2_q<Mm2W4<CT>>
+                  : c256 ? (prescaled ? launch_mm2_q<Mm2Wq<2, CT, true>>
+                                      : launch_mm2_q<Mm2Wq<2, CT, false>>)
+                         : (prescaled ? launch_mm2_q<Mm2Wq<1, CT, true>>
+                                      : launch_mm2_q<Mm2Wq<1, CT, false>>);
+    return launch(packed, w2q, w2s, out_cache, inds, counts, T, C, N, jmax,
+                  bn, bm, w4 ? C / 2 : C, c256 ? C / 256 : C / 128,
+                  (cudaStream_t)stream);
   });
 }
 
@@ -1875,13 +2173,15 @@ extern "C" int chipmunk_quant_rows(const void* x, void* x8, void* sx, int T,
   return (int)cudaGetLastError();
 }
 
-template <int BN, class CT>
+// With PART, the split mode (Mm1A8Part) over BN-neuron sub-blocks of
+// the bn-neuron blocks; else bn == BN.
+template <int BN, class CT, bool PART>
 static int launch_mm1_a8(const void* x8, const void* sx, const void* w1q,
                          const void* w1s, const void* b1, const void* w2s,
                          void* act_cache, const void* inds, const void* counts,
-                         void* d8, void* sd, int T, int C, int N, int jmax,
-                         int bm, cudaStream_t stream) {
-  using Op = Mm1A8<BN, CT>;
+                         void* d8, void* sd, void* ds, void* pmax, int T, int C,
+                         int N, int jmax, int bn, int bm, cudaStream_t stream) {
+  using Op = std::conditional_t<PART, Mm1A8Part<BN, CT>, Mm1A8<BN, CT>>;
   typename Op::Params p{};
   CUtensorMap ta, tb;
   int err = make_byte_map(&ta, x8, T, C, GM);
@@ -1889,7 +2189,7 @@ static int launch_mm1_a8(const void* x8, const void* sx, const void* w1q,
   if (err == 0)
     err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, GM,
                         Op::ES);
-  if (err == 0)
+  if (err == 0 && !PART)
     err = make_byte_map(&p.d8_map, d8, T, (long long)jmax * BN, GM);
   if (err != 0) return err;
   p.sx = (const float*)sx;
@@ -1903,17 +2203,24 @@ static int launch_mm1_a8(const void* x8, const void* sx, const void* w1q,
   p.C = C;
   p.jmax = jmax;
   p.bm = bm;
-  return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / GM, jmax), stream);
+  if constexpr (PART) {
+    p.ds = (float*)ds;
+    p.pmax = (float*)pmax;
+    p.bn = bn;
+  }
+  return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / GM, jmax * (bn / BN)),
+                                 stream);
 }
 
-template <int MT, int TOK, class CT>
+template <int MT, int TOK, class CT, bool PART>
 static int launch_mm1_a8w4(const void* x8, const void* sx, const void* w1q,
                            const void* w1s, const void* b1, const void* w2s,
                            void* act_cache, const void* inds,
-                           const void* counts, void* d8, void* sd, int T,
-                           int C, int N, int jmax, int bm,
-                           cudaStream_t stream) {
-  using Op = Mm1A8W4<MT, TOK, CT>;
+                           const void* counts, void* d8, void* sd, void* ds,
+                           void* pmax, int T, int C, int N, int jmax, int bn,
+                           int bm, cudaStream_t stream) {
+  using Op = std::conditional_t<PART, Mm1A8W4Part<MT, TOK, CT>,
+                                Mm1A8W4<MT, TOK, CT>>;
   typename Op::Params p{};
   CUtensorMap ta, tb;
   int err = make_byte_map(&ta, w1q, N, C / 2, Op::BNB);
@@ -1921,7 +2228,7 @@ static int launch_mm1_a8w4(const void* x8, const void* sx, const void* w1q,
   if (err == 0)
     err = make_byte_map(&p.act_map, act_cache, T, (long long)N * Op::ES, TOK,
                         Op::ES);
-  if (err == 0)
+  if (err == 0 && !PART)
     err = make_byte_map(&p.d8_map, d8, T, (long long)jmax * Op::BNB, TOK);
   if (err != 0) return err;
   p.sx = (const float*)sx;
@@ -1935,34 +2242,59 @@ static int launch_mm1_a8w4(const void* x8, const void* sx, const void* w1q,
   p.C = C;
   p.jmax = jmax;
   p.bm = bm;
-  return launch_gemm<int8_t, Op>(ta, tb, p, dim3(T / TOK, jmax), stream);
+  if constexpr (PART) {
+    p.ds = (float*)ds;
+    p.pmax = (float*)pmax;
+    p.bn = bn;
+  }
+  return launch_gemm<int8_t, Op>(ta, tb, p,
+                                 dim3(T / TOK, jmax * (bn / Op::BNB)), stream);
 }
 
-// w4: int4 weights (bm a multiple of 64, C of 256; a CTA takes 128
-// tokens where bm allows, else 64); else int8 (bm a multiple of 128)
+// bn a multiple of 128.  w4: int4 weights (bm a multiple of 64, C of 256;
+// a CTA takes 128 tokens where bm allows, else 64); else int8 (bm a
+// multiple of 128).  bn > 256 takes the split mode in 256-neuron
+// sub-blocks (128 where 256 does not divide bn), with the scratch ds (f32
+// [T, jmax bn]) and pmax (f32, T jmax bn / 128 at least), then
+// a8_split_finish_kernel; else one pass (ds and pmax unused).
 extern "C" int chipmunk_csp_mlp_mm1_a8(const void* x8, const void* sx,
                                        const void* w1q, const void* w1s,
                                        const void* b1, const void* w2s,
                                        void* act_cache, const void* inds,
                                        const void* counts, void* d8, void* sd,
-                                       int T, int C, int N, int jmax, int bn,
-                                       int bm, int w4, int act_bf16,
-                                       void* stream) {
-  if (bn != 128 && bn != 256) return (int)cudaErrorInvalidValue;
+                                       void* ds, void* pmax, int T, int C,
+                                       int N, int jmax, int bn, int bm, int w4,
+                                       int act_bf16, void* stream) {
+  const bool split = bn > 256;
+  if (bn % 128 || (split && (ds == nullptr || pmax == nullptr)))
+    return (int)cudaErrorInvalidValue;
   if (w4 ? bm % 64 || T % bm || C % 256 : bm % GM || C % GK)
     return (int)cudaErrorInvalidValue;
-  return with_cache(act_bf16, [&](auto tag) {
+  const int sub = bn % 256 ? 128 : 256;
+  const int err = with_cache(act_bf16, [&](auto tag) {
     using CT = std::remove_pointer_t<decltype(tag)>;
-    const bool t128 = bm % 128 == 0;
+    const bool t128 = bm % 128 == 0, two = sub == 256;
     auto launch =
-        w4 ? (bn == 256 ? (t128 ? launch_mm1_a8w4<2, 128, CT>
-                                : launch_mm1_a8w4<2, 64, CT>)
-                        : (t128 ? launch_mm1_a8w4<1, 128, CT>
-                                : launch_mm1_a8w4<1, 64, CT>))
-           : (bn == 256 ? launch_mm1_a8<256, CT> : launch_mm1_a8<128, CT>);
+        w4 ? (split ? (two ? (t128 ? launch_mm1_a8w4<2, 128, CT, true>
+                                   : launch_mm1_a8w4<2, 64, CT, true>)
+                           : (t128 ? launch_mm1_a8w4<1, 128, CT, true>
+                                   : launch_mm1_a8w4<1, 64, CT, true>))
+                    : (two ? (t128 ? launch_mm1_a8w4<2, 128, CT, false>
+                                   : launch_mm1_a8w4<2, 64, CT, false>)
+                           : (t128 ? launch_mm1_a8w4<1, 128, CT, false>
+                                   : launch_mm1_a8w4<1, 64, CT, false>)))
+           : (split ? (two ? launch_mm1_a8<256, CT, true>
+                           : launch_mm1_a8<128, CT, true>)
+                    : (two ? launch_mm1_a8<256, CT, false>
+                           : launch_mm1_a8<128, CT, false>));
     return launch(x8, sx, w1q, w1s, b1, w2s, act_cache, inds, counts, d8, sd,
-                  T, C, N, jmax, bm, (cudaStream_t)stream);
+                  ds, pmax, T, C, N, jmax, bn, bm, (cudaStream_t)stream);
   });
+  if (err != 0 || !split) return err;
+  a8_split_finish_kernel<<<T, NT, 0, (cudaStream_t)stream>>>(
+      (const float*)ds, (const float*)pmax, (const int*)counts, (int8_t*)d8,
+      (float*)sd, jmax, bn, bn / sub, bm);
+  return (int)cudaGetLastError();
 }
 
 // w2: w4 ? the int4 codes [N, C/2] (bm a multiple of 64, C of 256) :

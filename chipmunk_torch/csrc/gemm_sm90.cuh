@@ -58,11 +58,12 @@
 //     the ring is free once both consumers are past it), with generic
 //     pointers to the ring and the extra space.
 //
-// A from registers (an Op with RAW, see Conv: the int4-weight pairs of
-// csp_mlp.cu, with bf16 x (w4) or int8 x (a8w4)).  The int4 codes are
-// the A operand: their bytes arrive by TMA in a ring of RS raw boxes of
-// RAW bytes past the stages, one box every EVERY stages (raw_load(dst,
-// map, bar, q) issues box q from the first map, ta), and each consumer
+// A from registers (an Op with RAW, see Conv: the quantized-weight pairs
+// of csp_mlp.cu, int8 or int4 weights with bf16 x (wq, w4) and int4 with
+// int8 x (a8w4)).  The codes are the A operand: their bytes arrive by TMA
+// in a ring of RS raw boxes of RAW bytes past the stages, one box every
+// EVERY stages (raw_load(dst, map, bar, q) issues box q from the first
+// map, ta), and each consumer
 // warpgroup builds its A fragments of a stage from the box in registers
 // (a_frag(i, c, box, af): MT m64 tiles x 4 k-steps x 4 registers, bf16
 // pairs of the m64k16 fragment or four s8 of the m64k32 one) and runs

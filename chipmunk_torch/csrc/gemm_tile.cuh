@@ -1,6 +1,6 @@
-// Tile machinery of the GEMM-shaped kernels (csp_mlp.cu, int8_probe.cu):
-// mma.sync fed by ldmatrix from shared memory, 256 threads as 8 warps in
-// 2 (rows) x 4 (cols).
+// Tile machinery of the int8/bf16 probe (int8_probe.cu): mma.sync fed by
+// ldmatrix from shared memory, 256 threads as 8 warps in 2 (rows) x 4
+// (cols).
 //
 // bf16 tiles: 128 x 128 outputs, k tiles of 32, each warp a 64 x 32 patch.
 // s8 tiles (the int8 probe): (32 MT) x (32 NTW) outputs, k tiles of 64
@@ -9,8 +9,7 @@
 // they are staged through registers and transposed in 4x4 byte blocks
 // (prmt) into a [n][k] tile whose 16-byte chunks are XOR-swizzled: the
 // ldmatrix reads of that tile are free of bank conflicts, the stores
-// conflict at most 2-way.  bf16 weights staged through registers may be
-// int8 or one nibble plane of int4 (w_bytes).
+// conflict at most 2-way.
 #pragma once
 
 #include "common.cuh"
@@ -24,11 +23,6 @@ constexpr int NT = 256, STAGES = 3;
 constexpr int BM = 128, BN = 128, BK = 32;
 constexpr int LDA = BK + 8;    // [row][k] tiles: ldmatrix rows hit distinct banks
 constexpr int LDB = BN + 8;    // [k][col] tiles
-
-struct Stage1 {                // x rows and w1t rows, both [row][k]
-  __nv_bfloat16 a[BM * LDA];
-  __nv_bfloat16 b[BN * LDA];
-};
 
 struct Stage2 {                // A rows [row][k], B rows [k][col]
   __nv_bfloat16 a[BM * LDA];
@@ -125,22 +119,6 @@ __device__ __forceinline__ void for_each_pair(F fn) {
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         fn(mt, nt, h, wm * 64 + mt * 16 + g + 8 * h, wn * 32 + nt * 8 + 2 * t);
-}
-
-// Weight bytes as staged: int8 as they are, or one nibble plane of the
-// int4 format (offset-binary, plane-packed: a byte holds element i in its
-// low and element i + n/2 in its high nibble) widened to int8 in [-8, 7].
-__device__ __forceinline__ uint32_t w_bytes(uint32_t v, int plane) {
-  if (plane < 0) return v;
-  return __vsub4((plane ? v >> 4 : v) & 0x0F0F0F0Fu, 0x08080808u);
-}
-
-// int8 -> bf16 (exact): one word of 4 int8 -> two words of bf16 pairs
-__device__ __forceinline__ uint2 s8x4_to_bf16(uint32_t v) {
-  return make_uint2(pack_bf16((float)(int8_t)(v & 0xff),
-                              (float)(int8_t)((v >> 8) & 0xff)),
-                    pack_bf16((float)(int8_t)((v >> 16) & 0xff),
-                              (float)(int8_t)(v >> 24)));
 }
 
 // ------------------------------------------------------------------- s8

@@ -52,10 +52,10 @@ _SIGNATURES = {
     'chipmunk_csp_hbm_attn': [_P] * 5 + [_I] * 6 + [_F, _P],
     'chipmunk_csp_mlp_mm1': [_P] * 7 + [_I] * 7 + [_P],
     'chipmunk_csp_mlp_mm2': [_P] * 5 + [_I] * 7 + [_P],
-    'chipmunk_csp_mlp_mm1_wq': [_P] * 8 + [_I] * 8 + [_P],
-    'chipmunk_csp_mlp_mm2_wq': [_P] * 6 + [_I] * 8 + [_P],
+    'chipmunk_csp_mlp_mm1_wq': [_P] * 9 + [_I] * 8 + [_P],
+    'chipmunk_csp_mlp_mm2_wq': [_P] * 6 + [_I] * 9 + [_P],
     'chipmunk_quant_rows': [_P] * 3 + [_I] * 2 + [_P],
-    'chipmunk_csp_mlp_mm1_a8': [_P] * 11 + [_I] * 8 + [_P],
+    'chipmunk_csp_mlp_mm1_a8': [_P] * 13 + [_I] * 8 + [_P],
     'chipmunk_csp_mlp_mm2_a8': [_P] * 6 + [_I] * 8 + [_P],
     'chipmunk_int8_probe_s8': [_P] * 3 + [_I] * 3 + [_P],
     'chipmunk_int8_probe_bf16': [_P] * 3 + [_I] * 3 + [_P],

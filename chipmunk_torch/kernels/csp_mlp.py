@@ -119,6 +119,14 @@ def _refresh(cache, act, rows, valid, act_cache):
     return new.view(fp8.FP8) if act_cache.dtype == fp8.FP8 else new
 
 
+def _prescale(packed, w2: QTensor, inds, bn: int) -> torch.Tensor:
+    """packed * bf16(w2's row scale) at each slot's neuron, in the packed
+    dtype: the reference's multiply of the wq mm2 (_mm2_kernel)."""
+    T, M = packed.shape[0], inds.shape[0]
+    s = _scale(w2)[_rows(inds, bn)].to(packed.dtype)        # [M, jmax*bn]
+    return (packed.reshape(M, T // M, -1) * s[:, None, :]).reshape(T, -1)
+
+
 def csp_mlp_mm1_plain(x, w1t, b1, act_cache, inds, counts, bn: int, bm: int
                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of mm1 (bf16, int8 or int4 QTensor w1t).  Returns (packed
@@ -151,11 +159,9 @@ def csp_mlp_mm2_plain(packed, w2, out_cache, inds, counts, bn: int, bm: int
     M, jmax = inds.shape
     rows = _rows(inds, bn)
     valid = _valid(counts, jmax, bn)
-    pk = packed.reshape(M, bm, -1)
     wq = isinstance(w2, QTensor)
-    if wq:
-        pk = pk * _scale(w2)[rows].to(pk.dtype)[:, None, :]
-    pk = pk.float()
+    pk = (_prescale(packed, w2, inds, bn) if wq else packed).reshape(
+        M, bm, -1).float()
     pk = torch.where(valid[:, None, :], pk, torch.zeros_like(pk))
     w = (_codes(w2) if wq else w2)[rows].float()
     out = out_cache.float().reshape(M, bm, C) + pk @ w
@@ -282,9 +288,9 @@ def _check_dtypes(name, cache, *pairs) -> int:
 def _check_tiles(name, C, bn, bm, a8: bool, w4: bool):
     if a8:
         bm_unit = 64 if w4 else 128
-        if bn not in (128, 256) or bm % bm_unit or C % 128:
-            raise ValueError(f'{name}: the a8 kernels take bn 128 or 256, '
-                             f'bm a multiple of {bm_unit} and C of 128')
+        if bn % 128 or bm % bm_unit or C % 128:
+            raise ValueError(f'{name}: the a8 kernels take bn a multiple of '
+                             f'128, bm of {bm_unit} and C of 128')
     elif bm % 128 or bn % 128 or C % 128:
         raise ValueError(f'{name}: bm, bn and C must be multiples of 128')
     if w4 and C % 256:
@@ -310,10 +316,14 @@ def kmajor_codes(w: QTensor) -> torch.Tensor:
 
 
 def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
-                bm: int = 128) -> Tuple[torch.Tensor, torch.Tensor]:
+                bm: int = 128, w2=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Stage 1.  x [T,C]; w1t [N,C] (bf16, or an int8/int4 QTensor: the
     ``wq``/``w4`` kernel); b1 [N]; act_cache [T,N] (updated in place).
-    Returns (packed delta [T, jmax*bn], act_cache)."""
+    Returns (packed delta [T, jmax*bn], act_cache).  With int8 weights and
+    ``w2`` (their fc2 QTensor) the packed delta comes out multiplied by
+    bf16 of w2's row scales, as ``csp_mlp_mm2(..., prescaled=True)`` takes
+    it (csp_mlp_fused's route: the card's mm1 epilogue makes the multiply
+    that its mm2 would make in place)."""
     _check_kernel_weight(w1t, 'csp_mlp_mm1')
     wq, w4 = isinstance(w1t, QTensor), _int4(w1t)
     T, C = x.shape
@@ -322,11 +332,17 @@ def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
     if _wshape(w1t) != (N, C) or b1.shape != (N,) \
             or act_cache.shape != (T, N) or N % bn:
         raise ValueError('csp_mlp_mm1: shapes do not match')
+    if w2 is not None and (not wq or w4 or not isinstance(w2, QTensor)
+                           or _int4(w2) or w2.q.shape[0] != N):
+        raise ValueError('csp_mlp_mm1: w2 scales the delta of the int8 '
+                         'pair only')
     inds, counts = _prep(inds, counts, T, bm, x.device)
     if x.device.type == 'cpu':
         packed, new = csp_mlp_mm1_plain(x, w1t, b1, act_cache, inds, counts,
                                         bn, bm)
         act_cache.copy_(new)
+        if w2 is not None:
+            packed = _prescale(packed, w2, inds, bn)
         return packed, act_cache
     name = ('csp_mlp_mm1_w4' if w4 else 'csp_mlp_mm1_wq' if wq
             else 'csp_mlp_mm1')
@@ -339,10 +355,12 @@ def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
     packed = torch.empty((T, jmax * bn), dtype=x.dtype, device=x.device)
     lib = _build.library('csp_mlp')
     if wq:
+        w2s = None if w2 is None else _flat_scale(w2)
         err = lib.chipmunk_csp_mlp_mm1_wq(
             x.data_ptr(), w.data_ptr(), _flat_scale(w1t).data_ptr(),
             b1.data_ptr(), act_cache.data_ptr(), inds.data_ptr(),
-            counts.data_ptr(), packed.data_ptr(), T, C, N, jmax, bn, bm,
+            counts.data_ptr(), packed.data_ptr(),
+            None if w2s is None else w2s.data_ptr(), T, C, N, jmax, bn, bm,
             int(w4), bf, _stream(x))
     else:
         err = lib.chipmunk_csp_mlp_mm1(
@@ -355,10 +373,12 @@ def csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts, bn: int = 128,
 
 
 def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
-                bm: int = 128) -> torch.Tensor:
+                bm: int = 128, prescaled: bool = False) -> torch.Tensor:
     """Stage 2: out_cache += packed @ w2[selected rows] (in place).
     packed [T, jmax*bn]; w2 [N, C] (bf16, or an int8/int4 QTensor: the
-    ``wq``/``w4`` kernel); out_cache [T, C]."""
+    ``wq``/``w4`` kernel); out_cache [T, C].  ``prescaled`` (int8
+    weights): the packed delta is already multiplied by bf16 of w2's row
+    scales (``csp_mlp_mm1(..., w2=w2)``)."""
     _check_kernel_weight(w2, 'csp_mlp_mm2')
     wq, w4 = isinstance(w2, QTensor), _int4(w2)
     w = w2.q if wq else w2
@@ -366,8 +386,12 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
     if packed.shape != (T, inds.shape[1] * bn) or _wshape(w2)[1] != C \
             or w.shape[0] % bn:
         raise ValueError('csp_mlp_mm2: shapes do not match')
+    if prescaled and (not wq or w4):
+        raise ValueError('csp_mlp_mm2: prescaled takes int8 weights only')
     inds, counts = _prep(inds, counts, T, bm, packed.device)
     if packed.device.type == 'cpu':
+        if prescaled:          # the codes with unit scales
+            w2 = QTensor(w2.q, torch.ones_like(w2.scale))
         return out_cache.copy_(csp_mlp_mm2_plain(packed, w2, out_cache, inds,
                                                  counts, bn, bm))
     name = ('csp_mlp_mm2_w4' if w4 else 'csp_mlp_mm2_wq' if wq
@@ -382,7 +406,8 @@ def csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn: int = 128,
         err = lib.chipmunk_csp_mlp_mm2_wq(
             packed.data_ptr(), w.data_ptr(), _flat_scale(w2).data_ptr(),
             out_cache.data_ptr(), inds.data_ptr(), counts.data_ptr(), T, C,
-            w.shape[0], jmax, bn, bm, int(w4), bf, _stream(packed))
+            w.shape[0], jmax, bn, bm, int(w4), int(prescaled), bf,
+            _stream(packed))
     else:
         err = lib.chipmunk_csp_mlp_mm2(
             packed.data_ptr(), w.data_ptr(), out_cache.data_ptr(),
@@ -438,11 +463,21 @@ def csp_mlp_mm1_a8(x8, sx, w1t: QTensor, b1, w2s, act_cache, inds, counts,
     jmax = inds.shape[1]
     d8 = torch.empty((T, jmax * bn), dtype=torch.int8, device=x8.device)
     sd = torch.empty((T, jmax), dtype=torch.float32, device=x8.device)
+    # bn > 256: the kernel runs per sub-block of 256 (or 128) neurons into
+    # the scratch ds and the sub-blocks' row maxima, then forms d8 and sd
+    ds = pmax = None
+    if bn > 256:
+        ds = torch.empty((T, jmax * bn), dtype=torch.float32,
+                         device=x8.device)
+        pmax = torch.empty((T, jmax * bn // 128), dtype=torch.float32,
+                           device=x8.device)
     _build.check(_build.library('csp_mlp').chipmunk_csp_mlp_mm1_a8(
         x8.data_ptr(), sx.data_ptr(), w1t.q.data_ptr(), w1s.data_ptr(),
         b1.data_ptr(), w2s.data_ptr(), act_cache.data_ptr(), inds.data_ptr(),
-        counts.data_ptr(), d8.data_ptr(), sd.data_ptr(), T, C, N, jmax, bn,
-        bm, int(w4), bf, _stream(x8)), name)
+        counts.data_ptr(), d8.data_ptr(), sd.data_ptr(),
+        None if ds is None else ds.data_ptr(),
+        None if pmax is None else pmax.data_ptr(), T, C, N, jmax, bn, bm,
+        int(w4), bf, _stream(x8)), name)
     _build.LAUNCHES[name] += 1
     return d8, sd, act_cache
 
@@ -501,9 +536,12 @@ def csp_mlp_fused(x, w1t, b1, w2, act_cache, out_cache, inds, counts,
         out_cache = csp_mlp_mm2_a8(d8, sd, w2, out_cache, inds, counts,
                                    bn=bn, bm=bm)
         return out_cache, act_cache
+    # int8 weights: mm1 scales the delta for mm2 (the same multiply)
+    pre = wq and not _int4(w1t)
     packed, act_cache = csp_mlp_mm1(x, w1t, b1, act_cache, inds, counts,
-                                    bn=bn, bm=bm)
-    out_cache = csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn=bn, bm=bm)
+                                    bn=bn, bm=bm, w2=w2 if pre else None)
+    out_cache = csp_mlp_mm2(packed, w2, out_cache, inds, counts, bn=bn, bm=bm,
+                            prescaled=pre)
     return out_cache, act_cache
 
 

@@ -5,7 +5,7 @@
 NaN for every |x| > 464 (448 plus half an ulp) and for +-inf, and rounds
 to nearest even below that.  Every fp8 cache write of the port goes
 through :func:`to_fp8` (or :func:`cast`), and the CUDA kernels convert
-with the same rule (``__NV_NOSAT`` in ``csrc/common.cuh``).
+with the same rule (``f2fp8_hw`` in ``csrc/common.cuh``).
 """
 from __future__ import annotations
 

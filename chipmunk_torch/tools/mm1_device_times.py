@@ -1,5 +1,5 @@
-"""Wrapper and device times of the mm1 kernels ``a8w4``, ``wq``
-(mma.sync) and bf16 at the FLUX single-block MLP shape, on the
+"""Wrapper and device times of the mm1 kernels ``a8w4`` (Mm1A8W4), ``wq``
+(Mm1Wq) and bf16 (Mm1Bf16) at the FLUX single-block MLP shape, on the
 tree at ROOT (first on ``sys.path``), with the act cache refreshed in
 place across calls and fresh each call::
 

@@ -5,7 +5,8 @@ scores, repeat calls bit-equal, kv_block 1, 2, 4 (16-row packed
 slots), 8, 16, 32, 64, 128 and 256, kv_valid inside a group's last or an
 earlier block, counts ending inside a tile, clipped counts, NaN in unselected K/V
 blocks, bm/bn of 256, bm 64 and 512, fp8 and bf16 caches in every sparse-MLP
-kernel, NaN in unselected MLP weight blocks, the packed-KV csp kernel,
+kernel, NaN in unselected MLP weight blocks, int8 weights holding all
+256 codes, a8 neuron blocks of 384 and 512, the packed-KV csp kernel,
 keys and query rows passed as sliced views).  The kernels
 have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
@@ -879,6 +880,125 @@ def test_cuda_csp_mlp_w4_hopper(gen, bm, bn, C, cache):
     for k, v in CM._build.LAUNCHES.items():
         assert v == n0[k] + (2 if k in ('csp_mlp_mm1_w4', 'csp_mlp_mm2_w4')
                              else 0), k
+
+
+def unselected(inds, counts, N, bn):
+    """[N, 1] bool: the rows of the neuron blocks that no token block
+    selects."""
+    used = torch.zeros(N // bn, dtype=torch.bool, device='cuda')
+    used[CA.pad_block_indices(inds, counts).long().flatten()] = True
+    return (~used).repeat_interleave(bn)[:, None]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bm,bn,C', [(128, 128, 256), (128, 256, 384),
+                                     (512, 384, 768), (512, 256, 640),
+                                     (256, 128, 512)])
+def test_cuda_csp_mlp_wq_hopper(gen, bm, bn, C, cache):
+    """The wgmma/TMA int8-weight pair with bf16 activations
+    (csp_mlp_mm1_wq: 128 neurons x 256 tokens a CTA where bm allows, else
+    128; csp_mlp_mm2_wq: 256 output columns a CTA where C allows, else 128;
+    the codes converted to bf16 in registers): T = 1024, C = 256 to 768
+    (mm2 in one to three 256-column tiles, or three and five of 128),
+    N = 3072, jmax 4 with counts of 1 and jmax; fp8 or bf16 caches (both
+    of the type); NaN in the scales and bias of every neuron block that
+    no token block selects and code 127 in its bytes, so a read of one
+    shows.  Gates of check_bf16_pair; each kernel is launched twice and no
+    other kernel.  Then csp_mlp_fused, whose mm1 scales the delta for its
+    mm2, gives the bits of the two calls alone."""
+    T, N, jmax = 1024, 3072, 4
+    M = T // bm
+    x = randn(gen, T, C)
+    w1 = int8_qt(gen, N, C, C ** -0.5)
+    w2 = int8_qt(gen, N, C, N ** -0.5)
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    off = unselected(inds, counts, N, bn)
+    w1, w2 = (QT.QTensor(w.q.masked_fill(off, 127),
+                         w.scale.masked_fill(off, float('nan')))
+              for w in (w1, w2))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    for k, v in CM._build.LAUNCHES.items():
+        assert v == n0[k] + (2 if k in ('csp_mlp_mm1_wq', 'csp_mlp_mm2_wq')
+                             else 0), k
+    # csp_mlp_fused: mm1 multiplies the delta by bf16(w2s) for mm2, the
+    # multiply mm2 makes in place when called alone: the same bits
+    pk, act_k = CM.csp_mlp_mm1(x, w1, b1, act.clone(), inds, counts, bn=bn,
+                               bm=bm)
+    out_k = CM.csp_mlp_mm2(pk, w2, out.clone(), inds, counts, bn=bn, bm=bm)
+    out_f, act_f = CM.csp_mlp_fused(x, w1, b1, w2, act.clone(), out.clone(),
+                                    inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    assert torch.equal(bits(act_f), bits(act_k))
+    assert torch.equal(bits(out_f), bits(out_k))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+def test_cuda_csp_mlp_wq_all_codes(gen, cache):
+    """The int8-weight pair on codes that hold every byte value, -128
+    (which quantize never emits) included, in each weight row: the
+    conversion of a code to bf16 in the kernels' registers is exact for
+    all 256.  Gates of check_bf16_pair."""
+    T, C, N, bm, bn, jmax = 512, 512, 1024, 256, 256, 3
+    x, b1, _, _, inds, counts = mlp_case(gen, T, C, N, bm, bn, jmax)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    codes = (torch.arange(N * C, device='cuda') * 7 % 256 - 128).to(
+        torch.int8).reshape(N, C)          # 7 k mod 256: all 256 a row
+    assert all(len(torch.unique(r)) == 256 for r in codes[::97])
+    w1, w2 = (QT.QTensor(codes, (torch.rand((N, 1), generator=gen,
+                                            device='cuda') + 0.5) * s)
+              for s in (1 / (74 * C ** 0.5), 1 / (74 * N ** 0.5)))
+    check_bf16_pair(x, w1, b1, w2, act, out, inds, counts, bm, bn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('cache', ['fp8', 'bf16'])
+@pytest.mark.parametrize('bn', [384, 512])
+@pytest.mark.parametrize('kind,bm', [('int8', 128), ('int8', 512),
+                                     ('int4', 64), ('int4', 128)])
+def test_cuda_csp_mlp_a8_wide_blocks(gen, kind, bm, bn, cache):
+    """The int8-activation pair at neuron blocks wider than 256: mm1 in
+    its split mode (sub-blocks of 128 neurons at bn 384, of 256 at bn 512,
+    then the pass that forms sd and d8 over the whole block), mm2 flushing
+    per block of bn / 128 stages; int8 (Mm1A8Part / Mm2A8) and int4
+    (Mm1A8W4Part / Mm2A8W4) weights.  T = 1024, C = 512, N = 3072, jmax 3
+    with counts of 1 and jmax; fp8 or bf16 caches; NaN scales and bias
+    and code 127 (int4: 0xFF) in every unselected block.  Gates of
+    check_a8_pair (d8/sd bit-equal where the acts agree, zero past the
+    count); quant_rows launched once, each kernel of the pair twice, and
+    no other kernel."""
+    T, C, N, jmax = 1024, 512, 3072, 3
+    M = T // bm
+    x = randn(gen, T, C)
+    w1 = int8_qt(gen, N, C, C ** -0.5, kind)
+    w2 = int8_qt(gen, N, C, N ** -0.5, kind)
+    b1 = randn(gen, N, scale=0.1)
+    act, out = cache_pair(gen, T, C, N, cache, cache)
+    inds = torch.rand((M, N // bn), generator=gen, device='cuda') \
+        .argsort(-1)[:, :jmax].to(torch.int32)
+    counts = torch.arange(M, device='cuda', dtype=torch.int32) % jmax + 1
+    counts[0], counts[-1] = 1, jmax
+    off = unselected(inds, counts, N, bn)
+    code = 0xFF if kind == 'int4' else 127
+    w1, w2 = (QT.QTensor(w.q.masked_fill(off, code),
+                         w.scale.masked_fill(off, float('nan')), w.pack_axis)
+              for w in (w1, w2))
+    b1 = b1.masked_fill(off[:, 0], float('nan'))
+    n0 = dict(CM._build.LAUNCHES)
+    check_a8_pair(gen, x, w1, b1, w2, act, out, inds, counts, bm, bn)
+    tag = 'a8w4' if kind == 'int4' else 'a8'
+    for k, v in CM._build.LAUNCHES.items():
+        want = {'quant_rows': 1, f'csp_mlp_mm1_{tag}': 2,
+                f'csp_mlp_mm2_{tag}': 2}.get(k, 0)
+        assert v == n0[k] + want, k
 
 
 @pytest.mark.cuda

@@ -386,28 +386,28 @@ def test_csp_mlp_mm1_mm2_w4_match_reference():
     _mm1_mm2_against_reference(13, 'int4')
 
 
-@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache', [
+EDGE_SHAPES = [
     (256, 512, 1152, 128, 384, 2, 'fp8'),
     (256, 768, 512, 128, 128, 3, 'bf16'),
     (1024, 256, 1024, 512, 256, 3, 'fp8'),
     (1024, 768, 768, 512, 384, 2, 'bf16'),
-])
-def test_csp_mlp_w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
-                                                cache):
-    """The int4-weight plain pair at the shapes the card's w4 kernels take
-    at their edges (bn 384, C 512 and 768: a nibble plane of 256 and 384
-    columns, bm 512; counts of 1 and jmax; fp8 or bf16 caches), against
-    _mm1_kernel / _mm2_kernel as in _mm1_mm2_against_reference, and the
-    fused step against _fused_kernel's w4 branch: the act cache within
-    one ulp of its type, the out cache within one ulp plus what act flips
+]
+
+
+def _edge_shapes_against_reference(kind, T, C, N, bm, bn, jmax, cache):
+    """The quantized-weight plain pair with bf16 activations (int8 or
+    int4 QTensors) at the card's tile edges, against _mm1_kernel /
+    _mm2_kernel as in _mm1_mm2_against_reference, and the fused step
+    against _fused_kernel's branch for the kind: the act cache within one
+    ulp of its type, the out cache within one ulp plus what act flips
     move."""
     cdt = {'fp8': ml_dtypes.float8_e4m3fn, 'bf16': ml_dtypes.bfloat16}[cache]
     seed = 40 + C // 256 + bn // 128 + bm // 128
-    _mm1_mm2_against_reference(seed, 'int4', cache=cdt, T=T, C=C, N=N,
+    _mm1_mm2_against_reference(seed, kind, cache=cdt, T=T, C=C, N=N,
                                bm=bm, bn=bn, jmax=jmax)
     x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
         seed, T=T, C=C, N=N, bm=bm, bn=bn, jmax=jmax, cache=cdt)
-    (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, 'int4'), _qt(w2, 'int4')
+    (w1_j, w1_t), (w2_j, w2_t) = _qt(w1t, kind), _qt(w2, kind)
     out_j, act_j = j_csp_mlp_fused(
         jnp.asarray(x), w1_j, jnp.asarray(b1), w2_j,
         *map(jnp.asarray, (act, out, inds, counts)), bn=bn, bm=bm,
@@ -419,6 +419,52 @@ def test_csp_mlp_w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
     _fp8_close(out_t, out_j, _out_slack(
         act_t, act_j, jq_dequant(w2_t),
         act if cache == 'bf16' else None))
+
+
+@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache', EDGE_SHAPES)
+def test_csp_mlp_w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
+                                                cache):
+    """The int4-weight plain pair at the shapes the card's w4 kernels take
+    at their edges (bn 384, C 512 and 768: a nibble plane of 256 and 384
+    columns, bm 512; counts of 1 and jmax; fp8 or bf16 caches), as
+    _edge_shapes_against_reference."""
+    _edge_shapes_against_reference('int4', T, C, N, bm, bn, jmax, cache)
+
+
+@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache', EDGE_SHAPES)
+def test_csp_mlp_wq_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
+                                                cache):
+    """The int8-weight plain pair at the shapes the card's wq kernels take
+    at their edges (bn 384, bm 512: 256 tokens an mm1 tile; C 512 and 768:
+    two and three 256-column mm2 tiles, C 256 one; counts of 1 and jmax;
+    fp8 or bf16 caches), against _mm1_kernel / _mm2_kernel and
+    _fused_kernel's wq branch, as _edge_shapes_against_reference."""
+    _edge_shapes_against_reference('int8', T, C, N, bm, bn, jmax, cache)
+
+
+def test_csp_mlp_wq_scaled_delta_route_is_bit_equal():
+    """csp_mlp_fused with int8 weights lets mm1 multiply the packed delta
+    by bf16(w2's row scale) and mm2 take it as it is (``w2=`` /
+    ``prescaled=``); that is the reference's multiply moved from one pass
+    to the other, so both caches come out bit-equal to the two passes
+    called on their own."""
+    x, w1t, b1, w2, act, out, inds, counts = mlp_inputs(
+        31, T=512, C=512, N=1024, bm=256, bn=256, jmax=3)
+    w1_t, w2_t = _qt(w1t)[1], _qt(w2)[1]
+    xt, bt, it, ct = map(to_torch, (x, b1, inds, counts))
+    pk, act_a = csp_mlp_mm1(xt, w1_t, bt, to_torch(act), it, ct, bn=256,
+                            bm=256)
+    out_a = csp_mlp_mm2(pk, w2_t, to_torch(out), it, ct, bn=256, bm=256)
+    pk_s, _ = csp_mlp_mm1(xt, w1_t, bt, to_torch(act), it, ct, bn=256,
+                          bm=256, w2=w2_t)
+    assert not torch.equal(pk_s, pk)
+    out_f, act_f = csp_mlp_fused(xt, w1_t, bt, w2_t, to_torch(act),
+                                 to_torch(out), it, ct, bn=256, bm=256)
+    np.testing.assert_array_equal(raw(out_f), raw(out_a))
+    np.testing.assert_array_equal(raw(act_f), raw(act_a))
+    with pytest.raises(ValueError, match='int8'):
+        csp_mlp_mm2(pk, _qt(w2, 'int4')[1], to_torch(out), it, ct, bn=256,
+                    bm=256, prescaled=True)
 
 
 def _a8_chain_against_reference(kind, cases, C=256, N=512, jmax=3,
@@ -516,6 +562,7 @@ def test_csp_mlp_a8w4_chain_matches_reference():
 
 
 A8W4_SEEDS = (11, 12)    # tie-free inputs for the int4 a8 chain
+A8_WIDE_SEEDS = (70, 71, 83)   # and for the bn 384 / 512 fp8 cases
 
 
 @pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache,seed', [
@@ -523,18 +570,39 @@ A8W4_SEEDS = (11, 12)    # tie-free inputs for the int4 a8 chain
     (256, 768, 512, 64, 128, 3, 'bf16', 61),
     (512, 768, 512, 128, 256, 2, 'fp8', 62),
     (1024, 768, 768, 512, 256, 3, 'bf16', 63),
+    (256, 512, 1536, 64, 384, 2, 'fp8', A8_WIDE_SEEDS[0]),
+    (512, 512, 2048, 128, 512, 2, 'bf16', 65),
 ])
 def test_csp_mlp_a8w4_edge_shapes_match_reference(T, C, N, bm, bn, jmax,
                                                   cache, seed):
     """The int4-weight, int8-activation plain chain at the shapes the
     card's a8w4 kernels take at their edges (bn 256, bm 64 and 512: a
     64-token tile; C 512 and 768: a nibble plane of 256 and 384 columns;
-    counts of 1 and jmax; fp8 or bf16 caches), against _fused_kernel's
-    a8 + w4 branch as in _a8_chain_against_reference (tie-free seeds for
-    the fp8 caches; at bm 512 the selected acts are too many for one,
-    so that case takes bf16 caches)."""
+    bn 384 and 512: a neuron block split into sub-blocks; counts of 1 and
+    jmax; fp8 or bf16 caches), against _fused_kernel's a8 + w4 branch as
+    in _a8_chain_against_reference (tie-free seeds for the fp8 caches; at
+    bm 512 the selected acts are too many for one, so that case takes
+    bf16 caches)."""
     cdt = {'fp8': ml_dtypes.float8_e4m3fn, 'bf16': ml_dtypes.bfloat16}[cache]
     _a8_chain_against_reference('int4', ((T, bm, bn, seed),), C=C, N=N,
+                                jmax=jmax, cache=cdt)
+
+
+@pytest.mark.parametrize('T,C,N,bm,bn,jmax,cache,seed', [
+    (256, 256, 1536, 128, 384, 2, 'fp8', A8_WIDE_SEEDS[1]),
+    (512, 512, 2048, 128, 512, 2, 'fp8', A8_WIDE_SEEDS[2]),
+    (1024, 256, 1536, 512, 384, 3, 'bf16', 68),
+    (1024, 256, 2048, 512, 512, 2, 'bf16', 69),
+])
+def test_csp_mlp_a8_wide_blocks_match_reference(T, C, N, bm, bn, jmax,
+                                                cache, seed):
+    """The int8-weight, int8-activation plain chain at neuron blocks wider
+    than 256 (bn 384 and 512, which the card's a8 mm1 splits into
+    sub-blocks of 128 and 256 neurons; bm 128 and 512; counts of 1 and
+    jmax; fp8 or bf16 caches), against _fused_kernel's a8 branch as in
+    _a8_chain_against_reference: sd spans the whole block on both sides."""
+    cdt = {'fp8': ml_dtypes.float8_e4m3fn, 'bf16': ml_dtypes.bfloat16}[cache]
+    _a8_chain_against_reference('int8', ((T, bm, bn, seed),), C=C, N=N,
                                 jmax=jmax, cache=cdt)
 
 
