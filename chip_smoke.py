@@ -14,8 +14,11 @@
    torch._int_mm scaled by the selected share), every sparse-MLP variant
    with bf16 caches, the bf16 pair and both int4-weight pairs also at
    bn = 128 and with bf16 caches, the a8 pair at bn = 512 (int8 and int4
-   weights), both csp modes at kv_block 1, 2, 4, 8 and 16, and the
-   int8/bf16 tile GEMM probe.  For the short rows
+   weights), both csp modes at kv_block 1, 2, 4, 8 and 16,
+   ``dense_colsum_attn`` at score blocks of 1-32 keys (FLUX; 8, 16 and 32
+   at 540p and 720p), the three kernels that take a query-group size at
+   qg 64 and 256 (FLUX) and 192 (540p), and the int8/bf16 GEMM probe
+   (on ``gemm_sm90_kernel``).  For the short rows
    (``csp_attn`` at FLUX, ``quant_rows``) and the MLP rows of the
    Hopper-template pairs it also gives the kernel's own device time from
    torch.profiler's kernel records (``device_ms``), since their ``ms``
@@ -89,7 +92,8 @@ OUR_KERNELS = (
     ('a8w4 MLP mm2 (gemm_sm90_kernel<Mm2A8W4>)', 'mm2a8w4<'),
     ('wq MLP mm1 (gemm_sm90_kernel<Mm1Wq>)', 'mm1wq<'),
     ('wq MLP mm2 (gemm_sm90_kernel<Mm2Wq>)', 'mm2wq<'),
-    ('quant_rows', 'quant_rows_kernel'))
+    ('quant_rows', 'quant_rows_kernel'),
+    ('int8/bf16 probe (gemm_sm90_kernel<ProbeS8|ProbeBf16>)', 'probe'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -160,6 +164,23 @@ def device_ms(torch, fn, n):
     if top.count != n:
         fail(f'device_ms: {top.key} ran {top.count} times in {n} calls')
     return top.self_device_time_total / 1e3 / n, top.key
+
+
+def kernel_names(torch, fn, n=5):
+    """The set of names (without namespace and template arguments) of the
+    CUDA kernels that ``n`` calls of ``fn`` launch, from torch.profiler's
+    kernel records."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key.split('<')[0].split()[-1].split('::')[-1]
+            for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
 
 
 def fp8_ulp(torch, x, dtype=None):
@@ -435,9 +456,9 @@ def block_mask(torch, pinds, counts, kv_block, nb, kv_valid=None):
     return m
 
 
-def csp_flops(counts, D=D, kv_block=128):
-    """4 * 128 * kv_block * D FLOP per selected (group, block)."""
-    return 4.0 * 128 * kv_block * D * counts.sum().item()
+def csp_flops(counts, D=D, kv_block=128, qg=128):
+    """4 * qg * kv_block * D FLOP per selected (group, block)."""
+    return 4.0 * qg * kv_block * D * counts.sum().item()
 
 
 def csp_library_ms(torch, q, k, v, pinds, counts, nb, kv_valid, heads, n):
@@ -457,8 +478,8 @@ def csp_library_ms(torch, q, k, v, pinds, counts, nb, kv_valid, heads, n):
     return ms
 
 
-def csp_bound(torch, pinds, counts, q, kv_block=128):
-    """(bound ms, by) of a csp call: 4*128*kv_block*D FLOP per selected
+def csp_bound(torch, pinds, counts, q, kv_block=128, qg=128):
+    """(bound ms, by) of a csp call: 4*qg*kv_block*D FLOP per selected
     (group, block); bytes: q and o once, each block some group of its
     head selected once (K and V), the index lists."""
     B, H, Sq, D = q.shape
@@ -468,7 +489,7 @@ def csp_bound(torch, pinds, counts, q, kv_block=128):
     nbytes = (int(sel.sum().item()) * kv_block * D * 2 * 2
               + 2 * B * H * Sq * D * 2 + pinds.numel() * 4
               + counts.numel() * 4)
-    return bound_ms(csp_flops(counts, D, kv_block), nbytes)
+    return bound_ms(csp_flops(counts, D, kv_block, qg), nbytes)
 
 
 def video_selection(torch, mod, H, gen):
@@ -1287,6 +1308,164 @@ def small_block_csp_phases(torch, ca):
     torch.cuda.empty_cache()
 
 
+def colsum_small_block_phases(torch, fa):
+    """dense_colsum_attn at score blocks below 64 keys: 1, 2, 4, 8, 16 and
+    32 at the FLUX shape (4352 keys: up to 4352 blocks, past the slots
+    that 64-key blocks have), 8, 16 and 32 at 540p (67,584 queries, keys
+    cut at 67,576) and 720p (119,168, keys cut at 119,056), PAD_LSE on
+    the pad rows.  Each against dense_colsum_attn_plain: at FLUX whole, at
+    the video shapes on heads 0-1, query groups 0-1 and the last two; o
+    and lse as kernel_phases, colsums to 1e-4 + 1e-3 |ref|; a second call
+    bit-equal.  Prints the time, the bound (that of the 128-key form:
+    the sums add under 1% of the bytes) and the time at 128-key blocks on
+    the same inputs."""
+    from chipmunk_torch.ops.attn_ref import PAD_LSE
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 7)
+    for tag, Sq, n, sbs in (('FLUX', S, S, (1, 2, 4, 8, 16, 32)),
+                            ('540p', 67584, 67576, (8, 16, 32)),
+                            ('720p', 119168, 119056, (8, 16, 32))):
+        q, k, v = (torch.randn((B, H, Sq, D), generator=gen,
+                               device='cuda').to(torch.bfloat16)
+                   for _ in range(3))
+        kc, vc = k[..., :n, :], v[..., :n, :]
+        prev = fa.dense_attn(q, kc, vc)[1]
+        prev[..., n:] = PAD_LSE
+        hs = slice(0, H) if tag == 'FLUX' else slice(0, 2)
+        rows = [slice(0, Sq)] if tag == 'FLUX' else [
+            slice(0, 256), slice(Sq - 256, Sq)]
+        flops = 4.0 * B * H * Sq * n * D
+        bnd, by = bound_ms(flops, B * H * (2 * Sq + 2 * n) * D * 2
+                           + B * H * Sq * 8)
+        reps = 10 if tag == 'FLUX' else 2
+        ms128 = time_ms(torch, lambda: fa.dense_colsum_attn(q, kc, vc, prev),
+                        reps)
+        for sb in sbs:
+            got = fa.dense_colsum_attn(q, kc, vc, prev, score_block=sb)
+            again = fa.dense_colsum_attn(q, kc, vc, prev, score_block=sb)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(got, again)):
+                fail(f'dense_colsum_attn score_block {sb} ({tag}): two '
+                     f'calls differ')
+            if got[1].shape[-1] != -(-n // sb):
+                fail(f'dense_colsum_attn score_block {sb} ({tag}): '
+                     f'{got[1].shape[-1]} blocks')
+            err = 0.0
+            for r in rows:
+                o_p, cs_p, lse_p = fa.dense_colsum_attn_plain(
+                    q[:, hs, r], kc[:, hs], vc[:, hs], prev[:, hs, r],
+                    score_block=sb)
+                name = f'dense_colsum_attn score_block {sb} ({tag})'
+                err = max(err, check_close(f'{name} o', got[0][:, hs, r],
+                                           o_p, 4e-3, 2 ** -6))
+                check_close(f'{name} lse', got[2][:, hs, r], lse_p, 1e-3,
+                            0.0)
+                check_close(f'{name} colsums', got[1][
+                    :, hs, r.start // 128:r.stop // 128], cs_p, 1e-4, 1e-3)
+                del o_p, cs_p, lse_p
+            del got, again
+            ms = time_ms(torch, lambda: fa.dense_colsum_attn(
+                q, kc, vc, prev, score_block=sb), reps)
+            print(f'dense_colsum_attn score_block {sb} ({tag}): max abs err '
+                  f'{err:.3e}, {ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, '
+                  f'bound {bnd:.4f} ms ({by}); score_block 128 on the same '
+                  f'inputs {ms128:.4f} ms', flush=True)
+        del q, k, v, kc, vc, prev
+        torch.cuda.empty_cache()
+
+
+def random_selection(torch, gen, G, nb, jmax):
+    """Distinct random block ids [B,H,G,jmax] and counts 1 .. jmax (one
+    group at 1, one at jmax), padded as the module passes them."""
+    from chipmunk_torch.kernels.csp_attention import pad_block_indices
+    inds = torch.rand((B, H, G, nb), generator=gen, device='cuda') \
+        .topk(jmax, -1).indices.sort(-1).values.to(torch.int32)
+    counts = torch.randint(1, jmax + 1, (B, H, G), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    counts[..., 0], counts[..., 1] = 1, jmax
+    return pad_block_indices(inds, counts), counts
+
+
+def query_group_phases(torch, fa, ca):
+    """The three kernels that take a query-group size (dense_colsum_attn,
+    csp_attn, csp_attn_hbm) at qg 64 and 256 at the FLUX shape and at qg
+    192 at 540p, each against its plain version (FLUX whole; 540p on head
+    0 and, for the column sums, query groups 0-1 and the last two), with
+    its time, its bound (the work of the qg-row groups: rows past a
+    group's end that a CTA computes are not counted) and its time at qg
+    128 on inputs drawn the same way.  csp: kv_block 128, jmax 6 (FLUX)
+    or 44 (540p, kv_valid 67,576), counts from 1 to jmax."""
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 8)
+    for tag, Sq, n, jmax, qgs in (('FLUX', S, S, 6, (64, 256)),
+                                  ('540p', 67584, 67576, 44, (192,))):
+        q, k, v = (torch.randn((B, H, Sq, D), generator=gen,
+                               device='cuda').to(torch.bfloat16)
+                   for _ in range(3))
+        kc, vc = k[..., :n, :], v[..., :n, :]
+        prev = fa.dense_attn(q, kc, vc)[1]
+        hs = slice(0, H) if tag == 'FLUX' else slice(0, 1)
+        reps = 10 if tag == 'FLUX' else 3
+        kv = ca.pack_kv(k, v, 128)
+        flops = 4.0 * B * H * Sq * n * D
+        cbnd = bound_ms(flops, B * H * (2 * Sq + 2 * n) * D * 2
+                        + B * H * Sq * 8)[0]
+        nb = Sq // 128
+        for qg in (128,) + qgs:
+            G = Sq // qg
+            name = f'qg {qg} ({tag})'
+            cs_fn = lambda: fa.dense_colsum_attn(q, kc, vc, prev, qg=qg)
+            pinds, counts = random_selection(torch, gen, G, nb, jmax)
+            csp_fns = (
+                ('csp_attn', lambda: ca.csp_attn(
+                    q, k, v, pinds, counts, qg=qg, kv_valid=n,
+                    mode='vmem')),
+                ('csp_attn_hbm', lambda: ca.csp_attn_hbm(
+                    q, kv, pinds, counts, qg=qg, kv_valid=n)))
+            if qg != 128:
+                got = cs_fn()
+                torch.cuda.synchronize()
+                rows = [slice(0, Sq)] if tag == 'FLUX' else [
+                    slice(0, 2 * qg), slice(Sq - 2 * qg, Sq)]
+                for r in rows:
+                    o_p, cs_p, lse_p = fa.dense_colsum_attn_plain(
+                        q[:, hs, r], kc[:, hs], vc[:, hs], prev[:, hs, r],
+                        qg=qg)
+                    err = check_close(f'dense_colsum_attn {name} o',
+                                      got[0][:, hs, r], o_p, 4e-3, 2 ** -6)
+                    check_close(f'dense_colsum_attn {name} lse',
+                                got[2][:, hs, r], lse_p, 1e-3, 0.0)
+                    check_close(f'dense_colsum_attn {name} colsums', got[1][
+                        :, hs, r.start // qg:r.stop // qg], cs_p, 1e-4, 1e-3)
+                    del o_p, cs_p, lse_p
+                del got
+                ms = time_ms(torch, cs_fn, reps)
+                print(f'dense_colsum_attn {name}: max abs err {err:.3e}, '
+                      f'{ms:.4f} ms = {flops / ms / 1e9:.1f} TFLOP/s, bound '
+                      f'{cbnd:.4f} ms', flush=True)
+                o_p = ca.csp_attn_plain(q[:, hs], k[:, hs], v[:, hs],
+                                        pinds[:, hs], counts[:, hs], qg=qg,
+                                        kv_valid=n)
+            else:
+                print(f'dense_colsum_attn {name}: '
+                      f'{time_ms(torch, cs_fn, reps):.4f} ms', flush=True)
+            bnd = csp_bound(torch, pinds, counts, q, qg=qg)
+            for kname, fn in csp_fns:
+                o = fn()
+                torch.cuda.synchronize()
+                msg = ''
+                if qg != 128:
+                    err = check_close(f'{kname} {name} o', o[:, hs], o_p,
+                                      4e-3, 2 ** -6)
+                    msg = f'max abs err {err:.3e}, '
+                ms = time_ms(torch, fn, reps)
+                print(f'{kname} {name}: {msg}{ms:.4f} ms, bound '
+                      f'{bnd[0]:.4f} ms ({bnd[1]})', flush=True)
+                del o
+        del q, k, v, kc, vc, prev, kv
+        torch.cuda.empty_cache()
+
+
 def probe_phase(torch, probe):
     """The tile GEMM probe (port of _pk) at the reference's 4096 x 3072 x
     4096: int8 equal to torch._int_mm exactly, bf16 within f32-accumulation
@@ -1322,6 +1501,10 @@ def probe_phase(torch, probe):
             ('int8_probe_bf16', af, bf, PEAK_BF16_FLOPS,
              (Mp * Kp + Kp * Np) * 2 + Mp * Np * 4)):
         ms = time_ms(torch, lambda: probe.int8_probe(x, y), 20)
+        ran = kernel_names(torch, lambda: probe.int8_probe(x, y))
+        if ran != {'gemm_sm90_kernel'}:
+            fail(f'{name}: the probe launched {ran}, not gemm_sm90_kernel '
+                 f'alone')
         lib = (torch._int_mm if x.dtype == torch.int8 else torch.matmul)
         lib_ms = time_ms(torch, lambda: lib(x, y), 20)
         bnd, by = bound_ms(ops, nbytes, peak)
@@ -1331,9 +1514,9 @@ def probe_phase(torch, probe):
             max_abs_err=0.0 if x.dtype == torch.int8 else err, ms=ms,
             plain_ms=time_ms(torch, lambda: probe.int8_probe_plain(x, y), 3),
             bound_ms=bnd, bound_by=by, library_ms=lib_ms))
-        print(f'probe {name}: {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s; '
-              f'library ({lib.__name__}) {lib_ms:.4f} ms = '
-              f'{ops / lib_ms / 1e9:.1f} TOP/s', flush=True)
+        print(f'probe {name}: {ms:.4f} ms = {ops / ms / 1e9:.1f} TOP/s '
+              f'(gemm_sm90_kernel); library ({lib.__name__}) {lib_ms:.4f} '
+              f'ms = {ops / lib_ms / 1e9:.1f} TOP/s', flush=True)
     s8, b16 = rows
     print(f'probe: hand-written int8/bf16 rate ratio '
           f'{b16["ms"] / s8["ms"]:.3f}, library '
@@ -1714,6 +1897,8 @@ def main():
     bf16_cache_phases(torch, mods[2], mods[1], fp8, quant)
     a8_wide_blocks(torch, mods[2], mods[1], fp8, quant)
     small_block_csp_phases(torch, mods[1])
+    colsum_small_block_phases(torch, mods[0])
+    query_group_phases(torch, mods[0], mods[1])
     prows = probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
     torch.cuda.empty_cache()

@@ -326,6 +326,32 @@ __device__ __forceinline__ void issue_pv(float (&o)[64], const uint32_t (&p)[32]
 // TMA loads of tile i (it may leave up to 24 ints per stage in rec, which
 // the consumers read after the K barrier); mask(rec, i, s, t), which sets
 // the masked scores of tile i in a consumer thread's accumulator to -inf.
+// It also names GROUPED and CS_P.  GROUPED false: a CTA is one 128-row
+// query group (group blockIdx.x, rows blockIdx.x * 128 ..).  GROUPED true:
+// groups of p.qg rows (any qg that divides Sq), p.cpg = ceil(qg / 128)
+// CTAs a group, each of 128 rows from its group's row grp * qg + 128 k;
+// rows at or past the group's end are computed against the group's keys
+// but neither stored nor summed (their column-sum factor is 0, their
+// prev_lse is not read).  CS_P: the column-sum form (below).
+//
+// Column sums.  CS_P 0 (score blocks of 64 keys or more): per 64-key half
+// tile each consumer thread hands over one partial, its two rows' sums
+// times their factors; one reducer warp sums the 8 warps' partials and
+// the lanes, and adds them into shared-memory slots of the CTA's row of
+// nb sums.  CS_P 4, 8, 16, 32 (score blocks of 32, 16, 2-8 and 1 key): a
+// thread's 32 columns of a tile, 8 j + 2 t + {0, 1} for j = 0..15, fall
+// in CS_P blocks of its own (4 j a block at 32 keys, 2 at 16, one j at 8,
+// one j's pair at 4 and 2, one column at 1), so it hands over CS_P
+// partials a tile (its two rows' probabilities times their factors,
+// summed over the block's columns) to a two-slot ring [8 warps][CS_P][4
+// t][8 g]; the producer's warps 1-3 (the reducers) give each (q, t) pair
+// to one thread, which sums its 64 partials (8 warps x 8 g) from float4
+// reads, and where a block spans a quad's threads (score blocks of 4 and
+// up) the quad adds its pairs (shfl_xor 1, 2).  A score block of 32
+// keys or fewer lies in one 128-key tile, so each block's sum is complete
+// there and is stored once into the CTA's row in global memory: no slots,
+// and no limit on nb.  The consumers' extra work is one FMA a column and
+// CS_P shared-memory stores a tile; every reduction runs on the reducers.
 
 constexpr int BM = 128;                   // query rows per CTA
 constexpr int TILE = KT * HD * 2;         // bytes of a K or V tile
@@ -337,6 +363,13 @@ constexpr int HAND_BYTES = 2 * 8 * 2 * 32 * 4;    // colsum hand-off ring
 template <int ST>
 constexpr int ring_bytes() {
   return 1024 + BM * HD * 2 + 2 * ST * TILE + BAR_BYTES;
+}
+
+// bytes of the column-sum hand-off ring for CS_P partials a thread
+// (0: the two half-tile partials)
+template <int P>
+__host__ __device__ constexpr int hand_bytes() {
+  return P ? 2 * 256 * P * 4 : HAND_BYTES;
 }
 
 struct Params {
@@ -351,6 +384,7 @@ struct Params {
   const int* counts;       // [BH][G]
   int jmax, kv_block, kv_valid;
   int kstride, voff;       // map rows per block; V rows after K rows
+  int qg, cpg;             // GROUPED key sources: rows a group, CTAs a group
 };
 
 __device__ __forceinline__ float warp_sum(float x) {
@@ -372,6 +406,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   static_assert(8 * (5 + 3 * ST) <= 128 &&
                 128 + 4 * REC_INTS * ST <= BAR_BYTES, "barrier area");
   constexpr int Q_BOX = BM * BOX_ROW;            // bytes of one Q box
+  constexpr bool GR = Keys::GROUPED;
+  constexpr int CSP = Keys::CS_P;                // column-sum partials
+  constexpr int NRW = CSP ? 3 : 1;               // reducer warps
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t sq = (raw + 1023) & ~1023u;
@@ -387,10 +424,14 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
   auto cs_empty = [&](int r) { return sbar + 8 * (3 + 3 * ST + r); };
   int* recs = reinterpret_cast<int*>(smem_raw + (sbar - raw) + 128);
   float* hand = reinterpret_cast<float*>(smem_raw + (sbar - raw) + BAR_BYTES);
-  float* sums = hand + HAND_BYTES / 4;
+  float* sums = hand + hand_bytes<CSP>() / 4;
 
-  const int bh = blockIdx.y, row0 = blockIdx.x * BM;
-  const Keys keys(p, bh, blockIdx.x);
+  // the CTA's query group, its first row and the group's end
+  const int bh = blockIdx.y, grp = GR ? blockIdx.x / p.cpg : blockIdx.x;
+  const int row0 = GR ? grp * p.qg + (blockIdx.x % p.cpg) * BM
+                      : blockIdx.x * BM;
+  const int rend = GR ? (grp + 1) * p.qg : p.Sq;
+  const Keys keys(p, bh, grp);
   const int n = keys.tiles();
   if (threadIdx.x == 0) {
     mbar_init(sbar, 1);
@@ -401,7 +442,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     }
     for (int r = 0; r < 2; ++r) {
       mbar_init(cs_full(r), 256);
-      mbar_init(cs_empty(r), 1);
+      mbar_init(cs_empty(r), NRW);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
@@ -420,7 +461,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
         keys.load(&tk, &tv, sk + s * TILE, sv + s * TILE, k_full(s),
                   v_full(s), recs + REC_INTS * s, i, bh);
       }
-    } else if (CS && threadIdx.x / 32 == 1) {
+    } else if (CS && CSP == 0 && threadIdx.x / 32 == 1) {
       // The column-sum reducer: for each key tile, the 8 consumer warps'
       // per-lane partials of both 64-key halves, summed in a fixed order
       // (lane by lane across the warps, then across the lanes), into the
@@ -457,6 +498,47 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       __syncwarp();
       float* cs_row = p.cs + ((size_t)bh * gridDim.x + blockIdx.x) * p.nb;
       for (int b = lane; b < p.nb; b += 32) cs_row[b] = sums[b];
+    } else if (CS && CSP > 0 && threadIdx.x >= 32) {
+      // The reducers of score blocks of 32 keys or fewer (above): reducer
+      // thread u (0-95) takes the pairs (q, t) = (u / 4, u % 4), u + 96,
+      // ... of the tile's 4 CS_P and sums the 8 warps x 8 g partials of
+      // the pair (float4 reads of [w][q][t][g], two chains); the quad
+      // then sums the t of one block, and its first thread stores it.
+      // Fixed orders throughout.
+      const int u = threadIdx.x - 32, lane = threadIdx.x & 31;
+      for (int i = 0; i < n; ++i) {
+        const int r = i & 1;
+        mbar_wait(cs_full(r), (i >> 1) & 1);
+        const float* hb = hand + r * (256 * CSP);
+        for (int pi = u; pi - lane < 4 * CSP; pi += 96) {   // warp-uniform
+          const int q = pi >> 2, t = pi & 3;
+          float a0 = 0.f, a1 = 0.f;
+          if (pi < 4 * CSP) {
+#pragma unroll 1
+            for (int w = 0; w < 8; ++w) {
+              const float4* x = reinterpret_cast<const float4*>(
+                  hb + ((w * CSP + q) * 4 + t) * 8);
+              const float4 x0 = x[0];
+              a0 += (x0.x + x0.y) + (x0.z + x0.w);
+              const float4 x1 = x[1];
+              a1 += (x1.x + x1.y) + (x1.z + x1.w);
+            }
+          }
+          float v = a0 + a1;
+          const int sb = p.score_block;
+          const int tg = sb >= 8 ? 4 : sb == 4 ? 2 : 1;   // threads a block
+          if (tg >= 2) v += __shfl_xor_sync(0xffffffffu, v, 1);
+          if (tg >= 4) v += __shfl_xor_sync(0xffffffffu, v, 2);
+          // the first column of the pair in the tile
+          const int col = CSP == 32 ? 8 * (q >> 1) + 2 * t + (q & 1)
+                                    : (KT / (CSP ? CSP : 1)) * q + 2 * t;
+          const int b = (i * KT + col) / sb;
+          if (pi < 4 * CSP && t % tg == 0 && b < p.nb)
+            p.cs[((size_t)bh * gridDim.x + blockIdx.x) * p.nb + b] = v;
+        }
+        __syncwarp();
+        if (lane == 0) mbar_arrive(cs_empty(r));
+      }
     }
   } else {
     // ------------------------------------------------------- consumers
@@ -473,7 +555,12 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.f, l1 = 0.f, al0 = 1.f, al1 = 1.f;
 
     float pl0 = 0.f, pl1 = 0.f, cp0 = 0.f, cp1 = 0.f;
-    if (CS) {
+    if (CS && GR) {
+      // rows past the group: factor 2^(m - inf) = 0
+      const float inf = __uint_as_float(0x7f800000u);
+      pl0 = r0 < rend ? p.prev_lse[(size_t)bh * p.Sq + r0] : inf;
+      pl1 = r0 + 8 < rend ? p.prev_lse[(size_t)bh * p.Sq + r0 + 8] : inf;
+    } else if (CS) {
       pl0 = p.prev_lse[(size_t)bh * p.Sq + r0];
       pl1 = p.prev_lse[(size_t)bh * p.Sq + r0 + 8];
     }
@@ -523,8 +610,13 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       l1 = l1 * al1 + (rs10 + rs11);
       if (CS) {
         const float f0 = ex2(mn0 - pl0), f1 = ex2(mn1 - pl1);
-        cp0 = rs00 * f0 + rs10 * f1;
-        cp1 = rs01 * f0 + rs11 * f1;
+        if (CSP) {            // the factors; colsum_hand forms the partials
+          cp0 = f0;
+          cp1 = f1;
+        } else {
+          cp0 = rs00 * f0 + rs10 * f1;
+          cp1 = rs01 * f0 + rs11 * f1;
+        }
       }
     };
     // hand tile i's column-sum partials of both halves to the reducer
@@ -532,9 +624,35 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       if (!CS) return;
       const int r = i & 1;
       if (i >= 2) mbar_wait(cs_empty(r), ((i >> 1) - 1) & 1);
-      float* h = hand + r * 512 + (4 * c + warp) * 64;
-      h[lane] = cp0;
-      h[32 + lane] = cp1;
+      if (CSP == 0) {
+        float* h = hand + r * 512 + (4 * c + warp) * 64;
+        h[lane] = cp0;
+        h[32 + lane] = cp1;
+      } else {
+        // partial q: columns 8 j + 2 t + e of j = q JQ .. q JQ + JQ - 1
+        // (CSP 32: j = q / 2, e = q % 2 alone), both rows
+        constexpr int JQ = CSP >= 16 ? 1 : 16 / (CSP ? CSP : 16);
+        float* h = hand + r * (256 * CSP) + (4 * c + warp) * (32 * CSP) +
+                   8 * t + g;                       // [w][q][t][g]
+#pragma unroll
+        for (int q = 0; q < CSP; ++q) {
+          float x;
+          if (CSP == 32) {
+            const int j = q / 2, e = q % 2;
+            x = s[4 * j + e] * cp0 + s[4 * j + 2 + e] * cp1;
+          } else {
+            float x0 = 0.f, x1 = 0.f;
+#pragma unroll
+            for (int jj = 0; jj < JQ; ++jj) {
+              const int j = q * JQ + jj;
+              x0 += s[4 * j] + s[4 * j + 1];
+              x1 += s[4 * j + 2] + s[4 * j + 3];
+            }
+            x = x0 * cp0 + x1 * cp1;
+          }
+          h[32 * q] = x;
+        }
+      }
       mbar_arrive(cs_full(r));
     };
     auto rescale_pack = [&]() {
@@ -568,8 +686,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_wait<0>();
     fence_acc(s);
     softmax(0);
+    if (CSP) colsum_hand(0);     // P's partials before it is packed
     rescale_pack();
-    colsum_hand(0);
+    if (!CSP) colsum_hand(0);
     // key step i: S(i) with P V(i - 1)
     for (int i = 1; i < n; ++i) {
       const int ps = (i - 1) % ST, st = i % ST;
@@ -588,8 +707,9 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       wgmma_wait<0>();
       fence_acc(o);
       mbar_arrive(empty(ps));
+      if (CSP) colsum_hand(i);
       rescale_pack();
-      colsum_hand(i);
+      if (!CSP) colsum_hand(i);
     }
     // last: P V(n - 1)
     my_turn();
@@ -607,7 +727,7 @@ attn_sm90_kernel(const __grid_constant__ CUtensorMap tq,
       const int r = r0 + 8 * h;
       float l = quad_sum(h ? l1 : l0);
       l = l == 0.f ? 1.f : l;
-      if (r < p.Sq) {
+      if (r < rend) {
         __nv_bfloat16* orow = p.o + ((size_t)bh * p.Sq + r) * HD;
 #pragma unroll
         for (int j = 0; j < 16; ++j)

@@ -61,6 +61,13 @@
 // The grid runs groups fastest, so the CTAs resident at one time share a
 // head and its blocks stay in L2.  The output is fresh (the module adds
 // the delta cache); no lse is written.
+// Query groups of qg rows other than 128 (any divisor of Sq) take
+// Grouped<CspKeys<...>>: ceil(qg / 128) CTAs a group, each reading the
+// group's index row; rows past the group's end are computed against its
+// blocks and not stored.  qg = 128 keeps CspKeys alone, the code of the
+// main paths.
+#include <type_traits>
+
 #include "attn_sm90.cuh"
 
 using namespace chipmunk;
@@ -76,6 +83,8 @@ namespace sm90 {
 // valid; positions then count box rows, RB per block.
 template <int RB, bool SLOT = false>
 struct CspKeys {
+  static constexpr bool GROUPED = false;
+  static constexpr int CS_P = 0;
   static constexpr int BOXES = KT / RB;
   static_assert(BOXES < REC_INTS, "record");
   static_assert(!SLOT || RB == 8, "slots of one atom");
@@ -87,6 +96,14 @@ struct CspKeys {
       : kv_block(p.kv_block), kv_valid(p.kv_valid), kstride(p.kstride),
         voff(p.voff) {
     const size_t gi = (size_t)bh * gridDim.x + grp;
+    row = p.inds + gi * p.jmax;
+    n_pos = min(max(p.counts[gi], 1), p.jmax) * (SLOT ? RB : kv_block);
+  }
+
+  // group gi of all B H G groups
+  __device__ CspKeys(const Params& p, size_t gi)
+      : kv_block(p.kv_block), kv_valid(p.kv_valid), kstride(p.kstride),
+        voff(p.voff) {
     row = p.inds + gi * p.jmax;
     n_pos = min(max(p.counts[gi], 1), p.jmax) * (SLOT ? RB : kv_block);
   }
@@ -144,6 +161,14 @@ struct CspKeys {
   }
 };
 
+// Groups of p.qg rows, p.cpg CTAs each (attn_sm90.cuh: GROUPED).
+template <class K>
+struct Grouped : K {
+  static constexpr bool GROUPED = true;
+  __device__ Grouped(const Params& p, int bh, int grp)
+      : K(p, (size_t)bh * (p.Sq / p.qg) + grp) {}
+};
+
 }  // namespace sm90
 }  // namespace chipmunk
 
@@ -152,42 +177,62 @@ namespace {
 constexpr int ST = 3;   // ring stages
 
 // k and v: maps of k_rows rows per head, kv_hs elements apart.
-template <int RB, bool SLOT = false>
+// Grid: groups of 128 rows, or (GR) Sq / qg groups of cpg CTAs.
+template <int RB, bool SLOT, bool GR>
 int launch(const void* q, const void* k, const void* v, int k_rows,
            const Params& p, int BH, int q_hs, long long kv_hs,
            cudaStream_t stream) {
+  using Keys = std::conditional_t<GR, Grouped<CspKeys<RB, SLOT>>,
+                                  CspKeys<RB, SLOT>>;
   CUtensorMap tq, tk, tv;
   int err = make_head_map(&tq, q, BH, p.Sq, q_hs, BM);
   if (err == 0) err = make_head_map(&tk, k, BH, k_rows, kv_hs, RB);
   if (err == 0) err = make_head_map(&tv, v, BH, k_rows, kv_hs, RB);
   if (err != 0) return err;
-  return launch_attn<ST, false, CspKeys<RB, SLOT>>(
-      tq, tk, tv, p, p.Sq / BM, BH, ring_bytes<ST>(), stream);
+  return launch_attn<ST, false, Keys>(
+      tq, tk, tv, p, GR ? p.Sq / p.qg * p.cpg : p.Sq / BM, BH,
+      ring_bytes<ST>(), stream);
 }
 
-int dispatch(const void* q, const void* k, const void* v, int k_rows,
-             const Params& p, int BH, int q_hs, long long kv_hs,
-             cudaStream_t stream) {
-  if (p.Sq < BM || p.Sq % BM || p.jmax < 1 || p.kv_valid < 0)
-    return (int)cudaErrorInvalidValue;
+template <bool GR>
+int dispatch_rb(const void* q, const void* k, const void* v, int k_rows,
+                const Params& p, int BH, int q_hs, long long kv_hs,
+                cudaStream_t stream) {
   if (p.kv_block < 8)                      // 8-row slots (packed only)
-    return launch<8, true>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<8, true, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   if (p.kv_block % 128 == 0)
-    return launch<128>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<128, false, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs,
+                                  stream);
   if (p.kv_block % 64 == 0)
-    return launch<64>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<64, false, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs,
+                                 stream);
   if (p.kv_block == 32)
-    return launch<32>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<32, false, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs,
+                                 stream);
   if (p.kv_block == 16)
-    return launch<16>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<16, false, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs,
+                                 stream);
   if (p.kv_block == 8)
-    return launch<8>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+    return launch<8, false, GR>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
   return (int)cudaErrorInvalidValue;
 }
 
+int dispatch(const void* q, const void* k, const void* v, int k_rows,
+             Params p, int BH, int q_hs, long long kv_hs,
+             cudaStream_t stream) {
+  if (p.Sq < 1 || p.qg < 1 || p.Sq % p.qg || p.jmax < 1 || p.kv_valid < 0)
+    return (int)cudaErrorInvalidValue;
+  if (p.qg == BM)
+    return dispatch_rb<false>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+  p.cpg = (p.qg + BM - 1) / BM;
+  return dispatch_rb<true>(q, k, v, k_rows, p, BH, q_hs, kv_hs, stream);
+}
+
 Params csp_params(void* o, const void* inds, const void* counts, int Sq,
-                  int Sk, int jmax, int kv_block, int kv_valid, float tau) {
+                  int Sk, int qg, int jmax, int kv_block, int kv_valid,
+                  float tau) {
   Params p{};
+  p.qg = qg;
   p.o = (__nv_bfloat16*)o;
   p.Sq = Sq;
   p.Sk = Sk;
@@ -203,14 +248,15 @@ Params csp_params(void* o, const void* inds, const void* counts, int Sq,
 }  // namespace
 
 // In place: q [BH][Sq][128] and k, v [BH][Sk][128], rows contiguous, heads
-// q_hs and kv_hs elements apart; Sk a multiple of kv_block.
+// q_hs and kv_hs elements apart; Sk a multiple of kv_block; inds and
+// counts of Sq / qg groups.
 extern "C" int chipmunk_csp_attn(const void* q, const void* k, const void* v,
                                  const void* inds, const void* counts, void* o,
                                  int BH, int Sq, int Sk, int q_hs, int kv_hs,
-                                 int jmax, int kv_block, int kv_valid,
+                                 int qg, int jmax, int kv_block, int kv_valid,
                                  float tau, void* stream) {
   if (kv_block < 8 || Sk % kv_block) return (int)cudaErrorInvalidValue;
-  Params p = csp_params(o, inds, counts, Sq, Sk, jmax, kv_block, kv_valid,
+  Params p = csp_params(o, inds, counts, Sq, Sk, qg, jmax, kv_block, kv_valid,
                         tau);
   p.kstride = kv_block;
   p.voff = 0;
@@ -221,15 +267,15 @@ extern "C" int chipmunk_csp_attn(const void* q, const void* k, const void* v,
 // for kv_block 1, 2 and 4 [BH][nb][16][128] (K rows 0.., V rows 8..).
 extern "C" int chipmunk_csp_hbm_attn(const void* q, const void* kv,
                                      const void* inds, const void* counts,
-                                     void* o, int BH, int Sq, int nb,
+                                     void* o, int BH, int Sq, int nb, int qg,
                                      int jmax, int kv_block, int kv_valid,
                                      float tau, void* stream) {
   if (kv_block < 1 || kv_block > 128 || 128 % kv_block)
     return (int)cudaErrorInvalidValue;
   const int slot = kv_block < 8 ? 8 : kv_block;   // rows of K, then of V
   const int rows = nb * 2 * slot;
-  Params p = csp_params(o, inds, counts, Sq, nb * kv_block, jmax, kv_block,
-                        kv_valid, tau);
+  Params p = csp_params(o, inds, counts, Sq, nb * kv_block, qg, jmax,
+                        kv_block, kv_valid, tau);
   p.kstride = 2 * slot;
   p.voff = slot;
   return dispatch(q, kv, kv, rows, p, BH, Sq * HD, (long long)rows * HD,

@@ -56,6 +56,18 @@
 // memory: a two-stage ring (160 KB; three would leave no room), the
 // 4 KB hand-off ring and nb x 4 bytes; chipmunk_colsum_max_blocks()
 // gives the largest nb that fits.
+//
+// Score blocks of 1-32 keys (DenseKeysG<P>, attn_sm90.cuh: CS_P): each
+// consumer thread hands over P partials a tile (32 at one key, 16 at 2,
+// 4 and 8, 8 at 16, 4 at 32) through a ring of 2 x P KB, and the
+// producer's warps 1-3 reduce them and store each block's sum once into
+// the CTA's row in global memory, so any nb fits.  Query groups other
+// than 128 rows (qg, any divisor of Sq; the same DenseKeysG, GROUPED):
+// ceil(qg / 128) CTAs a group, rows past the group computed but neither
+// stored nor summed.  With more than one CTA a group each writes its own
+// partial row and colsum_fold_kernel sums the group's rows in order.  The
+// 128-row groups at score blocks of 64 keys or more keep DenseKeys, the
+// code of the main paths.
 #include "attn_sm90.cuh"
 
 using namespace chipmunk;
@@ -65,6 +77,8 @@ namespace {
 
 // Keys 0 .. Sk - 1 in order, tile i from key i * KT; keys past Sk masked.
 struct DenseKeys {
+  static constexpr bool GROUPED = false;
+  static constexpr int CS_P = 0;
   int Sk;
   __device__ DenseKeys(const Params& p, int, int) : Sk(p.Sk) {}
   __device__ int tiles() const { return (Sk + KT - 1) / KT; }
@@ -88,7 +102,16 @@ struct DenseKeys {
   }
 };
 
-template <int ST, bool CS>
+// Query groups of p.qg rows in p.cpg CTAs each, and column sums of P
+// partials a thread (attn_sm90.cuh); the keys as DenseKeys.
+template <int P>
+struct DenseKeysG : DenseKeys {
+  static constexpr bool GROUPED = true;
+  static constexpr int CS_P = P;
+  using DenseKeys::DenseKeys;
+};
+
+template <int ST, bool CS, class Keys = DenseKeys>
 int launch(const void* q, const void* k, const void* v, const Params& p,
            int BH, int q_hs, int kv_hs, cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
@@ -96,16 +119,61 @@ int launch(const void* q, const void* k, const void* v, const Params& p,
   if (err == 0) err = make_head_map(&tk, k, BH, p.Sk, kv_hs, KT);
   if (err == 0) err = make_head_map(&tv, v, BH, p.Sk, kv_hs, KT);
   if (err != 0) return err;
-  return launch_attn<ST, CS, DenseKeys>(
-      tq, tk, tv, p, (p.Sq + BM - 1) / BM, BH,
-      ring_bytes<ST>() + (CS ? HAND_BYTES + 4 * p.nb : 0), stream);
+  // column sums: the hand-off ring, and below 64-key blocks no slots
+  constexpr int P = Keys::CS_P;
+  return launch_attn<ST, CS, Keys>(
+      tq, tk, tv, p,
+      Keys::GROUPED ? p.Sq / p.qg * p.cpg : (p.Sq + BM - 1) / BM, BH,
+      ring_bytes<ST>() + (CS ? hand_bytes<P>() + (P ? 0 : 4 * p.nb) : 0),
+      stream);
+}
+
+// cs[bh][g][b] = sum over k < cpg, in order, of part[bh][g cpg + k][b]:
+// the rows of a group's CTAs.  Grid (ceil(nb / 256), G, BH).
+__global__ void colsum_fold_kernel(const float* __restrict__ part,
+                                   float* __restrict__ cs, int cpg, int nb) {
+  const int b = blockIdx.x * 256 + threadIdx.x;
+  if (b >= nb) return;
+  const size_t row = (size_t)blockIdx.z * gridDim.y + blockIdx.y;
+  const float* src = part + row * cpg * nb + b;
+  float v = src[0];
+  for (int k = 1; k < cpg; ++k) v += src[(size_t)k * nb];
+  cs[row * nb + b] = v;
+}
+
+// The column-sum kernel for p.score_block (1, 2, 4, 8, 16, 32 or a
+// multiple of 64) and p.qg.
+int launch_colsum(const void* q, const void* k, const void* v,
+                  const Params& p, int BH, int q_hs, int kv_hs,
+                  cudaStream_t stream) {
+  const int sb = p.score_block;
+  if (sb % 64 == 0)
+    return p.qg == BM ? launch<2, true>(q, k, v, p, BH, q_hs, kv_hs, stream)
+                      : launch<2, true, DenseKeysG<0>>(q, k, v, p, BH, q_hs,
+                                                       kv_hs, stream);
+  if (sb == 1)
+    return launch<2, true, DenseKeysG<32>>(q, k, v, p, BH, q_hs, kv_hs,
+                                           stream);
+  if (sb == 2 || sb == 4 || sb == 8)
+    return launch<2, true, DenseKeysG<16>>(q, k, v, p, BH, q_hs, kv_hs,
+                                           stream);
+  if (sb == 16)
+    return launch<2, true, DenseKeysG<8>>(q, k, v, p, BH, q_hs, kv_hs,
+                                          stream);
+  if (sb == 32)
+    return launch<2, true, DenseKeysG<4>>(q, k, v, p, BH, q_hs, kv_hs,
+                                          stream);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// The largest number of score blocks whose column-sum slots fit beside
-// the ring (dense_colsum_attn raises above it).
-extern "C" int chipmunk_colsum_max_blocks() {
+// The largest number of score blocks of score_block keys whose column
+// sums a CTA can hold (dense_colsum_attn raises above it): the slots
+// beside the ring for 64 keys or more; below 64 the sums go to global
+// memory and any number fits.
+extern "C" int chipmunk_colsum_max_blocks(int score_block) {
+  if (score_block < 64) return 0x7fffffff;
   return (SMEM_MAX - ring_bytes<2>() - HAND_BYTES) / 4;
 }
 
@@ -119,16 +187,28 @@ extern "C" int chipmunk_dense_attn(const void* q, const void* k, const void* v,
   return launch<3, false>(q, k, v, p, BH, q_hs, kv_hs, (cudaStream_t)stream);
 }
 
+// cs [BH][Sq / qg][nb]; part: [BH][Sq / qg * cpg][nb] scratch where a
+// group has cpg = ceil(qg / 128) > 1 CTAs, else unused.
 extern "C" int chipmunk_dense_colsum_attn(const void* q, const void* k,
                                           const void* v, const void* prev_lse,
-                                          void* o, void* lse, void* cs, int BH,
-                                          int Sq, int Sk, int q_hs, int kv_hs,
+                                          void* o, void* lse, void* cs,
+                                          void* part, int BH, int Sq, int Sk,
+                                          int q_hs, int kv_hs, int qg,
                                           int score_block, float tau,
                                           void* stream) {
-  if (Sq < 128 || Sq % 128 || Sk < 1 || score_block < 64 || score_block % 64)
+  if (Sq < 1 || qg < 1 || Sq % qg || Sk < 1 || score_block < 1)
     return (int)cudaErrorInvalidValue;
-  Params p{(__nv_bfloat16*)o, (float*)lse, (const float*)prev_lse, (float*)cs,
-           Sq, Sk, score_block, (Sk + score_block - 1) / score_block, tau};
-  return launch<2, true>(q, k, v, p, BH, q_hs, kv_hs,
-                            (cudaStream_t)stream);
+  const int cpg = (qg + BM - 1) / BM;
+  if (cpg > 1 && part == nullptr) return (int)cudaErrorInvalidValue;
+  Params p{(__nv_bfloat16*)o, (float*)lse, (const float*)prev_lse,
+           (float*)(cpg > 1 ? part : cs), Sq, Sk, score_block,
+           (Sk + score_block - 1) / score_block, tau};
+  p.qg = qg;
+  p.cpg = cpg;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = launch_colsum(q, k, v, p, BH, q_hs, kv_hs, st);
+  if (err != 0 || cpg == 1) return err;
+  colsum_fold_kernel<<<dim3((p.nb + 255) / 256, Sq / qg, BH), 256, 0, st>>>(
+      (const float*)part, (float*)cs, cpg, p.nb);
+  return (int)cudaGetLastError();
 }

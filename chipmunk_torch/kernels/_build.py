@@ -45,11 +45,10 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     'chipmunk_dense_attn': [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F,
                             _P],
-    'chipmunk_colsum_max_blocks': [],
-    'chipmunk_dense_colsum_attn': [_P, _P, _P, _P, _P, _P, _P,
-                                   _I, _I, _I, _I, _I, _I, _F, _P],
-    'chipmunk_csp_attn': [_P] * 6 + [_I] * 8 + [_F, _P],
-    'chipmunk_csp_hbm_attn': [_P] * 5 + [_I] * 6 + [_F, _P],
+    'chipmunk_colsum_max_blocks': [_I],
+    'chipmunk_dense_colsum_attn': [_P] * 8 + [_I] * 7 + [_F, _P],
+    'chipmunk_csp_attn': [_P] * 6 + [_I] * 9 + [_F, _P],
+    'chipmunk_csp_hbm_attn': [_P] * 5 + [_I] * 7 + [_F, _P],
     'chipmunk_csp_mlp_mm1': [_P] * 7 + [_I] * 7 + [_P],
     'chipmunk_csp_mlp_mm2': [_P] * 5 + [_I] * 7 + [_P],
     'chipmunk_csp_mlp_mm1_wq': [_P] * 9 + [_I] * 8 + [_P],

@@ -22,7 +22,8 @@ kv_block 1, 2 and 4 are smaller than the kernel's 8-row key box (one
 zeros elsewhere) and both modes run the packed kernel on it, one box per
 selected block.  The copy holds 8 / kv_block times the bytes of K and V.
 
-Layout contract: q [B,H,Sq,D] with Sq % qg == 0; k, v [B,H,Sk,D] with
+Layout contract: q [B,H,Sq,D] with Sq % qg == 0 (any such qg, on the
+card too); k, v [B,H,Sk,D] with
 Sk % kv_block == 0; block_inds int [B,H,G,jmax] in [0, Sk/kv_block);
 block_counts int [B,H,G], clipped to [1, jmax].  Entries of block_inds
 at positions past the clipped count are never read.  On the CPU the
@@ -184,9 +185,9 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
         return csp_attn_hbm_plain(q, kv, block_inds, block_counts, qg,
                                   kv_block, kv_valid)
     check_cuda_attn('csp_attn_hbm', q, kv)
-    if qg != 128 or kv_block not in (1, 2, 4, 8, 16, 32, 64, 128):
-        raise ValueError('csp_attn_hbm kernel: qg must be 128 and kv_block '
-                         f'a power of 2 up to 128 (got {qg}, {kv_block})')
+    if kv_block not in (1, 2, 4, 8, 16, 32, 64, 128):
+        raise ValueError('csp_attn_hbm kernel: kv_block must be a power of 2 '
+                         f'up to 128 (got {kv_block})')
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     Sk = nb * kv_block
@@ -194,7 +195,7 @@ def csp_attn_hbm(q: torch.Tensor, kv: torch.Tensor, block_inds: torch.Tensor,
     lib = _build.library('csp_attention')
     _build.check(lib.chipmunk_csp_hbm_attn(
         q.data_ptr(), kv.data_ptr(), inds.data_ptr(), counts.data_ptr(),
-        o.data_ptr(), B * H, Sq, nb, block_inds.shape[-1], kv_block,
+        o.data_ptr(), B * H, Sq, nb, qg, block_inds.shape[-1], kv_block,
         Sk if kv_valid is None else min(kv_valid, Sk), attn_scale(D),
         _stream(q)), 'csp_attn_hbm')
     _build.LAUNCHES['csp_attn_hbm'] += 1
@@ -238,17 +239,16 @@ def csp_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return csp_attn_hbm(q.contiguous(), pack_kv(k, v, kv_block),
                             block_inds, block_counts, qg, kv_block, kv_valid)
     q_hs, kv_hs = _kv_strides('csp_attn', q, k, v)
-    if qg != 128 or not (kv_block in (8, 16, 32) or kv_block % 64 == 0):
-        raise ValueError('csp_attn kernel: qg must be 128 and kv_block 1, '
-                         f'2, 4, 8, 16, 32 or a multiple of 64 (got {qg}, '
-                         f'{kv_block})')
+    if not (kv_block in (8, 16, 32) or kv_block % 64 == 0):
+        raise ValueError('csp_attn kernel: kv_block must be 1, 2, 4, 8, 16, '
+                         f'32 or a multiple of 64 (got {kv_block})')
     inds = block_inds.to(torch.int32).contiguous()
     counts = block_counts.to(torch.int32).contiguous()
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lib = _build.library('csp_attention')
     _build.check(lib.chipmunk_csp_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), inds.data_ptr(),
-        counts.data_ptr(), o.data_ptr(), B * H, Sq, Sk, q_hs, kv_hs, jmax,
+        counts.data_ptr(), o.data_ptr(), B * H, Sq, Sk, q_hs, kv_hs, qg, jmax,
         kv_block, Sk if kv_valid is None else min(kv_valid, Sk),
         attn_scale(D), _stream(q)), 'csp_attn')
     _build.LAUNCHES['csp_attn'] += 1

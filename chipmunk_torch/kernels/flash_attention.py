@@ -16,6 +16,9 @@ from ..ops.attn_ref import attn_scale
 from . import _build
 
 HEAD_DIM = 128   # the kernels' head dim
+# score blocks below 64 keys that the column-sum kernel takes (besides the
+# multiples of 64): the divisors of its 128-key tile down to one key
+SMALL_SCORE_BLOCKS = (1, 2, 4, 8, 16, 32)
 
 
 def _check_qkv(q, k, v):
@@ -145,7 +148,8 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Flash attention that also emits per-query-group column sums of the
     prev-lse-normalised probabilities, summed within ``score_block``-key
     blocks.  Padded query rows must carry prev_lse = PAD_LSE.  q, k, v
-    may be slices along S, as for dense_attn.
+    may be slices along S, as for dense_attn.  Any qg that divides Sq; on
+    the card score_block 1, 2, 4, 8, 16, 32 or a multiple of 64.
 
     Returns (o [B,H,Sq,D], colsums fp32 [B,H,Sq/qg,ceil(Sk/score_block)],
     lse fp32 [B,H,Sq])."""
@@ -159,14 +163,14 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if q.device.type == 'cpu':
         return dense_colsum_attn_plain(q, k, v, prev_lse, qg, score_block)
     q_hs, kv_hs = _kv_strides('dense_colsum_attn', q, k, v)
-    if qg != 128 or score_block % 64:
-        raise ValueError('dense_colsum_attn kernel: qg must be 128 and '
-                         f'score_block a multiple of 64 (got {qg}, '
+    if score_block not in SMALL_SCORE_BLOCKS and score_block % 64:
+        raise ValueError('dense_colsum_attn kernel: score_block must be 1, '
+                         '2, 4, 8, 16, 32 or a multiple of 64 (got '
                          f'{score_block})')
     prev_lse = prev_lse.float().contiguous()
     nb = -(-Sk // score_block)
     lib = _build.library('flash_attention')
-    nb_max = lib.chipmunk_colsum_max_blocks()
+    nb_max = lib.chipmunk_colsum_max_blocks(score_block)
     if nb > nb_max:
         raise ValueError(f'dense_colsum_attn kernel: Sk={Sk} gives {nb} score '
                          f'blocks of {score_block}; a query group\'s row of '
@@ -174,12 +178,17 @@ def dense_colsum_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f'(Sk <= {nb_max * score_block})')
     o = torch.empty((B, H, Sq, D), dtype=q.dtype, device=q.device)
     lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-    cs = torch.empty((B, H, Sq // qg, nb), dtype=torch.float32,
-                     device=q.device)
+    G, cpg = Sq // qg, -(-qg // 128)
+    cs = torch.empty((B, H, G, nb), dtype=torch.float32, device=q.device)
+    # a group of more than one 128-row CTA: each CTA's row, then their sum
+    part = torch.empty((B, H, G * cpg, nb), dtype=torch.float32,
+                       device=q.device) if cpg > 1 else None
     _build.check(lib.chipmunk_dense_colsum_attn(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), prev_lse.data_ptr(),
-        o.data_ptr(), lse.data_ptr(), cs.data_ptr(), B * H, Sq, Sk, q_hs,
-        kv_hs, score_block, attn_scale(D), _stream(q)), 'dense_colsum_attn')
+        o.data_ptr(), lse.data_ptr(), cs.data_ptr(),
+        None if part is None else part.data_ptr(), B * H, Sq, Sk, q_hs,
+        kv_hs, qg, score_block, attn_scale(D), _stream(q)),
+        'dense_colsum_attn')
     _build.LAUNCHES['dense_colsum_attn'] += 1
     return o, cs, lse
 

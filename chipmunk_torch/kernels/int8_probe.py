@@ -3,9 +3,9 @@ plain PyTorch version.
 
 Counterpart of ``_pk`` in ``scripts/bench_int8_mxu.py``: C = A @ B for
 A [M, K], B [K, N] row-major, int8 x int8 -> int32 or bf16 x bf16 ->
-float32.  It is off the sparse loop's path: it measures whether
-hand-written ``mma.sync`` s8 tile code (``csrc/gemm_tile.cuh``, which the
-first a8 MLP kernels ran on) reaches twice the bf16 rate on the card
+float32.  It is off the sparse loop's path: it measures whether s8
+``wgmma`` on the template the sparse-MLP kernels run on
+(``csrc/gemm_sm90.cuh``) reaches twice the bf16 rate on the card
 (``chip_smoke.py`` times it beside ``torch._int_mm`` and
 ``torch.matmul``).
 """
@@ -40,9 +40,9 @@ def int8_probe(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
             raise ValueError('int8_probe: tensors must be contiguous, on one '
                              'CUDA device or all on the CPU')
     s8 = a.dtype == torch.int8
-    if M % 128 or N % 128 or K % (64 if s8 else 32):
+    if M % 128 or N % 128 or K % (16 if s8 else 8):
         raise ValueError('int8_probe: M and N must be multiples of 128, K of '
-                         '64 (int8) or 32 (bf16)')
+                         '16 (int8) or 8 (bf16)')
     c = torch.empty((M, N), dtype=torch.int32 if s8 else torch.float32,
                     device=a.device)
     name = 'int8_probe_s8' if s8 else 'int8_probe_bf16'

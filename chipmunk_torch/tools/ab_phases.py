@@ -8,11 +8,15 @@ for the parent (``git archive <parent> | tar -x -C build/parent``) and
 this tree in turns, in one call on the card::
 
     python3 chipmunk_torch/tools/ab_phases.py ROOT \
-        [--no-video | --wq | --w4 | --a8w4]
+        [--no-video | --wq | --w4 | --a8w4 | --probe | --groups]
 
 With ``--wq`` (int8 weights), ``--w4`` (int4; both with bf16 activations)
 or ``--a8w4`` (int4 weights, int8 activations) only that pair's device
-times are taken (no other phase).
+times are taken (no other phase); with ``--probe`` only ``probe_phase``
+runs, with ``--groups`` only the attention kernels at score blocks below
+64 keys and at query groups other than 128 rows
+(``colsum_small_block_phases``, ``query_group_phases``: the tree must
+have them).
 """
 import functools, importlib, inspect, json, sys, time
 
@@ -107,6 +111,17 @@ def main():
     print(f'built in {time.perf_counter() - t0:.1f} s', flush=True)
     mods = tuple(importlib.import_module(f'chipmunk_torch.kernels.{m}')
                  for m in ('flash_attention', 'csp_attention', 'csp_mlp'))
+    if '--probe' in sys.argv:
+        rows = cs.probe_phase(torch, importlib.import_module(
+            'chipmunk_torch.kernels.int8_probe'))
+        print('AB ' + json.dumps({'root': root, 'rows': [
+            {k: r.get(k) for k in ('name', 'ms', 'device_ms', 'library_ms')}
+            for r in rows]}), flush=True)
+        return
+    if '--groups' in sys.argv:
+        cs.colsum_small_block_phases(torch, mods[0])
+        cs.query_group_phases(torch, mods[0], mods[1])
+        return
     for flag, fn in (
             ('--wq', functools.partial(bf16x_device_ms, kind='int8')),
             ('--w4', functools.partial(bf16x_device_ms, kind='int4')),

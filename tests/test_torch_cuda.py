@@ -1,6 +1,8 @@
 """The CUDA kernels of chipmunk_torch against their plain PyTorch versions
 on the card, at small shapes that reach the paths the FLUX shapes do not
-(ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of 64/128/256 with PAD_LSE rows, large
+(ragged Sq/Sk at the dense kernels' tile edges, B = 2, score blocks of
+1-32 and 64/128/256 keys with PAD_LSE rows, query groups other than 128
+rows, the attention module over every step kind, large
 scores, repeat calls bit-equal, kv_block 1, 2, 4 (16-row packed
 slots), 8, 16, 32, 64, 128 and 256, kv_valid inside a group's last or an
 earlier block, counts ending inside a tile, clipped counts, NaN in unselected K/V
@@ -283,16 +285,27 @@ def test_cuda_csp_attn_takes_head_strided_views(gen):
 
 @pytest.mark.cuda
 def test_cuda_csp_kernels_raise_on_what_they_do_not_take(gen):
-    """qg other than 128, kv_block outside each kernel's set, and mixed
-    dtypes or devices raise; nothing falls back to a plain version."""
+    """kv_block outside each kernel's set, and mixed dtypes or devices
+    raise; nothing falls back to a plain version.  Query groups other than
+    128 rows (64, 192, 96) are taken, in both modes, and agree with the
+    plain version."""
     q, k, v = (randn(gen, 1, 2, 512, 128) for _ in range(3))
     inds, counts = csp_case(gen, 128, B=1, Sk=512, jmax=3)
+    q768 = randn(gen, 1, 2, 768, 128)
+    for qg in (64, 192, 96):
+        qq = q if 512 % qg == 0 else q768
+        G = qq.shape[2] // qg
+        gi = torch.rand((1, 2, G, 4), generator=gen, device='cuda') \
+            .argsort(-1)[..., :3].to(torch.int32)
+        gc = torch.randint(1, 4, (1, 2, G), generator=gen, device='cuda',
+                           dtype=torch.int32)
+        ref = CA.csp_attn_plain(qq, k, v, CA.pad_block_indices(gi, gc), gc,
+                                qg=qg)
+        for mode in ('vmem', 'hbm'):
+            got = CA.csp_attn(qq, k, v, gi, gc, qg=qg, mode=mode)
+            torch.testing.assert_close(got.float(), ref.float(), atol=ATOL,
+                                       rtol=RTOL)
     n0 = dict(CA._build.LAUNCHES)
-    g64 = torch.zeros((1, 2, 8, 3), dtype=torch.int32, device='cuda')
-    c64 = torch.ones((1, 2, 8), dtype=torch.int32, device='cuda')
-    for mode in ('vmem', 'hbm'):
-        with pytest.raises(ValueError, match='qg must be 128'):
-            CA.csp_attn(q, k, v, g64, c64, qg=64, mode=mode)
     i96 = torch.zeros((1, 2, 4, 3), dtype=torch.int32, device='cuda')
     kk, vv = k[..., :480, :], v[..., :480, :]
     with pytest.raises(ValueError, match='kv_block'):
@@ -403,16 +416,24 @@ def test_cuda_dense_attn_ragged_edges(gen, sq, sk):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize('sk', [333, 600])
-@pytest.mark.parametrize('score_block', [64, 128, 256])
+@pytest.mark.parametrize('score_block', [1, 2, 4, 8, 16, 32, 64, 128, 256])
 def test_cuda_dense_colsum_score_blocks(gen, score_block, sk):
-    """Score blocks of one half tile, one tile and two tiles, B = 2, with
-    PAD_LSE rows in both groups (they add exactly 0)."""
+    """Score blocks of 1-32 keys (each block's sum stored once by the
+    reducers into the CTA's row in global memory), of one half tile, one
+    tile and two tiles, B = 2, Sk ragged past the last tile, with PAD_LSE
+    rows in both groups (they add exactly 0); a second call bit-equal."""
     q = randn(gen, 2, 2, 256, 128)
     k, v = randn(gen, 2, 2, sk, 128), randn(gen, 2, 2, sk, 128)
     prev = FA.dense_attn_plain(randn(gen, 2, 2, 256, 128), k, v)[1]
     prev[..., 120:128] = PAD_LSE
     prev[..., -9:] = PAD_LSE
-    got = FA.dense_colsum_attn(q, k, v, prev, score_block=score_block)
+    got, again = (FA.dense_colsum_attn(q, k, v, prev,
+                                       score_block=score_block)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[1].shape[-1] == -(-sk // score_block)
     ref = FA.dense_colsum_attn_plain(q, k, v, prev, score_block=score_block)
     assert_attn_close(got, ref)
     pad = prev.clone()
@@ -454,15 +475,136 @@ def test_cuda_dense_kernels_repeat_bit_equal(gen):
 
 @pytest.mark.cuda
 def test_cuda_dense_colsum_raises_past_its_slots(gen):
-    """Sk whose column-sum slots would not fit shared memory: the wrapper
-    raises and names the limit."""
-    nb_max = FA._build.library('flash_attention').chipmunk_colsum_max_blocks()
+    """Sk whose column-sum slots would not fit shared memory (score blocks
+    of 64 keys or more): the wrapper raises and names the limit."""
+    nb_max = FA._build.library('flash_attention').chipmunk_colsum_max_blocks(
+        64)
     q = randn(gen, 1, 1, 128, 128)
     k = torch.zeros((1, 1, 64 * nb_max + 1, 128), dtype=torch.bfloat16,
                     device='cuda')
     with pytest.raises(ValueError, match=f'at most {nb_max}'):
         FA.dense_colsum_attn(q, k, k, torch.zeros((1, 1, 128), device='cuda'),
                              score_block=64)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('score_block', [1, 2])
+def test_cuda_dense_colsum_small_blocks_past_the_slots(gen, score_block):
+    """More score blocks than shared memory has slots for at 64 keys (the
+    sums go to global memory below 64): no raise, and the plain version's
+    sums."""
+    nb = FA._build.library('flash_attention').chipmunk_colsum_max_blocks(
+        64) + 77
+    sk = nb * score_block - score_block // 2      # the last block ragged
+    q = randn(gen, 1, 1, 128, 128)
+    k, v = randn(gen, 1, 1, sk, 128), randn(gen, 1, 1, sk, 128)
+    prev = FA.dense_attn_plain(randn(gen, 1, 1, 128, 128), k, v)[1]
+    prev[..., -3:] = PAD_LSE
+    got = FA.dense_colsum_attn(q, k, v, prev, score_block=score_block)
+    assert got[1].shape[-1] == nb
+    assert_attn_close(got, FA.dense_colsum_attn_plain(
+        q, k, v, prev, score_block=score_block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('qg,score_block', [(64, 128), (192, 64),
+                                            (256, 128), (96, 32), (32, 8),
+                                            (256, 16), (768, 1)])
+def test_cuda_dense_colsum_query_groups(gen, qg, score_block):
+    """Query groups other than 128 rows: one CTA a group with rows past
+    its end (64, 96, 32), several CTAs a group whose rows are summed by
+    colsum_fold_kernel (192, 256, 768); PAD_LSE rows at the end and
+    inside a group; two calls bit-equal."""
+    q = randn(gen, 1, 2, 768, 128)
+    k, v = randn(gen, 1, 2, 333, 128), randn(gen, 1, 2, 333, 128)
+    prev = FA.dense_attn_plain(randn(gen, 1, 2, 768, 128), k, v)[1]
+    prev[..., 100:110] = PAD_LSE
+    prev[..., -9:] = PAD_LSE
+    got, again = (FA.dense_colsum_attn(q, k, v, prev, qg=qg,
+                                       score_block=score_block)
+                  for _ in range(2))
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        assert torch.equal(a, b)
+    assert got[1].shape[2] == 768 // qg
+    assert_attn_close(got, FA.dense_colsum_attn_plain(
+        q, k, v, prev, qg=qg, score_block=score_block))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['vmem', 'hbm'])
+@pytest.mark.parametrize('qg,kv_block', [(64, 128), (192, 32), (256, 16),
+                                         (96, 64), (32, 2), (384, 8)])
+def test_cuda_csp_kernels_query_groups(gen, qg, kv_block, mode):
+    """Query groups other than 128 rows in both modes, B = 2: counts of 1
+    and jmax, kv_valid inside the last block, NaN in every block no group
+    selects; two calls bit-equal; against csp_attn_plain."""
+    Sq, Sk = 768, 1024
+    G, nb = Sq // qg, Sk // kv_block
+    jmax = min(nb, 9)
+    q = randn(gen, 2, 2, Sq, 128)
+    inds = torch.rand((2, 2, G, nb), generator=gen, device='cuda') \
+        .argsort(-1)[..., :jmax].to(torch.int32)
+    inds[..., 0, 0] = nb - 1               # the cut block, first
+    counts = torch.randint(1, jmax + 1, (2, 2, G), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    counts[..., 0] = jmax
+    counts[..., -1] = 1
+    k, v = poison_unselected(randn(gen, 2, 2, Sk, 128),
+                             randn(gen, 2, 2, Sk, 128), inds, counts,
+                             kv_block)
+    kv_valid = Sk - max(kv_block // 2, 1)
+    ref = CA.csp_attn_plain(q, k, v, CA.pad_block_indices(inds, counts),
+                            counts, qg=qg, kv_block=kv_block,
+                            kv_valid=kv_valid)
+    a, b = (CA.csp_attn(q, k, v, inds, counts, qg=qg, kv_block=kv_block,
+                        kv_valid=kv_valid, mode=mode) for _ in range(2))
+    torch.cuda.synchronize()
+    assert bool(a.isfinite().all()) and torch.equal(a, b)
+    torch.testing.assert_close(a.float(), ref.float(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mbm,kv_block', [(128, 8), (128, 32), (192, 32)])
+def test_cuda_sparse_attn_step_kinds_match_cpu(gen, mbm, kv_block):
+    """SparseDiffAttn over every step kind (first full, colsum, sparse,
+    plain full, sparse) on the card against the same module on the CPU
+    (the plain versions), on the same bf16 inputs: the same selection, o,
+    lse and delta cache within the kernels' tolerances."""
+    from chipmunk_torch.config import AttnConfig
+    from chipmunk_torch.modules import SparseDiffAttn
+    B, H, S, D = 1, 2, 768, 128
+    mod = SparseDiffAttn.build(AttnConfig(
+        top_keys=0.4, kv_block=kv_block, counts_multiple_of=32,
+        random_keys=0.0, should_compress_indices=False,
+        max_selected_frac=1.0, mbm=mbm), S)
+    base = [randn(gen, B, H, S, D) for _ in range(3)]
+    st_c = mod.init_state(B, H, D, torch.bfloat16, device='cuda')
+    st_p = mod.init_state(B, H, D, torch.bfloat16, device='cpu')
+    n0 = dict(FA._build.LAUNCHES)
+    for step, full, colsum in [(0, True, False), (1, True, True),
+                               (2, False, False), (3, True, False),
+                               (4, False, False)]:
+        q, k, v = ((x.float() + 0.05 * step * torch.randn(
+            x.shape, generator=gen, device='cuda')).to(torch.bfloat16)
+            for x in base)
+        kw = dict(step_index=step, is_full=full, is_colsum=colsum,
+                  layer_is_dense=False)
+        o_c, st_c = mod(q, k, v, st_c, **kw)
+        o_p, st_p = mod(q.cpu(), k.cpu(), v.cpu(), st_p, **kw)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(o_c.float().cpu(), o_p.float(),
+                                   atol=ATOL, rtol=RTOL)
+        assert torch.equal(st_c.inds.cpu(), st_p.inds)
+        assert torch.equal(st_c.counts.cpu(), st_p.counts)
+        torch.testing.assert_close(st_c.lse.cpu(), st_p.lse, atol=1e-3,
+                                   rtol=0)
+        torch.testing.assert_close(st_c.out_cache.float().cpu(),
+                                   st_p.out_cache.float(), atol=2 * ATOL,
+                                   rtol=RTOL)
+    assert FA._build.LAUNCHES['dense_colsum_attn'] == \
+        n0['dense_colsum_attn'] + 1
+    assert FA._build.LAUNCHES['csp_attn'] > n0['csp_attn']
 
 
 @pytest.mark.cuda
@@ -591,16 +733,22 @@ def test_cuda_csp_mlp_wq_matches_plain(gen, bm, bn, kind):
 
 
 @pytest.mark.cuda
-def test_cuda_int8_probe_matches_plain(gen):
-    a = torch.randint(-127, 128, (256, 512), generator=gen, device='cuda',
+@pytest.mark.parametrize('M,K,N', [(256, 512, 384), (384, 208, 640)])
+def test_cuda_int8_probe_matches_plain(gen, M, K, N):
+    """Both halves on gemm_sm90_kernel: int8 exact, bf16 to its tolerance;
+    the second shape is neither square nor a multiple of the tiles (M of
+    the s8 CTA's 256 rows, N of the bf16 CTA's 256 columns, K of either
+    k slice)."""
+    a = torch.randint(-128, 128, (M, K), generator=gen, device='cuda',
                       dtype=torch.int8)
-    b = torch.randint(-127, 128, (512, 384), generator=gen, device='cuda',
+    b = torch.randint(-128, 128, (K, N), generator=gen, device='cuda',
                       dtype=torch.int8)
     c = PR.int8_probe(a, b)
     torch.cuda.synchronize()
     assert torch.equal(c, PR.int8_probe_plain(a, b))
-    assert torch.equal(c, torch._int_mm(a, b))
-    af, bf = randn(gen, 256, 512), randn(gen, 512, 384)
+    if K % 8 == 0:
+        assert torch.equal(c, torch._int_mm(a, b))
+    af, bf = randn(gen, M, K), randn(gen, K, N)
     torch.testing.assert_close(PR.int8_probe(af, bf),
                                PR.int8_probe_plain(af, bf), atol=1e-3,
                                rtol=1e-4)

@@ -71,19 +71,31 @@ def test_dense_attn_matches_reference(sq, sk, bk):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize('sk,score_block', [(256, 128), (256, 32),
-                                            (300, 32), (333, 128)])
-def test_dense_colsum_attn_matches_reference(sk, score_block):
-    q, k, v = qkv(1, 256, sk)
-    _, lse = j_dense_attn(*map(jnp.asarray, qkv(2, 256, sk)), bq=128,
+def sq_for(qg):
+    """Query rows for a test at query-group size qg: 256, or 384 where
+    qg does not divide 256 (192, 96)."""
+    return 256 if 256 % qg == 0 else 384
+
+
+@pytest.mark.parametrize('sk,score_block,qg', [
+    pytest.param(256, 128, 128, id='256-128'),
+    pytest.param(256, 32, 128, id='256-32'),
+    pytest.param(300, 32, 128, id='300-32'),
+    pytest.param(333, 128, 128, id='333-128'),
+    (256, 8, 128), (333, 16, 128), (256, 128, 64), (300, 32, 192),
+    (333, 128, 256), (333, 8, 96), (256, 16, 32)])
+def test_dense_colsum_attn_matches_reference(sk, score_block, qg):
+    sq = sq_for(qg)
+    q, k, v = qkv(1, sq, sk)
+    _, lse = j_dense_attn(*map(jnp.asarray, qkv(2, sq, sk)), bq=128,
                           bk=128, interpret=True)
     prev = np.asarray(lse).copy()
     prev[:, :, -5:] = PAD_LSE            # padded rows add exactly 0
-    o_j, cs_j, lse_j = j_colsum(*map(jnp.asarray, (q, k, v, prev)), qg=128,
+    o_j, cs_j, lse_j = j_colsum(*map(jnp.asarray, (q, k, v, prev)), qg=qg,
                                 bk=128, score_block=score_block,
                                 interpret=True)
     o_t, cs_t, lse_t = dense_colsum_attn(*map(to_torch, (q, k, v, prev)),
-                                         qg=128, score_block=score_block)
+                                         qg=qg, score_block=score_block)
     assert cs_t.shape == cs_j.shape
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
                                rtol=1e-5)
@@ -93,49 +105,71 @@ def test_dense_colsum_attn_matches_reference(sk, score_block):
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize('kv_block,kv_valid', [(128, None), (32, None),
-                                               (32, 470), (8, None),
-                                               (16, None)])
-def test_csp_attn_matches_reference(kv_block, kv_valid):
-    q, k, v = qkv(3, 512, 512)
+@pytest.mark.parametrize('kv_block,kv_valid,qg', [
+    pytest.param(128, None, 128, id='128-None'),
+    pytest.param(32, None, 128, id='32-None'),
+    pytest.param(32, 470, 128, id='32-470'),
+    pytest.param(8, None, 128, id='8-None'),
+    pytest.param(16, None, 128, id='16-None'),
+    (128, None, 64), (32, 470, 192), (16, None, 256), (8, 470, 96),
+    (32, None, 32)])
+def test_csp_attn_matches_reference(kv_block, kv_valid, qg):
+    sq = 2 * sq_for(qg)
+    q, k, v = qkv(3, sq, 512)
     rng = np.random.default_rng(4)
     jmax = 6 if kv_block == 32 else 3
-    inds, counts = random_blocks(rng, (1, 2, 4), 512 // kv_block, jmax)
-    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=128,
+    inds, counts = random_blocks(rng, (1, 2, sq // qg), 512 // kv_block,
+                                 jmax)
+    if kv_valid is not None and qg != 128:
+        # as in the hbm test: every group keeps a block before kv_valid (a
+        # row with no key at all gives 0 here and the masked V's mean in
+        # the reference)
+        inds[..., 0] = rng.integers(0, kv_valid // kv_block, (1, 2, sq // qg))
+    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=qg,
                      kv_block=kv_block, mode='vmem', kv_valid=kv_valid,
                      interpret=True)
-    o_t = csp_attn(*map(to_torch, (q, k, v, inds, counts)), qg=128,
+    o_t = csp_attn(*map(to_torch, (q, k, v, inds, counts)), qg=qg,
                    kv_block=kv_block, kv_valid=kv_valid)
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
                                rtol=1e-5)
 
 
-@pytest.mark.parametrize('kv_block,kv_valid,jmax', [
-    (128, None, 3), (32, None, 6), (32, 470, 6), (64, 300, 4),
-    (8, 470, 6), (16, 470, 6), (8, 300, 12), (16, 300, 4)])
-def test_csp_attn_hbm_matches_reference(kv_block, kv_valid, jmax):
+@pytest.mark.parametrize('kv_block,kv_valid,jmax,qg', [
+    pytest.param(128, None, 3, 128, id='128-None-3'),
+    pytest.param(32, None, 6, 128, id='32-None-6'),
+    pytest.param(32, 470, 6, 128, id='32-470-6'),
+    pytest.param(64, 300, 4, 128, id='64-300-4'),
+    pytest.param(8, 470, 6, 128, id='8-470-6'),
+    pytest.param(16, 470, 6, 128, id='16-470-6'),
+    pytest.param(8, 300, 12, 128, id='8-300-12'),
+    pytest.param(16, 300, 4, 128, id='16-300-4'),
+    (32, 470, 6, 64), (16, 300, 4, 192), (128, None, 3, 256),
+    (8, 470, 6, 96), (64, 300, 4, 32)])
+def test_csp_attn_hbm_matches_reference(kv_block, kv_valid, jmax, qg):
     """The packed-KV mode against the reference's _csp_hbm_packed_kernel in
     interpret mode: counts from 1 to jmax (positions past the count never
     visited), kv_valid cutting a block; the port's pack is the reference's
     layout, and the mode is the same function as 'vmem'."""
-    q, k, v = qkv(14, 512, 512)
+    sq = 2 * sq_for(qg)
+    G = sq // qg
+    q, k, v = qkv(14, sq, 512)
     rng = np.random.default_rng(15)
-    inds, counts = random_blocks(rng, (1, 2, 4), 512 // kv_block, jmax)
+    inds, counts = random_blocks(rng, (1, 2, G), 512 // kv_block, jmax)
     if kv_valid is not None:
         # every group keeps a block before kv_valid: no row without keys
-        inds[..., 0] = rng.integers(0, kv_valid // kv_block, (1, 2, 4))
+        inds[..., 0] = rng.integers(0, kv_valid // kv_block, (1, 2, G))
         inds[..., 1] = kv_valid // kv_block      # the block kv_valid cuts
         counts = np.maximum(counts, 2)
-    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=128,
+    o_j = j_csp_attn(*map(jnp.asarray, (q, k, v, inds, counts)), qg=qg,
                      kv_block=kv_block, mode='hbm', kv_valid=kv_valid,
                      interpret=True)
     args = [to_torch(a) for a in (q, k, v, inds, counts)]
-    o_t = csp_attn(*args, qg=128, kv_block=kv_block, kv_valid=kv_valid,
+    o_t = csp_attn(*args, qg=qg, kv_block=kv_block, kv_valid=kv_valid,
                    mode='hbm')
     np.testing.assert_allclose(o_t.numpy(), np.asarray(o_j), atol=1e-5,
                                rtol=1e-5)
     np.testing.assert_array_equal(
-        csp_attn(*args, qg=128, kv_block=kv_block, kv_valid=kv_valid,
+        csp_attn(*args, qg=qg, kv_block=kv_block, kv_valid=kv_valid,
                  mode='vmem').numpy(), o_t.numpy())
     # the reference's pack (csp_attention.py:410-413)
     nb = 512 // kv_block

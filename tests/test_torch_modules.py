@@ -36,10 +36,22 @@ def assert_tie_free(scores):
 
 
 def test_sparse_attn_matches_reference_over_step_kinds():
+    attn_over_step_kinds(mbm=128, kv_block=32)
+
+
+@pytest.mark.parametrize('mbm,kv_block', [(64, 32), (256, 32), (128, 8)])
+def test_sparse_attn_matches_reference_at_other_groups_and_blocks(mbm,
+                                                                  kv_block):
+    """The same five step kinds at query groups of 64 and 256 rows and at
+    8-key blocks (the card's kernels take them all)."""
+    attn_over_step_kinds(mbm=mbm, kv_block=kv_block)
+
+
+def attn_over_step_kinds(mbm, kv_block):
     B, H, S, D = 1, 2, 512, 64
-    kw = dict(top_keys=0.4, kv_block=32, counts_multiple_of=32,
+    kw = dict(top_keys=0.4, kv_block=kv_block, counts_multiple_of=32,
               random_keys=0.0, should_compress_indices=False,
-              max_selected_frac=1.0)
+              max_selected_frac=1.0, mbm=mbm)
     jmod = JAttn.build(JAttnConfig(**kw), S, use_kernels=True,
                        interpret=True)
     tmod = SparseDiffAttn.build(AttnConfig(**kw), S)
