@@ -55,7 +55,23 @@
    sparse steps and its dense loop; and a small full-width video model on
    the card (csp mode 'auto' and 'hbm') against the plain versions on the
    CPU.
-5. Prints the card line, one JSON line with the kernels' numbers, and as
+5. The Wan2.1 slice: ``dense_attn`` (self-attention over the keys cut at
+   32,760, the 128-row dense tail, and the cross-attention of 32,768
+   queries over 512 text keys), ``dense_colsum_attn`` and ``csp_attn``
+   (the 'vmem' kernel, jmax 62, a count of 1 and of jmax on the cut last
+   block) at Wan's shapes (12 heads), each against its plain version,
+   with device times, bounds and the matching
+   ``scaled_dot_product_attention`` call; the UMT5-XXL encoder at full
+   size in bf16 (random weights from a seed) on two prompts of random
+   ids, zero-padded past their valid prefixes; then the main path
+   ``wan_denoise`` over the 50-step schedule of
+   ``configs/wan-chipmunk.yml`` (as read) at 480x832x81 frames with
+   Wan2.1-T2V-1.3B at full width and depth (30 layers), random bf16
+   weights from a seed, two invocations a step, with its exact launch
+   counts, a trace of a window of sparse steps and its dense loop; and a
+   small full-width Wan on the card (csp mode 'auto' and 'hbm') and a
+   small UMT5 against the plain versions on the CPU.
+6. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
@@ -72,6 +88,7 @@ import sys
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
+T_START = time.perf_counter()
 # published dense peaks of one H100 SXM (NVIDIA data sheet)
 PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
@@ -118,6 +135,21 @@ VIDEO_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn_hbm')
 # run 2 dense layers, 4 csp and 4 dense tails
 VIDEO_LAUNCHES = {'dense_attn': 138, 'dense_colsum_attn': 12,
                   'csp_attn_hbm': 96}
+# Wan2.1-T2V-1.3B at 480x832x81 frames: latent (21, 60, 104), 32,760
+# tokens padded to 32,768, 12 heads, 30 layers (scripts/bench_wan.py)
+WAN_LATENT = dict(latent_t=21, latent_h=60, latent_w=104)
+WAN_H = 12
+WAN_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn')
+# per generation, two invocations a computed step: 25 computed steps x 2
+# x 30 cross-attentions (1500) + 2 dense layers (100) + step 0's 28 sparse
+# layers (56) + the 21 sparse steps' 28 dense tails (1176); colsum steps
+# 1, 10, 40: 28 x 2 colsums and csp each; 21 sparse steps: 28 x 2 csp
+WAN_LAUNCHES = {'dense_attn': 2832, 'dense_colsum_attn': 168,
+                'csp_attn': 1344}
+WAN_DENSE_LAUNCHES = {'dense_attn': 6000}
+# UMT5-XXL prompts: two rows of 512 ids, valid prefixes of these lengths
+# (cond, uncond)
+UMT5_VALID = (93, 27)
 
 
 def fail(msg):
@@ -148,7 +180,9 @@ def device_ms(torch, fn, n):
     """(ms, kernel name): device time per call of the longest-running CUDA
     kernel that ``fn`` launches, from torch.profiler's kernel records over
     ``n`` calls; the wrapper's host work and any small torch kernels it
-    launches are left out."""
+    launches are left out.  The profiler has been seen to drop one record
+    of a long kernel (~10 ms, at Wan's shapes): the mean is then taken
+    over the records it kept, and said so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -160,10 +194,15 @@ def device_ms(torch, fn, n):
         torch.cuda.synchronize()
     top = max((e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA),
-              key=lambda e: e.self_device_time_total)
-    if top.count != n:
+              key=lambda e: e.self_device_time_total, default=None)
+    if top is None:
+        fail('device_ms: the profiler recorded no CUDA kernel')
+    if top.count > n:
         fail(f'device_ms: {top.key} ran {top.count} times in {n} calls')
-    return top.self_device_time_total / 1e3 / n, top.key
+    if top.count < n:
+        print(f'device_ms: the profiler kept {top.count} records of '
+              f'{top.key[:80]} in {n} calls; their mean', flush=True)
+    return top.self_device_time_total / 1e3 / top.count, top.key
 
 
 def kernel_names(torch, fn, n=5):
@@ -1525,6 +1564,15 @@ def probe_phase(torch, probe):
     return rows
 
 
+def to_device(tree, device):
+    """A nest of dicts and lists of tensors, moved to ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [to_device(v, device) for v in tree]
+    return tree.to(device)
+
+
 def run_loop(torch, tm, ck, model, h_img, w_img, device, init_device=None,
              callback=None, params=None):
     """One FluxSampler.denoise; weights (unless ``params`` are given, on
@@ -1541,11 +1589,7 @@ def run_loop(torch, tm, ck, model, h_img, w_img, device, init_device=None,
     if params is None:
         params = tm.init_flux_params(gen, model, init_device)
     if init_device != device:
-        def move(t):
-            return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
-                    else [move(v) for v in t] if isinstance(t, list)
-                    else t.to(device))
-        params = move(params)
+        params = to_device(params, device)
     img, txt, y = (torch.randn(shape, generator=gen, device=init_device)
                    .to(device) for shape in (
                        (1, h_img * w_img, model.in_channels),
@@ -1830,12 +1874,7 @@ def agree_small_video(torch, tm, kern, ck):
     cpu_model = tm.HunyuanModel(cfg=cfg, ck=small_ck, device='cpu')
     cpu_out, cpu_s = run_video(torch, tm, cpu_model, params_cpu, inputs)
 
-    def move(t):
-        return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
-                else [move(v) for v in t] if isinstance(t, list)
-                else t.to('cuda'))
-
-    params = move(params_cpu)
+    params = to_device(params_cpu, 'cuda')
     for mode, csp in (('auto', 'csp_attn'), ('hbm', 'csp_attn_hbm')):
         model = tm.HunyuanModel(cfg=cfg, ck=small_ck, csp_mode=mode)
         kern.reset_launches()
@@ -1856,6 +1895,399 @@ def agree_small_video(torch, tm, kern, ck):
         if missing:
             fail(f'video small run (csp mode {mode!r}): kernels not '
                  f'launched: {missing}')
+
+
+def wan_kernel_phases(torch, mods, tm, ck):
+    """The kernels of the Wan path at its shapes (B 1, 12 heads, D 128,
+    32,768 query rows, keys cut at 32,760, jmax 62, the selection as the
+    main path makes it from random column sums), each against its plain
+    version:
+      dense_attn, self-attention (full steps, dense layers): rows 0-127
+        and the last 256 (pad rows included), all heads; the 128-row dense
+        tail as a view of q, equal to the same rows of the full call;
+      dense_attn, cross-attention over 512 text keys: every row and head;
+      dense_colsum_attn (qg 128, score block 128) with PAD_LSE on the pad
+        rows: groups 0-1 and the tail group;
+      csp_attn in the mode 'auto' picks here ('vmem', keys read in place):
+        head 0, with group 1 of every head re-pointed at jmax blocks that
+        include the last one, which kv_valid cuts to 120 rows, and group
+        2 at that block alone (a count of 1).
+    For each it prints ms (CUDA events, wrapper included), device_ms (the
+    kernel's own time from profiler records), the bound and the time of
+    one scaled_dot_product_attention call that computes the same function
+    (for csp_attn with the boolean block mask on LIB_HEADS heads, scaled
+    to 12; none for the column sums).  Returns the numbers."""
+    from chipmunk_torch.ops.attn_ref import PAD_LSE
+    fa, ca = mods[0], mods[1]
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 5)
+    Hw = WAN_H
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen, device='cuda').to(
+            torch.bfloat16)
+
+    model = tm.WanModel(cfg=tm.WanModelConfig(**WAN_LATENT, num_layers=2),
+                        ck=ck)
+    mod = model.attn_mod
+    S, n, jmax = mod.seq_len, mod.valid_len, mod.jmax
+    t0, nb = mod.dense_tail_g * 128, S // 128
+    mode = ca.auto_mode(S, S, D, jmax, 128, 2)
+    q, k, v = randn(B, Hw, S, D), randn(B, Hw, S, D), randn(B, Hw, S, D)
+    pinds, counts = video_selection(torch, mod, Hw, gen)
+    print(f'wan kernels: seq {S} (valid {n}), jmax {jmax}, dense tail from '
+          f'row {t0}, auto csp mode {mode!r}, selected blocks per group '
+          f'mean {counts.float().mean().item():.2f} max '
+          f'{counts.max().item()}', flush=True)
+    if (S, n, jmax, t0, mode) != (32768, 32760, 62, 32640, 'vmem'):
+        fail(f'Wan shape is not the expected one: {(S, n, jmax, t0, mode)}')
+    out = {}
+
+    def record(tag, fn, flops, nbytes=None, lib=None, reps=5, bound=None):
+        out[f'{tag} ms'] = time_ms(torch, fn, reps)
+        out[f'{tag} device_ms'] = device_ms(torch, fn, reps)[0]
+        out[f'{tag} bound ms'], by = bound or bound_ms(flops, nbytes)
+        out[f'{tag} TFLOP/s (device)'] = flops / out[f'{tag} device_ms'] / 1e9
+        if lib is not None:
+            out[f'{tag} library ms (SDPA)'] = time_ms(torch, lib, reps)
+        print(f'wan kernels: {tag}: ms {out[f"{tag} ms"]:.4f} device_ms '
+              f'{out[f"{tag} device_ms"]:.4f} bound '
+              f'{out[f"{tag} bound ms"]:.4f} ({by}) SDPA '
+              f'{out.get(f"{tag} library ms (SDPA)")}', flush=True)
+
+    # ---- dense_attn, self-attention over the cut keys
+    kc, vc = k[..., :n, :], v[..., :n, :]      # views: no copy
+    od, lse = fa.dense_attn(q, kc, vc)
+    torch.cuda.synchronize()
+    for r in (slice(0, 128), slice(S - 256, S)):
+        o_p, lse_p = fa.dense_attn_plain(q[..., r, :], kc, vc)
+        out['dense_attn self max_abs_err'] = check_close(
+            'dense_attn o (Wan)', od[..., r, :], o_p, 4e-3, 2 ** -6)
+        check_close('dense_attn lse (Wan)', lse[..., r], lse_p, 1e-3, 0.0)
+    ot, _ = fa.dense_attn(q[..., t0:, :], kc, vc)
+    torch.cuda.synchronize()
+    if not torch.equal(ot, od[..., t0:, :]):
+        fail('dense_attn: the 128-row tail differs from the same rows of '
+             'the full call (Wan)')
+    flops = 4.0 * B * Hw * S * n * D
+    attn_bytes = B * Hw * (2 * S + 2 * n) * D * 2
+    record('dense_attn self', lambda: fa.dense_attn(q, kc, vc), flops,
+           attn_bytes + B * Hw * S * 4,
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, kc, vc))
+    tail = S - t0
+    record('dense_attn tail (128 rows)',
+           lambda: fa.dense_attn(q[..., t0:, :], kc, vc),
+           4.0 * B * Hw * tail * n * D,
+           B * Hw * (2 * tail + 2 * n) * D * 2 + B * Hw * tail * 4, reps=20)
+
+    # ---- dense_attn, cross-attention: 32,768 queries over 512 text keys
+    ck_, cv = randn(B, Hw, 512, D), randn(B, Hw, 512, D)
+    oc, lc = fa.dense_attn(q, ck_, cv)
+    torch.cuda.synchronize()
+    o_p, lse_p = fa.dense_attn_plain(q, ck_, cv)
+    out['dense_attn cross max_abs_err'] = check_close(
+        'dense_attn cross o (Wan)', oc, o_p, 4e-3, 2 ** -6)
+    check_close('dense_attn cross lse (Wan)', lc, lse_p, 1e-3, 0.0)
+    del o_p, lse_p, oc, lc
+    record('dense_attn cross (Sk 512)', lambda: fa.dense_attn(q, ck_, cv),
+           4.0 * B * Hw * S * 512 * D,
+           B * Hw * (2 * S + 2 * 512) * D * 2 + B * Hw * S * 4,
+           lambda: torch.nn.functional.scaled_dot_product_attention(
+               q, ck_, cv), reps=20)
+
+    # ---- dense_colsum_attn (colsum steps 1, 10, 40)
+    prev = lse.clone()
+    prev[..., n:] = PAD_LSE
+    o, cs, lc = fa.dense_colsum_attn(q, kc, vc, prev)
+    torch.cuda.synchronize()
+    for r in (slice(0, 256), slice(t0, S)):
+        o_p, cs_p, lse_p = fa.dense_colsum_attn_plain(q[..., r, :], kc, vc,
+                                                      prev[..., r])
+        out['dense_colsum_attn max_abs_err'] = check_close(
+            'dense_colsum_attn o (Wan)', o[..., r, :], o_p, 4e-3, 2 ** -6)
+        check_close('dense_colsum_attn lse (Wan)', lc[..., r], lse_p, 1e-3,
+                    0.0)
+        check_close('dense_colsum_attn colsums (Wan)',
+                    cs[:, :, r.start // 128:r.stop // 128], cs_p, 1e-4, 1e-3)
+    record('dense_colsum_attn', lambda: fa.dense_colsum_attn(
+        q, kc, vc, prev), flops,
+        attn_bytes + B * Hw * S * 8 + cs.numel() * 4)
+    del o, cs, lc, o_p, cs_p, lse_p, od, ot, lse, prev
+
+    # ---- csp_attn ('vmem'): head 0 against the plain version, groups 1
+    # and 2 re-pointed at the cut last block (counts jmax and 1)
+    ci, cc = pinds.clone(), counts.clone()
+    for h in range(Hw):
+        pick = torch.randperm(nb - 1, generator=gen, device='cuda')[
+            :jmax - 1]
+        ci[0, h, 1] = torch.cat([pick, pick.new_tensor([nb - 1])]).sort()[0]
+    ci[..., 2, :] = nb - 1
+    cc[..., 1], cc[..., 2] = jmax, 1
+    o = ca.csp_attn(q, k, v, ci, cc, kv_valid=n)
+    torch.cuda.synchronize()
+    o_p = ca.csp_attn_plain(q[:, :1], k[:, :1], v[:, :1], ci[:, :1],
+                            cc[:, :1], kv_valid=n)
+    out['csp_attn max_abs_err'] = check_close(
+        'csp_attn o (Wan, head 0)', o[:, :1], o_p, 4e-3, 2 ** -6)
+    del o, o_p, ci, cc
+    record('csp_attn (vmem)', lambda: ca.csp_attn(
+        q, k, v, pinds, counts, kv_valid=n), csp_flops(counts),
+        bound=csp_bound(torch, pinds, counts, q))
+    out['csp_attn (vmem) plain ms (head 0 of 12)'] = time_ms(
+        torch, lambda: ca.csp_attn_plain(q[:, :1], k[:, :1], v[:, :1],
+                                         pinds[:, :1], counts[:, :1],
+                                         kv_valid=n), 1)
+    out[f'csp_attn (vmem) library ms (SDPA, block mask, heads 0-'
+        f'{LIB_HEADS - 1} x {Hw // LIB_HEADS})'] = csp_library_ms(
+            torch, q, k, v, pinds, counts, nb, n, LIB_HEADS, 3) \
+        * Hw / LIB_HEADS
+    del q, k, v, kc, vc, ck_, cv, model
+    torch.cuda.empty_cache()
+    for key, val in out.items():
+        print(f'wan kernels: {key} {val:.4f}', flush=True)
+    return out
+
+
+def tensors(tree):
+    """The tensors of a nest of dicts, lists and tuples (None skipped)."""
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for x in tree for t in tensors(x)]
+    return [] if tree is None else [tree]
+
+
+def encode_wan_text(torch, tm):
+    """UMT5-XXL at full size in bf16 (24 layers, dim 4096, 64 heads, vocab
+    256,384; weights from init_umt5_params on a seed) encodes two rows of
+    512 random ids with valid prefixes of UMT5_VALID tokens (cond,
+    uncond); each row is zeroed past its prefix, as the reference's
+    WanTextEncoder.embed does.  Checks: finite, [2, 512, 4096], and a
+    second encoding with the ids past each prefix redrawn agrees on the
+    valid rows (mean relative difference <= 1e-3: masked keys add exactly
+    0).  The encoder is released before returning (ctx_cond,
+    ctx_uncond), each [1, 512, 4096] bf16."""
+    cfg = tm.UMT5Config(dtype=torch.bfloat16)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 6)
+    t0 = time.perf_counter()
+    params = tm.init_umt5_params(gen, cfg, 'cuda')
+    torch.cuda.synchronize()
+    leaves = tensors(params)
+    n_par = sum(t.numel() for t in leaves)
+    print(f'UMT5-XXL: {cfg.num_layers} layers, dim {cfg.dim}, '
+          f'{cfg.num_heads} heads, vocab {cfg.vocab_size}: '
+          f'{n_par / 1e9:.3f}B parameters, '
+          f'{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} '
+          f'GB bf16, drawn on the card in {time.perf_counter() - t0:.1f} s',
+          flush=True)
+    L = 512
+    ids = torch.randint(0, cfg.vocab_size, (2, L), generator=gen,
+                        device='cuda')
+    valid = torch.tensor(UMT5_VALID, device='cuda')
+    mask = (torch.arange(L, device='cuda')[None] < valid[:, None]).int()
+    tm.umt5_encode(params, ids, mask, cfg)        # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ctx = tm.umt5_encode(params, ids, mask, cfg)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    ids2 = torch.where(mask.bool(), ids, torch.randint(
+        0, cfg.vocab_size, (2, L), generator=gen, device='cuda'))
+    ctx2 = tm.umt5_encode(params, ids2, mask, cfg)
+    if ctx.shape != (2, L, cfg.dim) or ctx.dtype != torch.bfloat16:
+        fail(f'UMT5: output {tuple(ctx.shape)} {ctx.dtype}')
+    if not bool(torch.isfinite(ctx).all()):
+        fail('UMT5: non-finite values')
+    ctx = ctx * mask[..., None].to(ctx.dtype)
+    ctx2 = ctx2 * mask[..., None].to(ctx2.dtype)
+    rel = ((ctx.float() - ctx2.float()).abs().mean()
+           / ctx.float().abs().mean()).item()
+    print(f'UMT5-XXL: encoded 2 x {L} ids (valid {UMT5_VALID}) in '
+          f'{enc_s * 1e3:.1f} ms; the ids past the prefixes redrawn: mean '
+          f'relative difference {rel:.3e} on the valid rows', flush=True)
+    if not rel <= 1e-3:
+        fail(f'UMT5: the padded ids change the valid rows: {rel}')
+    del params, leaves, ctx2
+    torch.cuda.empty_cache()
+    print(f'UMT5-XXL released: {torch.cuda.memory_allocated() / 1e9:.2f} GB '
+          f'allocated on the card', flush=True)
+    return ctx[:1].contiguous(), ctx[1:].contiguous()
+
+
+def run_wan(torch, tm, model, params, lat, ctx, steps=None, callback=None):
+    """One wan_denoise over the config's schedule (unshifted, as
+    scripts/bench_wan.py:109 has it), the first ``steps`` steps only if
+    given, guide_scale 5.0, random keeps from a seeded generator on the
+    model's device.  Returns (latent, seconds)."""
+    dev = model.device
+    ts = tm.get_schedule(model.ck.steps, model.cfg.seq_len, shift=False)
+    if steps is not None:
+        ts = ts[:steps + 1]
+    gen = torch.Generator(dev)
+    gen.manual_seed(SEED)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = tm.wan_denoise(model, params, lat, *ctx, ts, guide_scale=5.0,
+                         generator=gen, callback=callback)
+    if dev.type == 'cuda':
+        torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def drive_wan_path(torch, kern, tm, ck, ctx):
+    """The Wan main path: wan_denoise at 480x832x81 frames (latent (16,
+    21, 60, 104): 32,760 tokens padded to 32,768), full width and depth
+    (30 layers), random bf16 weights from a seed, the UMT5 contexts of
+    encode_wan_text, configs/wan-chipmunk.yml as read: launch counts set
+    to 0 just before and read just after (each must equal WAN_LAUNCHES,
+    no other kernel may run), output finite and of the latent's shape; a
+    trace of steps 2-9; the dense loop on the same weights (attention
+    sparsity and step caching off; launches WAN_DENSE_LAUNCHES).
+    Returns (launches, sparse s, dense s)."""
+    cfg = tm.WanModelConfig(**WAN_LATENT)
+    t0 = time.perf_counter()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED)
+    params = tm.init_wan_params(gen, cfg, 'cuda')
+    lat = torch.randn((1, cfg.in_channels, cfg.latent_t, cfg.latent_h,
+                       cfg.latent_w), generator=gen, device='cuda')
+    model = tm.WanModel(cfg=cfg, ck=ck)
+    a = model.attn_mod
+    n_par = sum(t.numel() for t in tensors(params))
+    st_gb = sum(t.numel() * t.element_size()
+                for t in tensors(model.init_state(1))) / 1e9
+    print(f'wan model: latent {tuple(lat.shape)}, {cfg.seq_len} tokens + '
+          f'{model.seq_padded - cfg.seq_len} pad = {model.seq_padded}, '
+          f'{cfg.num_layers} layers, dim {cfg.dim}, {cfg.num_heads} heads, '
+          f'{n_par / 1e9:.3f}B parameters, jmax {a.jmax}, sel_blocks '
+          f'{a.sel_blocks}, dense tail from group {a.dense_tail_g}, '
+          f'materialize_indices {model.ck.attn.materialize_indices}; one '
+          f'invocation state {st_gb:.3f} GB (MLP caches: none, the MLP is '
+          f'off); weights and model built in '
+          f'{time.perf_counter() - t0:.1f} s', flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    marks = {}
+    out, sparse_s = run_wan(torch, tm, model, params, lat, ctx,
+                            callback=window_marks(torch, marks))
+    launches = dict(kern.LAUNCHES)
+    print(f'wan sparse loop: {ck.steps} steps, {sparse_s:.3f} s; peak '
+          f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated',
+          flush=True)
+    print(json.dumps({'path': 'wan', 'launches': launches}), flush=True)
+    if out.shape != lat.shape:
+        fail(f'wan: output shape {tuple(out.shape)}')
+    if not bool(torch.isfinite(out).all()):
+        fail('wan: non-finite values in the sparse loop output')
+    missing = [k for k in WAN_PATH if launches[k] == 0]
+    if missing:
+        fail(f'wan: kernels not launched on the main path: {missing}')
+    wrong = {k: n for k, n in launches.items()
+             if n != WAN_LAUNCHES.get(k, 0)}
+    if wrong:
+        fail(f'wan: launches differ from the schedule\'s count '
+             f'{WAN_LAUNCHES}: {wrong}')
+    torch.cuda.empty_cache()
+    trace_sparse_steps(
+        torch, lambda cb: run_wan(torch, tm, model, params, lat, ctx,
+                                  steps=10, callback=cb),
+        (marks[9] - marks[1]) * 1e3, 'wan')
+    torch.cuda.empty_cache()
+    dmodel = tm.WanModel(cfg=cfg, ck=dense_config(ck))
+    kern.reset_launches()
+    out_d, dense_s = run_wan(torch, tm, dmodel, params, lat, ctx)
+    if not bool(torch.isfinite(out_d).all()):
+        fail('wan: non-finite values in the dense loop output')
+    dl = {k: n for k, n in kern.LAUNCHES.items() if n}
+    if dl != WAN_DENSE_LAUNCHES:
+        fail(f'wan dense loop: launches {dl}, expected {WAN_DENSE_LAUNCHES}')
+    rel = ((out - out_d).abs().mean() / out_d.abs().mean()).item()
+    print(f'wan dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
+          f'{sparse_s:.3f} s; sparse speedup {dense_s / sparse_s:.3f}x; '
+          f'sparse vs dense latent: mean relative difference {rel:.4f} '
+          f'(random weights)', flush=True)
+    del out, out_d, params
+    torch.cuda.empty_cache()
+    return launches, sparse_s, dense_s
+
+
+def agree_small_wan(torch, tm, kern, ck):
+    """A small Wan with full-width heads (dim 1536, 12 heads of 128, FFN
+    8960), 2 layers, latent (5, 16, 30): 600 tokens + 40 pad (voxel tails
+    on t and w), 512 text rows, for 4 steps (first, colsum, two sparse),
+    local_voxels 1 (the shipped cube of 3 covers this grid whole),
+    random_keys 0: the same weights and inputs (drawn on the CPU) through
+    the kernels on the card, once with csp mode 'auto' (the 'vmem'
+    kernel) and once 'hbm', each against the plain versions on the CPU.
+    Mean relative difference <= 2e-2 (bf16 model) and dense_attn,
+    dense_colsum_attn and the mode's csp kernel must have launched.  Then
+    a small float32 UMT5 (2 layers, dim 256, 4 heads) with a partial mask
+    on the card against the CPU: mean relative difference <= 1e-4."""
+    from chipmunk_torch.config import config_from_dict
+    small_ck = config_from_dict({
+        'steps': 4,
+        'attn': {'full_step_schedule': [0, 1], 'first_n_dense_layers': 1,
+                 'top_keys': 0.3, 'random_keys': 0.0, 'local_voxels': 1,
+                 'dense_fallback_frac': 1.0},
+        'step_caching': {'is_enabled': False}}, ck)
+    cfg = tm.WanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                            num_layers=2)
+    gen = torch.Generator()
+    gen.manual_seed(SEED)
+    params_cpu = tm.init_wan_params(gen, cfg, 'cpu')
+    lat = torch.randn((1, cfg.in_channels, 5, 16, 30), generator=gen)
+    ctx = torch.randn((2, 1, cfg.txt_len, cfg.text_dim), generator=gen).to(
+        cfg.dtype)
+    for i, n in enumerate(UMT5_VALID):
+        ctx[i, :, n:] = 0
+    cpu_model = tm.WanModel(cfg=cfg, ck=small_ck, device='cpu')
+    a = cpu_model.attn_mod
+    if (a.valid_len, a.dense_tail_g) != (600, 4):
+        fail(f'small Wan: valid_len {a.valid_len}, dense tail '
+             f'{a.dense_tail_g}, expected 600 and 4')
+    cpu_out, cpu_s = run_wan(torch, tm, cpu_model, params_cpu, lat,
+                             (ctx[0], ctx[1]))
+
+    params = to_device(params_cpu, 'cuda')
+    for mode, csp in (('auto', 'csp_attn'), ('hbm', 'csp_attn_hbm')):
+        model = tm.WanModel(cfg=cfg, ck=small_ck, csp_mode=mode)
+        kern.reset_launches()
+        out, _ = run_wan(torch, tm, model, params, lat.cuda(),
+                         (ctx[0].cuda(), ctx[1].cuda()))
+        launches = {k: n for k, n in kern.LAUNCHES.items() if n}
+        rel = ((out.cpu() - cpu_out).abs().mean()
+               / cpu_out.abs().mean()).item()
+        print(f'wan small-input agreement, csp mode {mode!r} (card kernels '
+              f'vs CPU plain versions): mean relative difference '
+              f'{rel:.3e}, launches {launches}, CPU run {cpu_s:.1f} s',
+              flush=True)
+        if not math.isfinite(rel) or rel > 2e-2:
+            fail(f'wan small-input output (csp mode {mode!r}) differs from '
+                 f'the plain versions: {rel}')
+        missing = [k for k in ('dense_attn', 'dense_colsum_attn', csp)
+                   if not launches.get(k)]
+        if missing:
+            fail(f'wan small run (csp mode {mode!r}): kernels not '
+                 f'launched: {missing}')
+    del params
+    torch.cuda.empty_cache()
+
+    t5 = tm.UMT5Config(vocab_size=512, dim=256, dim_attn=256, dim_ffn=512,
+                       num_heads=4, num_layers=2)
+    tp = tm.init_umt5_params(gen, t5, 'cpu')
+    ids = torch.randint(0, 512, (2, 64), generator=gen)
+    mask = (torch.arange(64)[None] < torch.tensor([[64], [21]])).int()
+    o_cpu = tm.umt5_encode(tp, ids, mask, t5)
+    o_gpu = tm.umt5_encode(to_device(tp, 'cuda'), ids.cuda(), mask.cuda(),
+                           t5).cpu()
+    rel = ((o_gpu - o_cpu).abs().mean() / o_cpu.abs().mean()).item()
+    print(f'UMT5 small-input agreement (card vs CPU, float32): mean '
+          f'relative difference {rel:.3e}', flush=True)
+    if not rel <= 1e-4:
+        fail(f'UMT5 small-input output differs between card and CPU: {rel}')
 
 
 def main():
@@ -1885,6 +2317,10 @@ def main():
     kern.build_all()
     print(f'kernels built in {time.perf_counter() - t0:.1f} s', flush=True)
 
+    def stamp(label):
+        print(f'time: {label} done {time.perf_counter() - T_START:.1f} s '
+              f'after the process started', flush=True)
+
     mods = tuple(importlib.import_module(f'chipmunk_torch.kernels.{m}')
                  for m in ('flash_attention', 'csp_attention', 'csp_mlp'))
     rows = kernel_phases(torch, mods + (fp8,))
@@ -1902,9 +2338,19 @@ def main():
     prows = probe_phase(torch, importlib.import_module(
         'chipmunk_torch.kernels.int8_probe'))
     torch.cuda.empty_cache()
+    stamp('FLUX kernel phases')
+    # the Wan kernels before the video kernels: placed after the traced
+    # loops (scheduled torch.profiler sessions), device_ms's plain profile
+    # recorded no CUDA kernel on the H100; and the FLUX loops follow the
+    # video kernel phase, which runs no profiler, as before
+    wck = cfgmod.load_config(os.path.join(ROOT, 'configs',
+                                          'wan-chipmunk.yml'))
+    wan_kernel_phases(torch, mods, tm, wck)
+    stamp('Wan kernel phases')
     vck = cfgmod.load_config(os.path.join(ROOT, 'configs',
                                           'hunyuan-chipmunk.yml'))
     vrow, _ = video_kernel_phases(torch, mods, tm, vck)
+    stamp('video kernel phases')
 
     # ---- the main paths: FLUX.1-dev sparse denoise loop, 50 steps, the
     # shipped config unchanged (mlp.int8_act: true); with bf16 weights the
@@ -1955,6 +2401,7 @@ def main():
           f'({q_dense_s:.3f} s); int8_act on {q_sparse_s:.3f} s', flush=True)
     del qparams
     torch.cuda.empty_cache()
+    stamp('FLUX loops')
 
     # ---- the video path: HunyuanVideo 540p, configs/hunyuan-chipmunk.yml
     # unchanged (compressed indices, packed-only states as its offloading
@@ -1967,6 +2414,26 @@ def main():
           f'{"on" if vck.mlp.is_enabled else "off"})', flush=True)
     vlaunches, v_sparse_s, v_dense_s = drive_video_path(torch, kern, tm, vck)
     agree_small_video(torch, tm, kern, vck)
+    stamp('video path')
+
+    # ---- the Wan path: Wan2.1-T2V-1.3B at 480x832x81 frames, full width
+    # and depth, configs/wan-chipmunk.yml as read (attention only, the MLP
+    # off, local_voxels 3, compressed indices, random_keys 0.01)
+    print(f'config: configs/wan-chipmunk.yml as read (attn.top_keys='
+          f'{wck.attn.top_keys}, random_keys={wck.attn.random_keys}, '
+          f'local_voxels={wck.attn.local_voxels}, first_n_dense_layers='
+          f'{wck.attn.first_n_dense_layers}, full steps '
+          f'{sorted(wck.attn.full_step_schedule)}, mlp '
+          f'{"on" if wck.mlp.is_enabled else "off"}, step caching '
+          f'{len(wck.step_caching.skip_step_schedule)} skipped steps)',
+          flush=True)
+    ctx = encode_wan_text(torch, tm)
+    stamp('UMT5-XXL')
+    drive_wan_path(torch, kern, tm, wck, ctx)
+    del ctx
+    stamp('Wan loops')
+    agree_small_wan(torch, tm, kern, wck)
+    stamp('Wan agreement')
 
     # ---- agreement on small inputs, each path
     small_ck = cfgmod.config_from_dict(
@@ -2005,6 +2472,7 @@ def main():
                 QUANT_PATH, quant.synth_quantized_flux_params(
                     SEED, small, quant.QuantSpec(*SPEC), device='cpu'))
 
+    stamp('FLUX agreement')
     for r in rows:
         r['route'] = 'cuda'
         r['launches'] = launches[r['name']]

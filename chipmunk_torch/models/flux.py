@@ -157,10 +157,11 @@ def _np_to_torch(a: np.ndarray, device: torch.device) -> torch.Tensor:
 
 
 def params_from_jax(np_params: Dict, device: DeviceLike = 'cuda') -> Dict:
-    """The reference's FLUX param tree (numpy arrays, e.g. via
-    ``jax.tree_util.tree_map(np.asarray, params)``) as the port's params.
-    The layouts are the same, so this copies leaves and splits the stacked
-    ``[L, ...]`` ``double``/``single`` subtrees into per-layer dicts.
+    """The reference's FLUX, HunyuanVideo, Wan or UMT5 param tree (numpy
+    arrays, e.g. via ``jax.tree_util.tree_map(np.asarray, params)``) as
+    the port's params.  The layouts are the same, so this copies leaves
+    and splits the stacked ``[L, ...]`` top-level ``double``/``single``/
+    ``blocks`` subtrees into lists of per-layer dicts.
     Quantized leaves (anything with ``q``/``scale``/``pack_axis``, as the
     reference's QTensor has) become the port's QTensor, with ``q`` and
     ``scale`` split per layer and ``pack_axis`` kept.  Lists (the
@@ -193,7 +194,7 @@ def params_from_jax(np_params: Dict, device: DeviceLike = 'cuda') -> Dict:
     out = {}
     for k, v in np_params.items():
         out[k] = conv(v)
-        if k in ('double', 'single'):
+        if k in ('double', 'single', 'blocks'):
             out[k] = [layer(out[k], i) for i in range(n_layers(out[k]))]
     return out
 

@@ -168,8 +168,58 @@ def text_refiner(p: Dict, txt: torch.Tensor, t_emb: torch.Tensor,
     return x
 
 
+class VideoTokens:
+    """The video token layout shared by the video models: patches of the
+    (t, h, w) latent grid in voxel order (each 128-token query group one
+    voxel of ``cfg.voxel_shape``), then whatever the model appends up to
+    ``seq_padded``.  Needs ``cfg`` (patch_size, grid, in_channels,
+    voxel_shape, axes_dim, theta), ``device``, ``seq_padded`` and a dict
+    ``_perm``."""
+
+    def _order(self, inverse: bool) -> torch.Tensor:
+        if inverse not in self._perm:
+            fn = inverse_voxel_order if inverse else voxel_order
+            p = fn(*self.cfg.grid, self.cfg.voxel_shape)
+            self._perm[inverse] = torch.from_numpy(p.astype(np.int64)).to(
+                self.device)
+        return self._perm[inverse]
+
+    def patchify_video(self, latents: torch.Tensor) -> torch.Tensor:
+        """[B, C, T, H, W] -> [B, t*h*w, C*pt*ph*pw] in voxel order."""
+        B, C = latents.shape[:2]
+        pt, ph, pw = self.cfg.patch_size
+        t, h, w = self.cfg.grid
+        x = latents.reshape(B, C, t, pt, h, ph, w, pw)
+        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, t * h * w,
+                                                      C * pt * ph * pw)
+        return x[:, self._order(False).to(x.device)]
+
+    def unpatchify_video(self, x: torch.Tensor, B: int) -> torch.Tensor:
+        pt, ph, pw = self.cfg.patch_size
+        C = self.cfg.in_channels
+        t, h, w = self.cfg.grid
+        x = x[:, self._order(True).to(x.device)]
+        x = x.reshape(B, t, h, w, C, pt, ph, pw)
+        return x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(
+            B, C, t * pt, h * ph, w * pw)
+
+    def rope(self, B: int):
+        """(cos, sin) of the padded sequence: video ids (t, h, w) in voxel
+        order, then zero ids (the identity) for the rest (text, pad)."""
+        t, h, w = self.cfg.grid
+        dev = self.device
+        ids = torch.stack(torch.meshgrid(
+            torch.arange(t, device=dev), torch.arange(h, device=dev),
+            torch.arange(w, device=dev), indexing='ij'), -1).reshape(-1, 3)
+        ids = ids[self._order(False)]
+        ids = torch.cat([ids, torch.zeros((self.seq_padded - t * h * w, 3),
+                                          dtype=ids.dtype, device=dev)])
+        return build_rope(ids[None].expand(B, -1, -1), self.cfg.axes_dim,
+                          self.cfg.theta)
+
+
 @dataclass
-class HunyuanModel:
+class HunyuanModel(VideoTokens):
     """Model config + sparsity context; builds the static voxel mask.
 
     ``materialize_indices`` left unset in the config is decided here, as
@@ -215,49 +265,6 @@ class HunyuanModel:
             self.ck, self.cfg.core(), self.seq_padded, batch=self.batch,
             static_mask_tokens=mask, valid_len=seq if pad else None,
             csp_mode=self.csp_mode)
-
-    # ------------------------------------------------------------ tokens
-    def _order(self, inverse: bool) -> torch.Tensor:
-        if inverse not in self._perm:
-            fn = inverse_voxel_order if inverse else voxel_order
-            p = fn(*self.cfg.grid, self.cfg.voxel_shape)
-            self._perm[inverse] = torch.from_numpy(p.astype(np.int64)).to(
-                self.device)
-        return self._perm[inverse]
-
-    def patchify_video(self, latents: torch.Tensor) -> torch.Tensor:
-        """[B, C, T, H, W] -> [B, img_len, C*pt*ph*pw] in voxel order."""
-        B, C = latents.shape[:2]
-        pt, ph, pw = self.cfg.patch_size
-        t, h, w = self.cfg.grid
-        x = latents.reshape(B, C, t, pt, h, ph, w, pw)
-        x = x.permute(0, 2, 4, 6, 1, 3, 5, 7).reshape(B, t * h * w,
-                                                      C * pt * ph * pw)
-        return x[:, self._order(False).to(x.device)]
-
-    def unpatchify_video(self, x: torch.Tensor, B: int) -> torch.Tensor:
-        pt, ph, pw = self.cfg.patch_size
-        C = self.cfg.in_channels
-        t, h, w = self.cfg.grid
-        x = x[:, self._order(True).to(x.device)]
-        x = x.reshape(B, t, h, w, C, pt, ph, pw)
-        return x.permute(0, 4, 1, 5, 2, 6, 3, 7).reshape(
-            B, C, t * pt, h * ph, w * pw)
-
-    def rope(self, B: int):
-        """(cos, sin) of the joint sequence: image ids (t, h, w) in voxel
-        order, then zero ids (the identity) for text and pad."""
-        t, h, w = self.cfg.grid
-        dev = self.device
-        ids = torch.stack(torch.meshgrid(
-            torch.arange(t, device=dev), torch.arange(h, device=dev),
-            torch.arange(w, device=dev), indexing='ij'), -1).reshape(-1, 3)
-        ids = ids[self._order(False)]
-        pad = self.seq_padded - self.cfg.img_len
-        ids = torch.cat([ids, torch.zeros((pad, 3), dtype=ids.dtype,
-                                          device=dev)])
-        return build_rope(ids[None].expand(B, -1, -1), self.cfg.axes_dim,
-                          self.cfg.theta)
 
     # ----------------------------------------------------------- forward
     def forward(self, params: Dict, latents: torch.Tensor, txt: torch.Tensor,

@@ -24,6 +24,7 @@ order may round a value at a boundary to its neighbour); the
 int8-activation kernels' row quantization and quantized deltas bit-equal
 where their inputs agree, the probe's int8 product exact."""
 import importlib
+import os
 
 import pytest
 import torch
@@ -1224,3 +1225,97 @@ def test_cuda_fp8_writes_keep_the_reference_overflow_rule(gen):
     assert torch.equal(got.view(torch.uint8)[ok], ref.view(torch.uint8)[ok])
     assert bool(g[:, 5].isnan().all())                  # 448 + 30 > 464
     assert bool((g[:, 3].abs() == 448).all())           # 448 + 16: the tie
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['vmem', 'hbm'])
+def test_cuda_csp_kernels_wan_heads_cut_last_block(gen, mode):
+    """Wan's geometry on a shorter sequence: 12 heads, kv_block 128, jmax
+    62, keys cut at 8 rows before the end (120 valid rows in the last
+    block).  Group 1 of every head selects jmax blocks including the cut
+    one, group 2 that block alone (a count of 1), the other groups
+    random counts (the first of 62 sorted blocks of 64 lies before the
+    cut).  Against the plain version, and repeat calls bit-equal."""
+    H, S, jmax = 12, 8192, 62
+    nb, n = S // 128, S - 8
+    q, k, v = (randn(gen, 1, H, S, 128) for _ in range(3))
+    G = S // 128
+    inds = torch.rand((1, H, G, nb), generator=gen, device='cuda') \
+        .argsort(-1)[..., :jmax].sort(-1)[0].to(torch.int32)
+    counts = torch.randint(1, jmax + 1, (1, H, G), generator=gen,
+                           device='cuda', dtype=torch.int32)
+    for h in range(H):
+        pick = torch.randperm(nb - 1, generator=gen, device='cuda')[
+            :jmax - 1]
+        inds[0, h, 1] = torch.cat([pick, pick.new_tensor([nb - 1])]) \
+            .sort()[0].to(torch.int32)
+    inds[..., 2, :] = nb - 1
+    counts[..., 1], counts[..., 2] = jmax, 1
+    a, b = (CA.csp_attn(q, k, v, inds, counts, kv_valid=n, mode=mode)
+            for _ in range(2))
+    torch.cuda.synchronize()
+    assert bool(a.isfinite().all()) and torch.equal(a, b)
+    ref = CA.csp_attn_plain(q, k, v, CA.pad_block_indices(inds, counts),
+                            counts, kv_valid=n)
+    torch.testing.assert_close(a.float(), ref.float(), atol=ATOL, rtol=RTOL)
+
+
+@pytest.mark.cuda
+def test_cuda_dense_attn_wan_cross_attention(gen):
+    """Wan's cross-attention: 32,768 queries over 512 text keys, 12
+    heads (256 query tiles a head over a 4-tile key loop), against the
+    plain version on head 0; repeat calls bit-equal."""
+    q = randn(gen, 1, 12, 32768, 128)
+    k, v = randn(gen, 1, 12, 512, 128), randn(gen, 1, 12, 512, 128)
+    (o, lse), (o2, lse2) = (FA.dense_attn(q, k, v) for _ in range(2))
+    torch.cuda.synchronize()
+    assert torch.equal(o, o2) and torch.equal(lse, lse2)
+    o_p, lse_p = FA.dense_attn_plain(q[:, :1], k[:, :1], v[:, :1])
+    torch.testing.assert_close(o[:, :1].float(), o_p.float(), atol=ATOL,
+                               rtol=RTOL)
+    torch.testing.assert_close(lse[:, :1], lse_p, atol=1e-3, rtol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('mode', ['auto', 'hbm'])
+def test_cuda_wan_small_matches_cpu(gen, mode):
+    """A small Wan with full-width heads (dim 1536, 12 heads of 128), 2
+    layers, latent (5, 16, 30): 600 tokens + 40 pad, for 4 steps of
+    wan_denoise (first, colsum, two sparse) on the card against the same
+    weights and inputs on the CPU (the plain versions), bf16: mean
+    relative difference <= 2e-2; the mode's csp kernel launched."""
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.config import config_from_dict, load_config
+    ck = config_from_dict({
+        'steps': 4,
+        'attn': {'full_step_schedule': [0, 1], 'first_n_dense_layers': 1,
+                 'top_keys': 0.3, 'random_keys': 0.0, 'local_voxels': 1,
+                 'dense_fallback_frac': 1.0},
+        'step_caching': {'is_enabled': False}},
+        load_config(os.path.join(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))), 'configs', 'wan-chipmunk.yml')))
+    cfg = tm.WanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                            num_layers=2)
+    g = torch.Generator().manual_seed(0)
+    params = tm.init_wan_params(g, cfg, 'cpu')
+    lat = torch.randn((1, 16, 5, 16, 30), generator=g)
+    ctx = torch.randn((2, 1, 512, 4096), generator=g).to(torch.bfloat16)
+    ctx[1, :, 27:] = 0
+    ts = tm.get_schedule(4, cfg.seq_len, shift=False)
+    out_p = tm.wan_denoise(tm.WanModel(cfg=cfg, ck=ck, device='cpu'),
+                           params, lat, ctx[0], ctx[1], ts)
+
+    def move(t):
+        return ({k: move(v) for k, v in t.items()} if isinstance(t, dict)
+                else [move(v) for v in t] if isinstance(t, list)
+                else t.cuda())
+
+    n0 = dict(FA._build.LAUNCHES)
+    out = tm.wan_denoise(tm.WanModel(cfg=cfg, ck=ck, csp_mode=mode),
+                         move(params), lat.cuda(), ctx[0].cuda(),
+                         ctx[1].cuda(), ts)
+    rel = ((out.cpu() - out_p).abs().mean() / out_p.abs().mean()).item()
+    assert rel <= 2e-2, rel
+    csp = 'csp_attn_hbm' if mode == 'hbm' else 'csp_attn'
+    assert FA._build.LAUNCHES[csp] > n0[csp]
+    assert FA._build.LAUNCHES['dense_colsum_attn'] > n0['dense_colsum_attn']

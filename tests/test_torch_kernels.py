@@ -207,6 +207,45 @@ def test_csp_attn_small_blocks_match_reference(kv_block, jmax, kv_valid,
                                rtol=1e-5)
 
 
+@pytest.mark.parametrize('mode', ['vmem', 'hbm'])
+def test_csp_attn_keyless_group_reads_other_groups_in_reference(mode):
+    """A query group whose only selected block lies past kv_valid (group
+    2 of S = 512, kv_valid 300, block 3) has no key at all.  The
+    reference's output for it is not a function of the group's own
+    inputs: changing only the V rows of block 1, which only group 0
+    selects (into its second gather slot), moves group 2's rows, since
+    the reference's masked scores are finite and its softmax reads the
+    gather scratch past the group's count.  There is nothing well-defined
+    to copy: the port gives such rows 0, and the module never makes such
+    a group (test_torch_wan.py, test_module_never_makes_a_keyless_group).
+    Groups 1 and 3 are the same in both runs on both sides."""
+    q, k, v = qkv(30, 512, 512, d=128, h=1)
+    inds = np.array([[[[0, 1], [0, 0], [3, 3], [2, 2]]]], np.int32)
+    counts = np.array([[[2, 1, 1, 1]]], np.int32)
+    v2 = v.copy()
+    v2[..., 128:256, :] += 1.0 + np.random.default_rng(31).standard_normal(
+        (128, 128)).astype(np.float32)
+    o_j, o_t = [], []
+    for vv in (v, v2):
+        o_j.append(np.asarray(j_csp_attn(
+            *map(jnp.asarray, (q, k, vv, inds, counts)), qg=128,
+            kv_block=128, mode=mode, kv_valid=300, interpret=True))[0, 0])
+        o_t.append(csp_attn(*map(to_torch, (q, k, vv, inds, counts)),
+                            qg=128, kv_block=128, kv_valid=300,
+                            mode=mode).numpy()[0, 0])
+    moved = np.abs(o_j[1] - o_j[0]).max(-1)
+    assert moved[256:384].min() > 0.5          # group 2 moved, every row
+    for g in (1, 3):
+        np.testing.assert_array_equal(o_j[1][g * 128:(g + 1) * 128],
+                                      o_j[0][g * 128:(g + 1) * 128])
+    for o in o_t:
+        assert not o[256:384].any()            # the port: 0, both runs
+    for g in (1, 3):
+        r = slice(g * 128, (g + 1) * 128)
+        np.testing.assert_allclose(o_t[0][r], o_j[0][r], atol=1e-5,
+                                   rtol=1e-5)
+
+
 @pytest.mark.parametrize('kv_block', [1, 2, 4])
 def test_pack_kv_pads_small_blocks(kv_block):
     """Below 8 rows pack_kv gives each block a 16-row slot: its K rows at

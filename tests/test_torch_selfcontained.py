@@ -48,6 +48,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert 'chipmunk_torch.kernels.int8_probe' in MODULES
     assert 'chipmunk_torch.models.video_sampling' in MODULES
     assert 'chipmunk_torch.ops.voxel' in MODULES
+    assert 'chipmunk_torch.models.wan' in MODULES
+    assert 'chipmunk_torch.models.video_encoders' in MODULES
 
 
 def test_no_jax_or_reference_imports_in_sources():
