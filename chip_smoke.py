@@ -36,10 +36,18 @@
    output is finite and which kernels ran, is traced over a window of
    sparse steps, and is timed against a dense loop (sparsity and step
    caching off) on the same weights ((c) against (b)'s: the dense path
-   does not read ``int8_act``).  A small full-width model is also run
-   through each loop on the card and, with the plain versions, on the
-   CPU, and the two must agree: each weight/activation variant, and the
-   MLP with no cache dtype in the config (bf16 caches).
+   does not read ``int8_act``).  Each loop is then run compiled
+   (``FluxSampler.denoise_compiled``: skipped steps folded, each
+   computed step after a kind's first a CUDA graph replay), the sparse
+   loop against the host sparse loop, the dense loop (for (a) and (b))
+   against the host dense loop: launches equal kernel by kernel, output
+   finite, its graphs, replays, capture time and graph pool printed, the
+   compiled sparse loops of (a) and (b) traced whole.  A small
+   full-width model is also run through each loop on the card and, with
+   the plain versions, on the CPU, and the two must agree: each
+   weight/activation variant, and the MLP with no cache dtype in the
+   config (bf16 caches); with random keeps on, its compiled loop must
+   match its host loop on the card (bf16 and quantized weights).
 4. The HunyuanVideo slice: the csp kernels and the dense kernels at the
    video shapes (544x960x129 frames: 67,584 tokens, keys cut at 67,576,
    the 384-row dense tail, PAD_LSE rows; and 720p, 119,168 tokens, where
@@ -52,9 +60,11 @@
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
    the full-width model cut to 2 double + 4 single blocks, random bf16
    weights from a seed, with its launch counts, a trace of a window of
-   sparse steps and its dense loop; and a small full-width video model on
-   the card (csp mode 'auto' and 'hbm') against the plain versions on the
-   CPU.
+   sparse steps, its dense loop and its compiled sparse loop
+   (``hunyuan_denoise_compiled``, launches VIDEO_LAUNCHES too); and a
+   small full-width video model on the card (csp mode 'auto' and 'hbm')
+   against the plain versions on the CPU, and its compiled loop against
+   its host loop with random keeps on.
 5. The Wan2.1 slice: ``dense_attn`` (self-attention over the keys cut at
    32,760, the 128-row dense tail, and the cross-attention of 32,768
    queries over 512 text keys), ``dense_colsum_attn`` and ``csp_attn``
@@ -68,9 +78,12 @@
    ``configs/wan-chipmunk.yml`` (as read) at 480x832x81 frames with
    Wan2.1-T2V-1.3B at full width and depth (30 layers), random bf16
    weights from a seed, two invocations a step, with its exact launch
-   counts, a trace of a window of sparse steps and its dense loop; and a
-   small full-width Wan on the card (csp mode 'auto' and 'hbm') and a
-   small UMT5 against the plain versions on the CPU.
+   counts, a trace of a window of sparse steps, its dense loop and its
+   compiled sparse loop (``wan_denoise_compiled``, launches WAN_LAUNCHES
+   too); and a small full-width Wan on the card (csp mode 'auto' and
+   'hbm') and a small UMT5 against the plain versions on the CPU, and the
+   small Wan's compiled loop against its host loop with random keeps
+   on.
 6. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -1574,18 +1587,35 @@ def to_device(tree, device):
 
 
 def run_loop(torch, tm, ck, model, h_img, w_img, device, init_device=None,
-             callback=None, params=None):
-    """One FluxSampler.denoise; weights (unless ``params`` are given, on
-    ``init_device``) and inputs are drawn from a seeded generator on
-    ``init_device`` (default: ``device``) and moved to ``device``.
-    Returns (latent, seconds)."""
+             callback=None, params=None, compiled=False):
+    """One FluxSampler.denoise (``compiled``: denoise_compiled, which
+    takes no callback), set up by prepare_loop.  Returns (latent,
+    seconds)."""
+    return prepare_loop(torch, tm, ck, model, h_img, w_img, device,
+                        init_device, params)(callback, compiled)
+
+
+def prepare_loop(torch, tm, ck, model, h_img, w_img, device,
+                 init_device=None, params=None):
+    """Weights (unless ``params`` are given, on ``init_device``) and
+    inputs drawn from a seeded generator on ``init_device`` (default:
+    ``device``) and moved to ``device``; returns ``run(callback=None,
+    compiled=False, ck_=None)``, which runs one loop on them (with
+    ``ck_`` in place of the config given here) and returns (latent, seconds),
+    the set-up outside both."""
     init_device = init_device or device
     gen = torch.Generator(init_device)
     gen.manual_seed(SEED)
     seq = model.txt_len + h_img * w_img
-    sp = tm.FluxSparse.build(ck, model, seq)
-    sampler = tm.FluxSampler(cfg=model, ck=ck, sp=sp, h_img=h_img,
-                             w_img=w_img, device=device)
+    samplers = {}
+
+    def sampler_for(ck_):
+        if ck_ not in samplers:
+            samplers[ck_] = tm.FluxSampler(
+                cfg=model, ck=ck_, sp=tm.FluxSparse.build(ck_, model, seq),
+                h_img=h_img, w_img=w_img, device=device)
+        return samplers[ck_]
+
     if params is None:
         params = tm.init_flux_params(gen, model, init_device)
     if init_device != device:
@@ -1596,16 +1626,25 @@ def run_loop(torch, tm, ck, model, h_img, w_img, device, init_device=None,
                        (1, model.txt_len, model.context_in_dim),
                        (1, model.vec_in_dim)))
     ts = tm.get_schedule(ck.steps, h_img * w_img)
-    loop_gen = torch.Generator(device)
-    loop_gen.manual_seed(SEED)
-    if device != 'cpu':
-        torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    out = sampler.denoise(params, img, txt, y, ts, generator=loop_gen,
-                          callback=callback)
-    if device != 'cpu':
-        torch.cuda.synchronize()
-    return out, time.perf_counter() - t0
+
+    def run(callback=None, compiled=False, ck_=None):
+        sampler = sampler_for(ck_ or ck)
+        loop_gen = torch.Generator(device)
+        loop_gen.manual_seed(SEED)
+        if device != 'cpu':
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if compiled:
+            out = sampler.denoise_compiled(params, img, txt, y, ts,
+                                           generator=loop_gen)
+        else:
+            out = sampler.denoise(params, img, txt, y, ts,
+                                  generator=loop_gen, callback=callback)
+        if device != 'cpu':
+            torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    return run
 
 
 def window_marks(torch, marks, then=None):
@@ -1625,16 +1664,43 @@ def trace_sparse_steps(torch, run, plain_window_ms, tag):
     sparse steps, one skipped, on both schedules): device time by kernel
     group, and the device-busy share of the same window timed without the
     profiler (plain_window_ms).  ``run(callback)`` runs the loop (at least
-    its first ten steps).  Device time is the sum of CUDA kernel
-    durations; one stream, so kernels do not overlap."""
-    from torch.autograd import DeviceType
+    its first ten steps).  Kernel records only, as trace_whole_loop."""
     from torch.profiler import ProfilerActivity, profile, schedule
     marks = {}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    with profile(activities=[ProfilerActivity.CUDA],
                  schedule=schedule(wait=1, warmup=1, active=8)) as prof:
         run(window_marks(torch, marks, lambda: prof.step()))
-    wall_ms = (marks[9] - marks[1]) * 1e3
+    report_trace(prof, plain_window_ms, (marks[9] - marks[1]) * 1e3,
+                 f'{tag} trace', 'steps 2-9 (7 computed sparse steps)')
+
+
+def trace_whole_loop(torch, run, plain_ms, tag):
+    """torch.profiler over a whole loop (``run()``, which runs the loop
+    and nothing else; a compiled loop takes no callback, and its
+    replays' kernels are recorded as the eager ones): device time by
+    kernel group, and the device-busy share of the loop's wall time
+    measured without the profiler (plain_ms)."""
+    from torch.profiler import ProfilerActivity, profile
+    # kernel records only: the host ops of a loop are 10^4-10^5 events,
+    # which cost the profiler up to a minute to fold and which no line
+    # reads
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return report_trace(prof, plain_ms, wall_ms, f'{tag} trace',
+                        'whole loop')
+
+
+def report_trace(prof, plain_ms, wall_ms, tag, window):
+    """Print a trace's device time by kernel group, by chipmunk kernel and
+    the largest kernels, and the busy share of ``plain_ms`` (``window``
+    timed without the profiler).  Device time is the sum of CUDA kernel
+    durations; one stream, so kernels do not overlap.  Returns the busy
+    share in percent."""
+    from torch.autograd import DeviceType
     groups, names, ours = {}, {}, {}
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA or e.key.startswith(
@@ -1651,33 +1717,34 @@ def trace_sparse_steps(torch, run, plain_window_ms, tag):
         if label:
             ours[label] = ours.get(label, 0.0) + us / 1e3
     busy = sum(groups.values())
-    print(f'{tag} trace, steps 2-9 (7 computed sparse steps): window '
-          f'{plain_window_ms:.1f} ms unprofiled ({wall_ms:.1f} ms under the '
-          f'profiler); device busy {busy:.1f} ms = '
-          f'{100 * busy / plain_window_ms:.1f}% of the unprofiled window',
+    print(f'{tag}, {window}: window {plain_ms:.1f} ms unprofiled '
+          f'({wall_ms:.1f} ms under the profiler); device busy {busy:.1f} '
+          f'ms = {100 * busy / plain_ms:.1f}% of the unprofiled window',
           flush=True)
     for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f'{tag} trace group {g}: {ms:.1f} ms '
-              f'({100 * ms / plain_window_ms:.1f}% of the unprofiled window)')
+        print(f'{tag} group {g}: {ms:.1f} ms '
+              f'({100 * ms / plain_ms:.1f}% of the unprofiled window)')
     for lb, ms in sorted(ours.items(), key=lambda kv: -kv[1]):
-        print(f'{tag} trace chipmunk {lb}: {ms:.1f} ms', flush=True)
+        print(f'{tag} chipmunk {lb}: {ms:.1f} ms', flush=True)
     for n, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
-        print(f'{tag} trace kernel {ms:9.2f} ms  {n[:110]}')
+        print(f'{tag} kernel {ms:9.2f} ms  {n[:110]}')
+    return 100 * busy / plain_ms
 
 
 def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
-               dense=True):
+               dense=True, trace_compiled=False):
     """One main path at full size: the sparse loop with every launch count
     set to 0 just before it and read just after (each kernel of
     ``expect`` must have launched, every other kernel not), the trace over
     a window of its sparse steps, and (with ``dense``) the dense loop
-    (sparsity and step caching off) on the same weights.  Returns
-    (launches, sparse s, dense s or None)."""
+    (sparsity and step caching off) on the same weights; then the same
+    loops compiled (``compiled_loops``).  Returns (launches, sparse s,
+    dense s or None, compiled sparse s, compiled dense s or None)."""
+    loops = prepare_loop(torch, tm, ck, model, H_IMG, W_IMG, 'cuda',
+                         params=params)
     kern.reset_launches()
     marks = {}
-    out, sparse_s = run_loop(torch, tm, ck, model, H_IMG, W_IMG, 'cuda',
-                             callback=window_marks(torch, marks),
-                             params=params)
+    out, sparse_s = loops(callback=window_marks(torch, marks))
     launches = dict(kern.LAUNCHES)
     print(f'{tag} sparse loop: {ck.steps} steps, depth {model.depth}+'
           f'{model.depth_single_blocks}, {sparse_s:.3f} s', flush=True)
@@ -1692,28 +1759,99 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
     extra = [k for k, n in launches.items() if n and k not in expect]
     if extra:
         fail(f'{tag}: kernels of another path launched: {extra}')
-    del out
     torch.cuda.empty_cache()
-    trace_sparse_steps(
-        torch, lambda cb: run_loop(torch, tm, ck, model, H_IMG, W_IMG,
-                                   'cuda', callback=cb, params=params),
-        (marks[9] - marks[1]) * 1e3, tag)
+    trace_sparse_steps(torch, lambda cb: loops(callback=cb),
+                       (marks[9] - marks[1]) * 1e3, tag)
     torch.cuda.empty_cache()
-    if not dense:
-        return launches, sparse_s, None
-    dense_ck = ck.replace(
-        attn=dataclasses.replace(ck.attn, is_enabled=False),
-        mlp=dataclasses.replace(ck.mlp, is_enabled=False),
-        step_caching=dataclasses.replace(ck.step_caching, is_enabled=False))
-    out_d, dense_s = run_loop(torch, tm, dense_ck, model, H_IMG, W_IMG,
-                              'cuda', params=params)
-    if not bool(torch.isfinite(out_d).all()):
-        fail(f'{tag}: non-finite values in the dense loop output')
-    print(f'{tag} dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
-          f'speedup {dense_s / sparse_s:.3f}x', flush=True)
-    del out_d
+    dense_s = d_launches = None
+    dense_ck = dense_config(ck)
+    if dense:
+        kern.reset_launches()
+        out_d, dense_s = loops(ck_=dense_ck)
+        d_launches = dict(kern.LAUNCHES)
+        if not bool(torch.isfinite(out_d).all()):
+            fail(f'{tag}: non-finite values in the dense loop output')
+        print(f'{tag} dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
+              f'speedup {dense_s / sparse_s:.3f}x', flush=True)
+        del out_d
+        torch.cuda.empty_cache()
+
+    c_s, c_d = compiled_loops(
+        torch, kern, tag, lambda: lambda: loops(compiled=True), out,
+        launches, sparse_s,
+        (lambda: lambda: loops(compiled=True, ck_=dense_ck)) if dense
+        else None, d_launches, dense_s, trace_compiled)
+    del out, loops
     torch.cuda.empty_cache()
-    return launches, sparse_s, dense_s
+    return launches, sparse_s, dense_s, c_s, c_d
+
+
+def compiled_loops(torch, kern, tag, prepare, host_out, host_launches,
+                   host_s, prepare_dense=None, dense_launches=None,
+                   dense_s=None, trace=False):
+    """A path's compiled sparse loop (``prepare()`` returns ``run()`` ->
+    (latent, s), which runs the loop and nothing else), the launch counts
+    set to 0 just before it and read just after: output
+    finite and of the host loop's shape, launches equal to the host
+    loop's (``host_launches``) kernel by kernel; prints its time beside
+    the host loop's (``host_s``), its graphs, replays, eager steps,
+    capture time and graph pool, and the mean relative difference from
+    the host loop's latent (skipped steps folded).  With ``trace``, a
+    profiler trace of the whole compiled loop.  With ``prepare_dense``, the compiled dense loop likewise
+    against the host dense loop
+    (``dense_launches``, ``dense_s``) and the speedup compiled dense /
+    compiled sparse.  Returns (compiled sparse s, compiled dense s or
+    None)."""
+    from chipmunk_torch.models.step_graphs import GRAPH_STATS
+    results = []
+    for kind, prep, want, ref_s in (
+            ('sparse', prepare, host_launches, host_s),
+            ('dense', prepare_dense, dense_launches, dense_s)):
+        if prep is None:
+            results.append(None)
+            continue
+        loop = prep()
+        torch.cuda.reset_peak_memory_stats()
+        kern.reset_launches()
+        out, secs = loop()
+        got = dict(kern.LAUNCHES)
+        st = dict(GRAPH_STATS)
+        if out.shape != host_out.shape:
+            fail(f'{tag} compiled {kind} loop: output shape '
+                 f'{tuple(out.shape)}, the host loop '
+                 f'{tuple(host_out.shape)}')
+        if not bool(torch.isfinite(out).all()):
+            fail(f'{tag}: non-finite values in the compiled {kind} loop '
+                 f'output')
+        if got != want:
+            fail(f'{tag} compiled {kind} loop: launches '
+                 f'{ {k: n for k, n in got.items() if n} } differ from '
+                 f'the host loop\'s {({k: n for k, n in want.items() if n})}')
+        msg = (f'{tag} compiled {kind} loop: {secs:.3f} s (host loop '
+               f'{ref_s:.3f} s: {ref_s / secs:.3f}x); {st["graphs"]} '
+               f'graphs, {st["replays"]} replays, {st["eager"]} eager '
+               f'steps, capture {st["capture_s"]:.3f} s, graph pool '
+               f'{st["pool_bytes"] / 2 ** 30:.2f} GiB, peak '
+               f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+               f'allocated; launches equal to the host loop\'s')
+        if kind == 'sparse':
+            rel = ((out - host_out).abs().mean()
+                   / host_out.abs().mean()).item()
+            msg += (f'; latent vs the host loop: mean relative difference '
+                    f'{rel:.3e} (skipped steps folded)')
+        print(msg, flush=True)
+        del out
+        torch.cuda.empty_cache()
+        if kind == 'sparse' and trace:
+            trace_whole_loop(torch, loop, secs * 1e3, f'{tag} compiled')
+            torch.cuda.empty_cache()
+        results.append(secs)
+    if results[1] is not None:
+        print(f'{tag} compiled dense loop / compiled sparse loop: sparse '
+              f'speedup {results[1] / results[0]:.3f}x (both loops '
+              f'compiled, as bench.py --loop compiled times them)',
+              flush=True)
+    return tuple(results)
 
 
 def agree_small(torch, tm, kern, ck, model, tag, expect, params_cpu=None):
@@ -1744,11 +1882,51 @@ def agree_small(torch, tm, kern, ck, model, tag, expect, params_cpu=None):
         fail(f'{tag} small run: kernels not launched: {missing}')
 
 
-def run_video(torch, tm, model, params, inputs, steps=None, callback=None):
-    """One hunyuan_denoise over the config's schedule (unshifted, as the
-    reference's video bench), the first ``steps`` steps only if given,
-    guidance 6.0, random keeps from a seeded generator on the model's
-    device.  Returns (latent, seconds)."""
+def check_compiled_agreement(torch, tag, outs, launches):
+    """Host loop and compiled loop (``outs``, ``launches``: host first) of
+    a small model on the card, same seed, random keeps on, no skipped
+    step: launches equal kernel by kernel, graphs replayed, mean relative
+    difference <= 1e-3."""
+    from chipmunk_torch.models.step_graphs import GRAPH_STATS
+    st = dict(GRAPH_STATS)
+    rel = ((outs[1] - outs[0]).abs().mean() / outs[0].abs().mean()).item()
+    print(f'{tag} small compiled vs host loop (card, random keeps on): mean '
+          f'relative difference {rel:.3e}, {st["graphs"]} graphs, '
+          f'{st["replays"]} replays, {st["eager"]} eager steps, launches '
+          f'{ {k: n for k, n in launches[1].items() if n} }', flush=True)
+    if launches[0] != launches[1]:
+        fail(f'{tag} small compiled loop: launches differ from the host '
+             f'loop\'s {({k: n for k, n in launches[0].items() if n})}')
+    if not st['replays']:
+        fail(f'{tag} small compiled loop: no graph was replayed')
+    if not math.isfinite(rel) or rel > 1e-3:
+        fail(f'{tag} small compiled loop differs from the host loop: {rel}')
+
+
+def agree_compiled_small(torch, tm, kern, ck, model, tag, params_cpu=None):
+    """agree_small's model for 8 steps (each sparse kind and the full kind
+    recur, so graphs are captured and replayed) with the MLP's random
+    keeps on (random_keys 0.05) on the card: the compiled loop against
+    the host loop (check_compiled_agreement)."""
+    ck = ck.replace(steps=8, mlp=dataclasses.replace(ck.mlp,
+                                                     random_keys=0.05))
+    outs, launches = [], []
+    for compiled in (False, True):
+        kern.reset_launches()
+        out, _ = run_loop(torch, tm, ck, model, 16, 24, 'cuda', 'cpu',
+                          params=params_cpu, compiled=compiled)
+        outs.append(out)
+        launches.append(dict(kern.LAUNCHES))
+    check_compiled_agreement(torch, tag, outs, launches)
+
+
+def run_video(torch, tm, model, params, inputs, steps=None, callback=None,
+              compiled=False):
+    """One hunyuan_denoise (``compiled``: hunyuan_denoise_compiled, no
+    callback) over the config's schedule (unshifted, as the reference's
+    video bench), the first ``steps`` steps only if given, guidance 6.0,
+    random keeps from a seeded generator on the model's device.  Returns
+    (latent, seconds)."""
     dev = model.device
     ts = tm.get_schedule(model.ck.steps, model.cfg.img_len, shift=False)
     if steps is not None:
@@ -1758,8 +1936,12 @@ def run_video(torch, tm, model, params, inputs, steps=None, callback=None):
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = tm.hunyuan_denoise(model, params, *inputs, ts, guidance=6.0,
-                             generator=gen, callback=callback)
+    if compiled:
+        out = tm.hunyuan_denoise_compiled(model, params, *inputs, ts,
+                                          guidance=6.0, generator=gen)
+    else:
+        out = tm.hunyuan_denoise(model, params, *inputs, ts, guidance=6.0,
+                                 generator=gen, callback=callback)
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
@@ -1791,7 +1973,9 @@ def drive_video_path(torch, kern, tm, ck):
     before and read just after (each must equal the schedule's count,
     VIDEO_LAUNCHES, and no other kernel may run), output finite and of
     the latent's shape; a trace of steps 2-9; the dense loop on the same
-    weights.  Returns (launches, sparse s, dense s)."""
+    weights; the compiled sparse loop (``compiled_loops``: launches
+    VIDEO_LAUNCHES too).  Returns (launches, sparse s, dense s, compiled
+    sparse s)."""
     cfg = tm.HunyuanModelConfig(**V540, **V_DEPTH)
     t0 = time.perf_counter()
     gen = torch.Generator('cuda')
@@ -1827,7 +2011,6 @@ def drive_video_path(torch, kern, tm, ck):
     if wrong:
         fail(f'video: launches differ from the schedule\'s count '
              f'{VIDEO_LAUNCHES}: {wrong}')
-    del out
     torch.cuda.empty_cache()
     trace_sparse_steps(
         torch, lambda cb: run_video(torch, tm, model, params, inputs,
@@ -1845,9 +2028,17 @@ def drive_video_path(torch, kern, tm, ck):
     print(f'video dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
           f'{sparse_s:.3f} s; sparse speedup {dense_s / sparse_s:.3f}x',
           flush=True)
-    del out_d, params
+    del out_d
     torch.cuda.empty_cache()
-    return launches, sparse_s, dense_s
+    c_s, _ = compiled_loops(
+        torch, kern, 'video', lambda: lambda: run_video(
+            torch, tm, model, params, inputs, compiled=True),
+        out, launches, sparse_s)
+    print(f'video compiled sparse loop: host dense loop / compiled sparse '
+          f'loop {dense_s / c_s:.3f}x', flush=True)
+    del out, params
+    torch.cuda.empty_cache()
+    return launches, sparse_s, dense_s, c_s
 
 
 def agree_small_video(torch, tm, kern, ck):
@@ -1895,6 +2086,19 @@ def agree_small_video(torch, tm, kern, ck):
         if missing:
             fail(f'video small run (csp mode {mode!r}): kernels not '
                  f'launched: {missing}')
+    # compiled vs host on the card: random keeps on, 6 steps with the
+    # colsum and the sparse kinds recurring
+    rk_ck = config_from_dict({'steps': 6, 'attn': {
+        'random_keys': 0.05, 'full_step_schedule': [0, 1, 3, 5]}}, small_ck)
+    model = tm.HunyuanModel(cfg=cfg, ck=rk_ck)
+    outs, launches = [], []
+    for compiled in (False, True):
+        kern.reset_launches()
+        outs.append(run_video(torch, tm, model, params,
+                              tuple(x.to('cuda') for x in inputs),
+                              compiled=compiled)[0])
+        launches.append(dict(kern.LAUNCHES))
+    check_compiled_agreement(torch, 'video', outs, launches)
 
 
 def wan_kernel_phases(torch, mods, tm, ck):
@@ -2116,11 +2320,13 @@ def encode_wan_text(torch, tm):
     return ctx[:1].contiguous(), ctx[1:].contiguous()
 
 
-def run_wan(torch, tm, model, params, lat, ctx, steps=None, callback=None):
-    """One wan_denoise over the config's schedule (unshifted, as
-    scripts/bench_wan.py:109 has it), the first ``steps`` steps only if
-    given, guide_scale 5.0, random keeps from a seeded generator on the
-    model's device.  Returns (latent, seconds)."""
+def run_wan(torch, tm, model, params, lat, ctx, steps=None, callback=None,
+            compiled=False):
+    """One wan_denoise (``compiled``: wan_denoise_compiled, no callback)
+    over the config's schedule (unshifted, as scripts/bench_wan.py:109
+    has it), the first ``steps`` steps only if given, guide_scale 5.0,
+    random keeps from a seeded generator on the model's device.  Returns
+    (latent, seconds)."""
     dev = model.device
     ts = tm.get_schedule(model.ck.steps, model.cfg.seq_len, shift=False)
     if steps is not None:
@@ -2130,8 +2336,12 @@ def run_wan(torch, tm, model, params, lat, ctx, steps=None, callback=None):
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = tm.wan_denoise(model, params, lat, *ctx, ts, guide_scale=5.0,
-                         generator=gen, callback=callback)
+    if compiled:
+        out = tm.wan_denoise_compiled(model, params, lat, *ctx, ts,
+                                      guide_scale=5.0, generator=gen)
+    else:
+        out = tm.wan_denoise(model, params, lat, *ctx, ts, guide_scale=5.0,
+                             generator=gen, callback=callback)
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
@@ -2145,8 +2355,9 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
     to 0 just before and read just after (each must equal WAN_LAUNCHES,
     no other kernel may run), output finite and of the latent's shape; a
     trace of steps 2-9; the dense loop on the same weights (attention
-    sparsity and step caching off; launches WAN_DENSE_LAUNCHES).
-    Returns (launches, sparse s, dense s)."""
+    sparsity and step caching off; launches WAN_DENSE_LAUNCHES); the
+    compiled sparse loop (``compiled_loops``: launches WAN_LAUNCHES too).
+    Returns (launches, sparse s, dense s, compiled sparse s)."""
     cfg = tm.WanModelConfig(**WAN_LATENT)
     t0 = time.perf_counter()
     gen = torch.Generator('cuda')
@@ -2209,9 +2420,17 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
           f'{sparse_s:.3f} s; sparse speedup {dense_s / sparse_s:.3f}x; '
           f'sparse vs dense latent: mean relative difference {rel:.4f} '
           f'(random weights)', flush=True)
-    del out, out_d, params
+    del out_d
     torch.cuda.empty_cache()
-    return launches, sparse_s, dense_s
+    c_s, _ = compiled_loops(
+        torch, kern, 'wan', lambda: lambda: run_wan(
+            torch, tm, model, params, lat, ctx, compiled=True),
+        out, launches, sparse_s)
+    print(f'wan compiled sparse loop: host dense loop / compiled sparse '
+          f'loop {dense_s / c_s:.3f}x', flush=True)
+    del out, params
+    torch.cuda.empty_cache()
+    return launches, sparse_s, dense_s, c_s
 
 
 def agree_small_wan(torch, tm, kern, ck):
@@ -2272,6 +2491,18 @@ def agree_small_wan(torch, tm, kern, ck):
         if missing:
             fail(f'wan small run (csp mode {mode!r}): kernels not '
                  f'launched: {missing}')
+    # compiled vs host on the card, as agree_small_video's
+    rk_ck = config_from_dict({'steps': 6, 'attn': {
+        'random_keys': 0.05, 'full_step_schedule': [0, 1, 3, 5]}}, small_ck)
+    model = tm.WanModel(cfg=cfg, ck=rk_ck)
+    outs, launches = [], []
+    for compiled in (False, True):
+        kern.reset_launches()
+        outs.append(run_wan(torch, tm, model, params, lat.cuda(),
+                            (ctx[0].cuda(), ctx[1].cuda()),
+                            compiled=compiled)[0])
+        launches.append(dict(kern.LAUNCHES))
+    check_compiled_agreement(torch, 'wan', outs, launches)
     del params
     torch.cuda.empty_cache()
 
@@ -2363,8 +2594,8 @@ def main():
           f'{ck.attn.first_n_dense_layers}/{ck.mlp.first_n_dense_layers}',
           flush=True)
     model = tm.FluxModelConfig()          # full width and depth, bf16
-    launches, bf16_sparse_s, bf16_dense_s = drive_path(
-        torch, kern, tm, ck, model, 'bf16', BF16_PATH)
+    launches, bf16_sparse_s, bf16_dense_s, _, _ = drive_path(
+        torch, kern, tm, ck, model, 'bf16', BF16_PATH, trace_compiled=True)
 
     # (b) quantized weights as bench.py builds them; the bf16 model of
     # (a) lives only inside its loops and is freed by now
@@ -2376,8 +2607,9 @@ def main():
           f'in {time.perf_counter() - t0:.1f} s: '
           f'{quant.param_bytes(qparams) / 2 ** 30:.2f} GiB, QuantSpec'
           f'{SPEC}', flush=True)
-    qlaunches, q_sparse_s, q_dense_s = drive_path(
-        torch, kern, tm, ck, model, 'quantized', QUANT_PATH, qparams)
+    qlaunches, q_sparse_s, q_dense_s, _, _ = drive_path(
+        torch, kern, tm, ck, model, 'quantized', QUANT_PATH, qparams,
+        trace_compiled=True)
     print(f'quantized sparse loop {q_sparse_s:.3f} s: '
           f'{q_dense_s / q_sparse_s:.3f}x against the quantized dense loop '
           f'({q_dense_s:.3f} s), {bf16_dense_s / q_sparse_s:.3f}x against '
@@ -2389,7 +2621,7 @@ def main():
     # dense yardstick is (b)'s dense loop (the dense path does not read
     # int8_act)
     no_a8 = ck.replace(mlp=dataclasses.replace(ck.mlp, int8_act=False))
-    wlaunches, w_sparse_s, _ = drive_path(
+    wlaunches, w_sparse_s, _, _, _ = drive_path(
         torch, kern, tm, no_a8, model, 'quantized int8_act off', WQ_PATH,
         qparams, dense=False)
     for k in ('csp_mlp_mm1_wq', 'csp_mlp_mm2_wq'):
@@ -2412,7 +2644,8 @@ def main():
           f'{str(vck.attn.should_compress_indices).lower()}, '
           f'first_n_dense_layers={vck.attn.first_n_dense_layers}, mlp '
           f'{"on" if vck.mlp.is_enabled else "off"})', flush=True)
-    vlaunches, v_sparse_s, v_dense_s = drive_video_path(torch, kern, tm, vck)
+    vlaunches, v_sparse_s, v_dense_s, _ = drive_video_path(torch, kern, tm,
+                                                           vck)
     agree_small_video(torch, tm, kern, vck)
     stamp('video path')
 
@@ -2446,6 +2679,11 @@ def main():
     small = dataclasses.replace(model, depth=1, depth_single_blocks=1,
                                 txt_len=128)
     agree_small(torch, tm, kern, small_ck, small, 'bf16', BF16_PATH)
+    agree_compiled_small(torch, tm, kern, small_ck, small, 'bf16')
+    small_q = quant.synth_quantized_flux_params(
+        SEED, small, quant.QuantSpec(*SPEC), device='cpu')
+    agree_compiled_small(torch, tm, kern, small_ck, small, 'quantized',
+                         small_q)
     # the quantized path, then the other weight/activation variants
     # through the same model: int8_act off (wq), int4 sparse MLP weights
     # with (a8w4) and without (w4) int8 activations
@@ -2460,6 +2698,7 @@ def main():
             ('int4 MLP int8_act off', no_a8, ('int4',) * 4,
              ('csp_mlp_mm1_w4', 'csp_mlp_mm2_w4'))):
         agree_small(torch, tm, kern, cfg, small, tag, kernels,
+                    small_q if spec == SPEC else
                     quant.synth_quantized_flux_params(
                         SEED, small, quant.QuantSpec(*spec), device='cpu'))
     # the MLP with the cache dtypes unset: bf16 caches (the reference's
@@ -2469,8 +2708,7 @@ def main():
     agree_small(torch, tm, kern, bf16_caches, small, 'bf16 caches',
                 BF16_PATH)
     agree_small(torch, tm, kern, bf16_caches, small, 'quantized bf16 caches',
-                QUANT_PATH, quant.synth_quantized_flux_params(
-                    SEED, small, quant.QuantSpec(*SPEC), device='cpu'))
+                QUANT_PATH, small_q)
 
     stamp('FLUX agreement')
     for r in rows:

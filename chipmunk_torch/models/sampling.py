@@ -1,10 +1,12 @@
-"""FLUX denoising loop with chipmunk step scheduling and step caching
-(torch), the counterpart of the host loop of
+"""FLUX denoising loops with chipmunk step scheduling and step caching
+(torch), the counterparts of the host loop and the compiled loop of
 ``chipmunk_tpu/models/sampling.py``.
 
 The latent is patch-reordered and RoPE built once, then the Euler loop
 runs over the timesteps; on a skipped (step-cached) step the model is not
-invoked and the previous prediction is reused.
+invoked and the previous prediction is reused.  The compiled loop folds
+the skipped steps into the computed ones and replays one CUDA graph per
+step kind (``step_graphs``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from ..schedule import step_plan
 from .flux import (FluxModelConfig, FluxSparse, FluxStep, flux_forward,
                    flux_rope_ids)
 from .layers import build_rope
+from .step_graphs import carry_state, compiled_euler, draws_keeps
 
 
 def flux_time_shift(mu: float, sigma: float, t: torch.Tensor) -> torch.Tensor:
@@ -123,3 +126,37 @@ class FluxSampler:
             if callback:
                 callback(i, skipped=False)
         return self.unpatchify_img(img)
+
+    def denoise_compiled(self, params: Dict, img: torch.Tensor,
+                         txt: torch.Tensor, y: torch.Tensor,
+                         timesteps: Union[torch.Tensor, Sequence[float]],
+                         guidance: float = 4.0,
+                         generator: Optional[torch.Generator] = None
+                         ) -> torch.Tensor:
+        """The loop of ``denoise`` as the reference's single dispatch
+        (``chipmunk_tpu/models/sampling.py:131``): skipped steps folded
+        into the preceding computed step's Euler increment, and on the
+        card each computed step a replay of the CUDA graph of its step
+        kind (``step_graphs.compiled_euler``).  Arguments and result as
+        ``denoise``; the keeps are drawn in the host loop's order."""
+        dev = self.device
+        B = img.shape[0]
+        lat = self.patchify_img(img.to(dev)).float()
+        txt, y = txt.to(dev), y.to(dev)
+        pe = self.rope(B)
+        state = self.sp.init_state(self.cfg, B, dev)
+        g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
+            if self.cfg.guidance_embed else None
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+
+        def predict(lat, t_vec, step):
+            pred, new = flux_forward(params, self.cfg, self.sp, lat, txt,
+                                     t_vec, y, pe, state, step, guidance=g,
+                                     generator=generator)
+            carry_state(state, new)
+            return pred
+
+        lat = compiled_euler(step_plan(self.ck), timesteps, lat, predict,
+                             generator, draws_keeps(self.ck))
+        return self.unpatchify_img(lat)

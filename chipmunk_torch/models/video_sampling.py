@@ -1,13 +1,15 @@
 """Video denoising loops (torch): HunyuanVideo (guidance-distilled) and
 Wan2.1 (classifier-free guidance, two model invocations a step), the
 counterparts of the resident host loops ``hunyuan_denoise(...,
-streamed=None)`` and ``wan_denoise`` of
+streamed=None)`` and ``wan_denoise`` and of the compiled loops
+``hunyuan_denoise_compiled`` and ``wan_denoise_compiled`` of
 ``chipmunk_tpu/models/video_sampling.py``.
 
 Euler flow-matching loops over the chipmunk step plan; on a skipped
 (step-cached) step the model is not invoked and the previous prediction
-is reused.  Not ported yet: the host-offload streamed runner
-(``streamed=``) and the compiled loops.
+is reused.  The compiled loops fold the skipped steps into the computed
+ones and replay one CUDA graph per step kind (``step_graphs``).  Not
+ported yet: the host-offload streamed runner (``streamed=``).
 """
 from __future__ import annotations
 
@@ -17,6 +19,8 @@ import torch
 
 from ..schedule import step_plan
 from .flux import FluxStep
+from .step_graphs import (carry_state, check_chunk, compiled_euler,
+                          draws_keeps)
 
 
 def _euler(model, latents: torch.Tensor, timesteps, callback, predict
@@ -108,3 +112,79 @@ def wan_denoise(model, params: Dict, latents: torch.Tensor,
         return p[1] + guide_scale * (p[0] - p[1])
 
     return _euler(model, latents, timesteps, callback, predict)
+
+
+def hunyuan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
+                             txt: torch.Tensor, y: torch.Tensor,
+                             timesteps: Union[torch.Tensor, Sequence[float]],
+                             guidance: float = 6.0,
+                             generator: Optional[torch.Generator] = None,
+                             txt_mask: Optional[torch.Tensor] = None,
+                             chunk: Optional[int] = None) -> torch.Tensor:
+    """The loop of ``hunyuan_denoise`` as the reference's compiled loop
+    (``video_sampling.py:192``): skipped steps folded into the preceding
+    computed step's Euler increment, and on the card each computed step a
+    replay of the CUDA graph of its step kind
+    (``step_graphs.compiled_euler``).  ``chunk``: None or 0 runs the loop
+    as one window, N > 0 in windows of at most N steps of one kind
+    (``step_graphs._kind_pure_windows``; the same math); a negative
+    chunk raises.  Other arguments and the result as
+    ``hunyuan_denoise``."""
+    check_chunk(chunk)
+    dev = model.device
+    B = latents.shape[0]
+    txt, y = txt.to(dev), y.to(dev)
+    if txt_mask is not None:
+        txt_mask = txt_mask.to(dev)
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    state = model.init_state(B)
+    pe = model.rope(B)
+    g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
+        if model.cfg.guidance_embed else None
+
+    def predict(lat, t_vec, step):
+        pred, new = model.forward(params, lat, txt, t_vec, y, state, step,
+                                  guidance=g, generator=generator, pe=pe,
+                                  txt_mask=txt_mask)
+        carry_state(state, new)
+        return pred
+
+    return compiled_euler(step_plan(model.ck), timesteps,
+                          latents.to(dev).float(), predict, generator,
+                          draws_keeps(model.ck), chunk)
+
+
+def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
+                         ctx_cond: torch.Tensor, ctx_uncond: torch.Tensor,
+                         timesteps: Union[torch.Tensor, Sequence[float]],
+                         guide_scale: float = 5.0,
+                         generator: Optional[torch.Generator] = None,
+                         chunk: Optional[int] = None) -> torch.Tensor:
+    """The loop of ``wan_denoise`` as the reference's compiled loop
+    (``video_sampling.py:305``): one step (and on the card one CUDA graph
+    per step kind) holds both invocations, cond then uncond, each with its
+    own state and both drawing from ``generator``, the CFG combine and the
+    Euler update.  ``chunk`` as for ``hunyuan_denoise_compiled``; other
+    arguments and the result as ``wan_denoise``."""
+    check_chunk(chunk)
+    dev = model.device
+    B = latents.shape[0]
+    ctx = (ctx_cond.to(dev), ctx_uncond.to(dev))
+    if generator is None:
+        generator = torch.Generator(dev).manual_seed(0)
+    states = model.init_cfg_states(B)
+    pe = model.rope(B)
+
+    def predict(lat, t_vec, step):
+        p = []
+        for j in range(2):          # cond, then uncond
+            o, new = model.forward(params, lat, ctx[j], t_vec, states[j],
+                                   step, generator=generator, pe=pe)
+            carry_state(states[j], new)
+            p.append(o.float())
+        return p[1] + guide_scale * (p[0] - p[1])
+
+    return compiled_euler(step_plan(model.ck), timesteps,
+                          latents.to(dev).float(), predict, generator,
+                          draws_keeps(model.ck), chunk)

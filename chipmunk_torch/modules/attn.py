@@ -24,8 +24,8 @@ lists on every consuming step.  Random keeps come from the caller's
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import NamedTuple, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -86,6 +86,9 @@ class SparseDiffAttn:
     dense_tail_g: Optional[int] = None
     fully_dense: bool = False   # cost gate: run the layer dense every step
     csp_mode: str = 'auto'      # csp_attn mode ('auto', 'vmem', 'hbm')
+    # (sparse_query_groups, static_mask) per device, moved there once
+    _on_device: Dict = field(default_factory=dict, init=False,
+                             compare=False, repr=False)
 
     @staticmethod
     def build(cfg: AttnConfig, seq_len: int, static_mask_tokens=None,
@@ -202,17 +205,25 @@ class SparseDiffAttn:
         static mask (compressed indices)."""
         if not self.cfg.should_compress_indices:
             return indexing.topk_mask(colsums, self.sel_blocks)
-        dev = colsums.device
-
-        def on(t):
-            return None if t is None else t.to(dev)
-
+        sparse_qg, static_mask = self.masks_on(colsums.device)
         return indexing.random_and_topk_mask(
             colsums, self.sel_blocks, keep_mask=keep_mask,
-            generator=generator,
-            sparse_query_groups=on(self.sparse_query_groups),
-            static_mask=on(self.static_mask),
-            random_frac=self.cfg.random_keys)
+            generator=generator, sparse_query_groups=sparse_qg,
+            static_mask=static_mask, random_frac=self.cfg.random_keys)
+
+    def masks_on(self, device: torch.device
+                 ) -> Tuple[Optional[torch.Tensor], Optional[torch.Tensor]]:
+        """(sparse_query_groups, static_mask) on ``device``, moved there by
+        the first call for it and kept: a copy from the host on every
+        colsum step would cost a pageable copy each time and stop a CUDA
+        graph capture."""
+        masks = self._on_device.get(device)
+        if masks is None:
+            masks = tuple(None if t is None else t.to(device)
+                          for t in (self.sparse_query_groups,
+                                    self.static_mask))
+            self._on_device[device] = masks
+        return masks
 
     def _mask_to_inds(self, mask: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -5,12 +5,22 @@ byte for byte the reference's.  Compressed attention states keep their
 selection mask in this form (8x smaller than int32 indices)."""
 from __future__ import annotations
 
+from typing import Dict
+
 import torch
 
+_WEIGHTS: Dict[torch.device, torch.Tensor] = {}
 
-def _weights(device) -> torch.Tensor:
-    return torch.tensor([1 << i for i in range(8)], dtype=torch.uint8,
-                        device=device)
+
+def _weights(device: torch.device) -> torch.Tensor:
+    """The bit weights 1, 2, ..., 128 (uint8) on ``device``, made once per
+    device: a tensor built from a list is a copy from the host, which
+    every call would pay and a CUDA graph capture refuses."""
+    w = _WEIGHTS.get(device)
+    if w is None:
+        w = _WEIGHTS[device] = torch.tensor([1 << i for i in range(8)],
+                                            dtype=torch.uint8, device=device)
+    return w
 
 
 def bitpack_rows(mask: torch.Tensor) -> torch.Tensor:

@@ -1319,3 +1319,202 @@ def test_cuda_wan_small_matches_cpu(gen, mode):
     csp = 'csp_attn_hbm' if mode == 'hbm' else 'csp_attn'
     assert FA._build.LAUNCHES[csp] > n0[csp]
     assert FA._build.LAUNCHES['dense_colsum_attn'] > n0['dense_colsum_attn']
+
+
+# ------------------------------------------------- compiled loops (graphs)
+
+def _small_flux(steps=8):
+    """A narrow FLUX (hidden 256, 2 heads of 128, depth 1+1, no dense
+    layer, 128 text + 384 image tokens) with random keeps in both modules
+    (compressed attention indices, MLP re-selection) and a skipped step,
+    bf16 weights drawn on the CPU; returns (model, ck, params_cpu, img,
+    txt, y)."""
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.config import config_from_dict
+    model = tm.FluxModelConfig(
+        in_channels=16, vec_in_dim=32, context_in_dim=32, hidden_size=256,
+        num_heads=2, depth=1, depth_single_blocks=1, axes_dim=(16, 56, 56),
+        guidance_embed=False, txt_len=128)
+    ck = config_from_dict({
+        'steps': steps,
+        'attn': {'top_keys': 0.4, 'random_keys': 0.1, 'full_step_every': 3,
+                 'first_n_dense_layers': 0, 'should_compress_indices': True,
+                 'dense_fallback_frac': 1.0},
+        'mlp': {'top_keys': 0.5, 'random_keys': 0.1, 'full_step_every': 3,
+                'first_n_dense_layers': 0, 'counts_multiple_of': 128},
+        'patchify': {'chunk_size_1': 4, 'chunk_size_2': 2},
+        'step_caching': {'is_enabled': True, 'skip_step_schedule': {4}}})
+    g = torch.Generator().manual_seed(0)
+    params = tm.init_flux_params(g, model, 'cpu')
+    img, txt, y = (torch.randn(s, generator=g)
+                   for s in ((1, 384, 16), (1, 128, 32), (1, 32)))
+    return model, ck, params, img, txt, y
+
+
+def _to_cuda(t):
+    return ({k: _to_cuda(v) for k, v in t.items()} if isinstance(t, dict)
+            else [_to_cuda(v) for v in t] if isinstance(t, list)
+            else t.cuda())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['sparse', 'colsum'])
+def test_cuda_step_graph_replay_is_bit_equal_to_eager(gen, kind):
+    """One step of the small FLUX from the same state, inputs and seed:
+    eagerly, and as StepGraphs' replay (its first occurrence eager, the
+    second captured and replayed): the prediction and every state leaf
+    bit-equal.  The colsum step draws attention keeps, the sparse step
+    re-selects MLP neurons (MLP keeps)."""
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.models.step_graphs import (StepGraphs, _leaves,
+                                                   carry_state)
+    model, ck, params, img, txt, y = _small_flux()
+    params, txt, y = _to_cuda(params), txt.cuda(), y.cuda()
+    sp = tm.FluxSparse.build(ck, model, 512)
+    sampler = tm.FluxSampler(cfg=model, ck=ck, sp=sp, h_img=16, w_img=24)
+    pe = sampler.rope(1)
+    lat = sampler.patchify_img(img.cuda()).float()
+    t_vec = torch.full((1,), 0.7, device='cuda')
+    state = sp.init_state(model, 1, 'cuda')
+    loop_gen = torch.Generator('cuda').manual_seed(1)
+
+    def forward(step):
+        pred, new = tm.flux_forward(params, model, sp, lat, txt, t_vec, y,
+                                    pe, state, step, generator=loop_gen)
+        carry_state(state, new)
+        return pred
+
+    for step in (tm.FluxStep(0, True, True, False, False),
+                 tm.FluxStep(1, True, False, True, True)):
+        forward(step)
+    step = (tm.FluxStep(2, False, False, False, True) if kind == 'sparse'
+            else tm.FluxStep(2, True, False, True, False))
+    leaves = [t for t in _leaves(state) if t is not None]
+    saved = [t.clone() for t in leaves]
+
+    def restore():
+        for t, s in zip(leaves, saved):
+            t.copy_(s)
+        loop_gen.manual_seed(5)
+
+    restore()
+    want = forward(step).clone()
+    want_state = [t.clone() for t in leaves]
+    out = torch.empty_like(want)
+    graphs = StepGraphs(torch.device('cuda'), loop_gen, keeps=True)
+    restore()
+    graphs.run(step, lambda: out.copy_(forward(step)))      # eager
+    restore()
+    graphs.run(step, lambda: out.copy_(forward(step)))      # capture
+    torch.cuda.synchronize()
+    assert (len(graphs.graphs), graphs.replays, graphs.eager) == (1, 1, 1)
+    assert torch.equal(out, want)
+    for a, b in zip(leaves, want_state):
+        assert torch.equal(fp8.raw(a), fp8.raw(b))
+
+
+@pytest.mark.cuda
+def test_cuda_registered_generator_draws_fresh_keeps_in_replays(gen):
+    """random_and_topk_mask from a registered generator: the eager draw
+    and then two replays of its graph give the masks three eager draws
+    from the same seed give, and the two replays differ."""
+    from chipmunk_torch.models.step_graphs import StepGraphs
+    from chipmunk_torch.ops import indexing
+    cs = torch.rand((1, 2, 4, 32), generator=gen, device='cuda')
+    g = torch.Generator('cuda').manual_seed(7)
+    want = [indexing.random_and_topk_mask(cs, 4, generator=g,
+                                          random_frac=0.3)
+            for _ in range(3)]
+    out = torch.zeros_like(want[0])
+    graphs = StepGraphs(torch.device('cuda'), g, keeps=True)
+    g.manual_seed(7)
+    got = []
+    for _ in range(3):
+        graphs.run('draw', lambda: out.copy_(indexing.random_and_topk_mask(
+            cs, 4, generator=g, random_frac=0.3)))
+        got.append(out.clone())
+    assert graphs.replays == 2
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert not torch.equal(got[1], got[2])
+
+
+@pytest.mark.cuda
+def test_cuda_failed_capture_raises(gen):
+    """A step that syncs with the host (``.item()``) runs eagerly at its
+    first occurrence, and its capture raises, every time: the runner never
+    falls back to eager on the card, and counts no launch for it."""
+    from chipmunk_torch.models.step_graphs import StepGraphs
+    x = torch.ones(4, device='cuda')
+    seen = []
+    graphs = StepGraphs(torch.device('cuda'))
+    n0 = dict(FA._build.LAUNCHES)
+    graphs.run('sync', lambda: seen.append(x.sum().item()))
+    for _ in range(2):
+        with pytest.raises(RuntimeError):
+            graphs.run('sync', lambda: seen.append(x.sum().item()))
+    assert seen == [4.0] and not graphs.graphs and graphs.replays == 0
+    assert dict(FA._build.LAUNCHES) == n0
+    torch.cuda.synchronize()
+    assert x.sum().item() == 4.0            # the card still works
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('skip', [False, True])
+@pytest.mark.parametrize('model', ['flux', 'wan'])
+def test_cuda_compiled_loop_matches_host_loop(gen, model, skip):
+    """The small FLUX (8 steps) and a small Wan (2 layers, 6 steps) with
+    random keeps: the compiled loop against the host loop on the card,
+    same seed: the same launches, kernel by kernel, and graphs replayed.
+    With no skipped step the two compute the same thing and agree bit for
+    bit.  With one (folded into the step before it) the latent's float32
+    Euler sums round differently, which the bf16 model input and the
+    top-k selections downstream amplify: mean relative difference <=
+    1e-2."""
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.config import config_from_dict, load_config
+    from chipmunk_torch.models.step_graphs import GRAPH_STATS
+    caching = {'is_enabled': skip, 'skip_step_schedule': [3]}
+    if model == 'flux':
+        cfg, ck, params, img, txt, y = _small_flux()
+        ck = config_from_dict({'step_caching': caching}, ck)
+        sampler = tm.FluxSampler(cfg=cfg, ck=ck,
+                                 sp=tm.FluxSparse.build(ck, cfg, 512),
+                                 h_img=16, w_img=24)
+        args = (_to_cuda(params), img.cuda(), txt.cuda(), y.cuda(),
+                tm.get_schedule(8, 384))
+        loops = (sampler.denoise, sampler.denoise_compiled)
+    else:
+        ck = config_from_dict({
+            'steps': 6,
+            'attn': {'full_step_schedule': [0, 1, 4],
+                     'first_n_dense_layers': 1, 'top_keys': 0.3,
+                     'random_keys': 0.05, 'local_voxels': 1,
+                     'dense_fallback_frac': 1.0},
+            'step_caching': caching},
+            load_config(os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), 'configs', 'wan-chipmunk.yml')))
+        cfg = tm.WanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                                num_layers=2)
+        g = torch.Generator().manual_seed(0)
+        params = tm.init_wan_params(g, cfg, 'cpu')
+        lat = torch.randn((1, 16, 5, 16, 30), generator=g)
+        ctx = torch.randn((2, 1, 512, 4096), generator=g).to(torch.bfloat16)
+        m = tm.WanModel(cfg=cfg, ck=ck)
+        args = (m, _to_cuda(params), lat.cuda(), ctx[0].cuda(),
+                ctx[1].cuda(), tm.get_schedule(6, cfg.seq_len, shift=False))
+        loops = (tm.wan_denoise, tm.wan_denoise_compiled)
+    outs, launches = [], []
+    for loop in loops:
+        FA._build.reset_launches()
+        outs.append(loop(*args, generator=torch.Generator(
+            'cuda').manual_seed(3)))
+        launches.append(dict(FA._build.LAUNCHES))
+    assert launches[0] == launches[1]
+    assert launches[0]['csp_attn'] > 0 and launches[0]['dense_colsum_attn']
+    assert GRAPH_STATS['replays'] > 0 and GRAPH_STATS['graphs'] > 0
+    assert torch.isfinite(outs[1]).all()
+    if not skip:
+        assert torch.equal(outs[0], outs[1])
+    rel = ((outs[1] - outs[0]).abs().mean() / outs[0].abs().mean()).item()
+    assert rel <= 1e-2, rel
