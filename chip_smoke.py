@@ -84,13 +84,32 @@
    'hbm') and a small UMT5 against the plain versions on the CPU, and the
    small Wan's compiled loop against its host loop with random keeps
    on.
-6. Prints the card line, one JSON line with the kernels' numbers, and as
+6. Prompt to pixels.  After the FLUX loops, one FLUX.1-dev generation
+   at 1280x768: T5-v1.1-XXL and CLIP-L at full size in bf16 (random
+   weights from a seed) encode one prompt's ids and are released, then
+   ``FluxSampler.denoise`` over configs/flux-chipmunk.yml on loop (a)'s
+   weights, noise and keep seed with their txt / vec (launches equal to
+   loop (a)'s, kernel by kernel; the encoders launch none of the port's
+   kernels), then ``unpack`` and the FLUX autoencoder's ``decode`` at
+   full size in float32 to a [1, 3, 768, 1280] image: one synchronised
+   span from the ids on the card to the pixels, the encoders' release
+   included, each stage timed within it (weights drawn and each stage
+   called once before it).
+   After each video path's loops its sparse loop's latent is decoded in
+   float32 by its VAE (random weights from a seed): Wan's whole clip
+   (its first 3 latent frames decoded alone must give its first 9
+   frames: the decoder is prefix-closed), and HunyuanVideo's first
+   HY_DECODE_N of 33 latent frames (a shorter video).  The decoders run
+   PyTorch's default TF32 convolutions (DECODE_SETTING).  Then small T5,
+   CLIP, FLUX autoencoder and video VAEs on the card against the CPU.
+7. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
 device, or without the ``chipmunk_torch`` package beside it, it exits
 non-zero and prints no result.
 """
+import contextlib
 import dataclasses
 import importlib
 import json
@@ -163,6 +182,14 @@ WAN_DENSE_LAUNCHES = {'dense_attn': 6000}
 # UMT5-XXL prompts: two rows of 512 ids, valid prefixes of these lengths
 # (cond, uncond)
 UMT5_VALID = (93, 27)
+# HunyuanVideo's VAE decodes the first HY_DECODE_N of the 540p loop's 33
+# latent frames (4 * 19 + 1 = 77 of 129 frames): the largest N whose
+# reserved peak left at least 8 GiB of an 80 GB H100's 79.2 GiB in a sweep
+# of chipmunk_torch/tools/decode_phases.py --sweep (N = 20: 61.04 GiB
+# allocated, 68.83 reserved; 22: 74.75 reserved; 26 out of memory; about
+# 3 GiB a latent frame); its group norms span the clip, so this is a
+# shorter video, not a prefix
+HY_DECODE_N = 20
 
 
 def fail(msg):
@@ -1975,7 +2002,7 @@ def drive_video_path(torch, kern, tm, ck):
     the latent's shape; a trace of steps 2-9; the dense loop on the same
     weights; the compiled sparse loop (``compiled_loops``: launches
     VIDEO_LAUNCHES too).  Returns (launches, sparse s, dense s, compiled
-    sparse s)."""
+    sparse s, the sparse host loop's latent)."""
     cfg = tm.HunyuanModelConfig(**V540, **V_DEPTH)
     t0 = time.perf_counter()
     gen = torch.Generator('cuda')
@@ -2036,9 +2063,9 @@ def drive_video_path(torch, kern, tm, ck):
         out, launches, sparse_s)
     print(f'video compiled sparse loop: host dense loop / compiled sparse '
           f'loop {dense_s / c_s:.3f}x', flush=True)
-    del out, params
+    del params
     torch.cuda.empty_cache()
-    return launches, sparse_s, dense_s, c_s
+    return launches, sparse_s, dense_s, c_s, out
 
 
 def agree_small_video(torch, tm, kern, ck):
@@ -2357,7 +2384,8 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
     trace of steps 2-9; the dense loop on the same weights (attention
     sparsity and step caching off; launches WAN_DENSE_LAUNCHES); the
     compiled sparse loop (``compiled_loops``: launches WAN_LAUNCHES too).
-    Returns (launches, sparse s, dense s, compiled sparse s)."""
+    Returns (launches, sparse s, dense s, compiled sparse s, the sparse
+    host loop's latent)."""
     cfg = tm.WanModelConfig(**WAN_LATENT)
     t0 = time.perf_counter()
     gen = torch.Generator('cuda')
@@ -2428,9 +2456,9 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
         out, launches, sparse_s)
     print(f'wan compiled sparse loop: host dense loop / compiled sparse '
           f'loop {dense_s / c_s:.3f}x', flush=True)
-    del out, params
+    del params
     torch.cuda.empty_cache()
-    return launches, sparse_s, dense_s, c_s
+    return launches, sparse_s, dense_s, c_s, out
 
 
 def agree_small_wan(torch, tm, kern, ck):
@@ -2519,6 +2547,351 @@ def agree_small_wan(torch, tm, kern, ck):
           f'relative difference {rel:.3e}', flush=True)
     if not rel <= 1e-4:
         fail(f'UMT5 small-input output differs between card and CPU: {rel}')
+
+
+# ---------------------------------------------------------------- prompt to
+# pixels: the FLUX encoders and the three decoders
+
+# the FLUX prompt: 512 T5 ids, the first FLUX_T5_VALID valid (the rest pad
+# id 0, masked out); 77 CLIP ids with the EOT id (49,407, the vocabulary's
+# largest) at FLUX_CLIP_EOT_AT and EOT-valued padding after it, as CLIP's
+# tokenizer pads for FLUX
+FLUX_T5_LEN = 512
+FLUX_T5_VALID = 93
+FLUX_CLIP_EOT_AT = 24
+DECODE_SETTING = ('convolutions in TF32 (torch.backends.cudnn.allow_tf32 '
+                  '= True, PyTorch\'s default), matmuls in float32')
+
+
+@contextlib.contextmanager
+def default_tf32(torch):
+    """The decode phases run PyTorch's default: cuDNN convolutions in TF32
+    (the rest of the script turns TF32 off), float32 matmuls in float32."""
+    old = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32 = old
+
+
+def perturbed(torch, tree, gen):
+    """A nest of tensors, each plus noise from ``gen`` (on the CPU) of a
+    tenth of its mean magnitude (0.05 where it is all zeros): the
+    initialisers zero every bias and Wan's attention projection, which
+    would hide a fault on those paths."""
+    if isinstance(tree, dict):
+        return {k: perturbed(torch, v, gen) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [perturbed(torch, v, gen) for v in tree]
+    mag = tree.float().abs().mean().item() or 0.5
+    return (tree.float() + torch.randn(tree.shape, generator=gen)
+            * 0.1 * mag).to(tree.dtype)
+
+
+def synced(torch, fn):
+    """(fn(), seconds), synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def draw_flux_encoders(torch, tm):
+    """T5-v1.1-XXL (24 layers, dim 4096, 64 heads, FFN 10240, vocab
+    32,128) and CLIP-L (12 layers, width 768) at full size in bf16,
+    random weights from a seed drawn on the card, and the FLUX prompt's
+    ids (FLUX_T5_VALID, FLUX_CLIP_EOT_AT) on the card: a function of no
+    arguments per encoder (T5 -> txt; CLIP -> (hidden, pooled)), and the
+    two weight trees (to release)."""
+    t5cfg = tm.T5Config(dtype=torch.bfloat16)
+    ccfg = tm.ClipTextConfig(dtype=torch.bfloat16)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 7)
+    t5p = tm.init_t5_params(gen, t5cfg, 'cuda')
+    clipp = tm.init_clip_params(gen, ccfg, 'cuda')
+    for name, tree in (('T5-v1.1-XXL', t5p), ('CLIP-L', clipp)):
+        leaves = tensors(tree)
+        print(f'{name}: {sum(t.numel() for t in leaves) / 1e9:.3f}B '
+              f'parameters, {sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} '
+              f'GB bf16', flush=True)
+    mask = (torch.arange(FLUX_T5_LEN, device='cuda')[None]
+            < FLUX_T5_VALID).long()
+    ids = torch.randint(2, t5cfg.vocab_size, (1, FLUX_T5_LEN), generator=gen,
+                        device='cuda') * mask
+    eot = ccfg.vocab_size - 1
+    cids = torch.randint(0, eot, (1, ccfg.ctx_len), generator=gen,
+                         device='cuda')
+    cids[:, FLUX_CLIP_EOT_AT:] = eot
+    return ((lambda: tm.t5_encode(t5p, ids, mask, t5cfg)),
+            (lambda: tm.clip_text_encode(clipp, cids, ccfg)), [t5p, clipp])
+
+
+def flux_generation(torch, tm, kern, ck, model, want):
+    """One FLUX.1-dev generation at 1280x768 from prompt ids on the card to
+    pixels.  Before the span: the encoders (draw_flux_encoders), loop
+    (a)'s bf16 weights, latent noise and keep seed, and the FLUX
+    autoencoder at AutoEncoderParams() in float32 (random weights from a
+    seed) drawn; each encoder and the decode called once (the decode on a
+    random latent of the decode's shape, timed as its first call).  The
+    span, synchronised at both ends and between stages: T5, CLIP, the
+    encoders released (their weights dropped and the cache emptied),
+    FluxSampler.denoise over ``ck`` (the shipped config) with their txt /
+    vec, ``unpack`` and the decode (DECODE_SETTING).  The launch counts
+    are set to 0 just before T5 and just before the loop and read after
+    each: the encoders launch none of the port's kernels, the loop what
+    loop (a) did (``want``), kernel by kernel.  Checks after the span:
+    txt [1, 512, 4096] and vec [1, 768] bf16, the pooled row the first EOT
+    row, finite latent and image, image [1, 3, 768, 1280].  Prints the
+    span's wall time, each stage's, the first decode call's, the peak and
+    the pixel range; returns the wall time."""
+    torch.cuda.reset_peak_memory_stats()
+    t5_fn, clip_fn, enc = draw_flux_encoders(torch, tm)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED)
+    params = tm.init_flux_params(gen, model, 'cuda')
+    img = torch.randn((1, H_IMG * W_IMG, model.in_channels), generator=gen,
+                      device='cuda')
+    sampler = tm.FluxSampler(
+        cfg=model, ck=ck, sp=tm.FluxSparse.build(
+            ck, model, model.txt_len + H_IMG * W_IMG),
+        h_img=H_IMG, w_img=W_IMG)
+    ts = tm.get_schedule(ck.steps, H_IMG * W_IMG)
+    loop_gen = torch.Generator('cuda')
+    loop_gen.manual_seed(SEED)
+    acfg = tm.AutoEncoderParams()
+    gen.manual_seed(SEED + 8)
+    ae = tm.init_decoder_params(gen, acfg, torch.float32, 'cuda')
+    t5_fn()
+    clip_fn()
+    with default_tf32(torch):
+        _, cold_s = synced(torch, lambda: tm.decode(ae, torch.randn(
+            (1, acfg.z_channels, 2 * H_IMG, 2 * W_IMG), generator=gen,
+            device='cuda'), acfg))
+
+    def release():
+        enc.clear()
+        torch.cuda.empty_cache()
+
+    kern.reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    txt, t5_s = synced(torch, t5_fn)
+    (hid, vec), clip_s = synced(torch, clip_fn)
+    enc_launches = {k: n for k, n in kern.LAUNCHES.items() if n}
+    del t5_fn, clip_fn
+    _, release_s = synced(torch, release)
+    kern.reset_launches()
+    lat, denoise_s = synced(torch, lambda: sampler.denoise(
+        params, img, txt, vec, ts, generator=loop_gen))
+    launches = dict(kern.LAUNCHES)
+    with default_tf32(torch):
+        pix, decode_s = synced(torch, lambda: tm.decode(
+            ae, tm.unpack(lat.float(), 16 * H_IMG, 16 * W_IMG), acfg))
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(json.dumps({'path': 'generation', 'launches': launches}),
+          flush=True)
+    for name, t, shape in (('T5', txt, (1, FLUX_T5_LEN, 4096)),
+                           ('CLIP', vec, (1, 768))):
+        if t.shape != shape or t.dtype != torch.bfloat16:
+            fail(f'{name}: output {tuple(t.shape)} {t.dtype}')
+        if not bool(torch.isfinite(t).all()):
+            fail(f'{name}: non-finite values')
+    if not torch.equal(vec, hid[:, FLUX_CLIP_EOT_AT]):
+        fail('CLIP: the pooled row is not the first EOT row')
+    if enc_launches:
+        fail(f'the prompt encoders launched the port\'s kernels: '
+             f'{enc_launches}')
+    if launches != want:
+        fail(f'generation: launches differ from loop (a)\'s '
+             f'{ {k: n for k, n in want.items() if n} }')
+    if not bool(torch.isfinite(lat).all()):
+        fail('generation: non-finite values in the latent')
+    if pix.shape != (1, 3, 16 * H_IMG, 16 * W_IMG):
+        fail(f'generation: image {tuple(pix.shape)}')
+    if not bool(torch.isfinite(pix).all()):
+        fail('generation: non-finite pixels')
+    print(f'generation 1280x768, prompt ids to pixels: wall time '
+          f'{wall:.3f} s in one synchronised span (weights drawn and each '
+          f'stage called once before it) = T5 {t5_s * 1e3:.1f} ms '
+          f'({FLUX_T5_LEN} ids, {FLUX_T5_VALID} valid) + CLIP '
+          f'{clip_s * 1e3:.1f} ms (77 ids, EOT at {FLUX_CLIP_EOT_AT}) + '
+          f'encoders released {release_s * 1e3:.1f} ms + denoise '
+          f'{denoise_s:.3f} s ({ck.steps} steps) + unpack and decode '
+          f'{decode_s:.3f} s ({DECODE_SETTING}); the decode\'s first call '
+          f'{cold_s:.3f} s, outside the span; launches of the port\'s '
+          f'kernels in the encoders {enc_launches or "none"}; peak '
+          f'{peak:.2f} GiB allocated; image {tuple(pix.shape)}, pixels in '
+          f'[{pix.min().item():.4f}, {pix.max().item():.4f}]', flush=True)
+    del params, sampler, ae, pix, lat, txt, vec, hid
+    torch.cuda.empty_cache()
+    return wall
+
+
+def decode_run(torch, fn):
+    """(fn(), seconds, peak GiB allocated above what was allocated before,
+    peak GiB reserved) on the card."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out, secs = synced(torch, fn)
+    return (out, secs, (torch.cuda.max_memory_allocated() - base) / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+
+
+def decode_video(torch, tag, lat, decode, n, prefix_closed):
+    """A video decode on the card in float32 (DECODE_SETTING) of the first
+    ``n`` latent frames of the loop's latent ``lat`` [1, 16, T, h, w]
+    (``decode(z)`` -> pixels).  A prefix-closed decoder's decode of the
+    first 3 latent frames must equal the first 9 frames of the longer
+    decode (mean relative difference <= 2e-2); a decoder that is not
+    prefix-closed decodes n < T frames to a shorter video.  Checks: finite
+    and [1, 3, 4(n-1)+1, 8h, 8w].  Prints the frames, seconds and peaks."""
+    T, h, w = lat.shape[2:]
+    torch.cuda.empty_cache()
+    free, total = (m / 2 ** 30 for m in torch.cuda.mem_get_info())
+    with default_tf32(torch):
+        if prefix_closed:
+            pre, pre_s, _, _ = decode_run(torch, lambda: decode(lat[:, :, :3]))
+        out, secs, peak, reserved = decode_run(torch,
+                                               lambda: decode(lat[:, :, :n]))
+    frames = 4 * (n - 1) + 1
+    if out.shape != (1, 3, frames, 8 * h, 8 * w):
+        fail(f'{tag} decode: output {tuple(out.shape)}')
+    if not bool(torch.isfinite(out).all()):
+        fail(f'{tag} decode: non-finite pixels')
+    cut = ('the whole clip' if n == T else
+           f'the first {n} of {T} latent frames (' +
+           ('exact: the first frames of the whole clip, the decoder is '
+            'prefix-closed)' if prefix_closed else
+            'a cut: a shorter video, not a prefix of the whole one, since '
+            'the group norms span the clip)'))
+    msg = (f'{tag} decode: {cut}, {n} latent frames -> {frames} frames at '
+           f'{8 * h}x{8 * w} in {secs:.3f} s; peak {peak:.2f} GiB allocated '
+           f'above the latent, {reserved:.2f} GiB reserved ({free:.2f} GiB '
+           f'free before, of {total:.2f} GiB); {DECODE_SETTING}; pixels in '
+           f'[{out.min().item():.4f}, {out.max().item():.4f}]')
+    if prefix_closed:
+        rel = ((out[:, :, :9] - pre).abs().mean()
+               / pre.abs().mean()).item()
+        msg += (f'; the decode of the first 3 latent frames ({pre_s:.3f} s) '
+                f'against the first 9 frames: mean relative difference '
+                f'{rel:.3e}')
+        if not rel <= 2e-2:
+            fail(f'{tag} decode: the prefix decode differs from the first '
+                 f'frames of the longer decode: {rel}')
+        del pre
+    print(msg, flush=True)
+    del out
+    torch.cuda.empty_cache()
+    return secs
+
+
+def decode_hunyuan(torch, tm, lat):
+    """HunyuanVideo's causal-3D VAE decoder at HyVaeConfig(), random
+    float32 weights from a seed, on the first HY_DECODE_N latent frames of
+    the 540p loop's latent [1, 16, 33, 68, 120] (decode_video)."""
+    cfg = tm.HyVaeConfig()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 9)
+    params = tm.init_hunyuan_vae_decoder(gen, cfg, 'cuda')
+    secs = decode_video(torch, 'hunyuan VAE', lat, lambda z:
+                        tm.hunyuan_vae_decode(params, z, cfg), HY_DECODE_N,
+                        False)
+    del params
+    torch.cuda.empty_cache()
+    return secs
+
+
+def decode_wan(torch, tm, lat):
+    """The Wan2.1 VAE decoder at WanVaeConfig(), random float32 weights
+    from a seed, on the whole of the 480x832x81 loop's latent [1, 16, 21,
+    60, 104] (decode_video)."""
+    cfg = tm.WanVaeConfig()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 10)
+    params = tm.init_wan_vae_decoder(gen, cfg, 'cuda')
+    secs = decode_video(torch, 'wan VAE', lat, lambda z:
+                        tm.wan_vae_decode(params, z, cfg), lat.shape[2], True)
+    del params
+    torch.cuda.empty_cache()
+    return secs
+
+
+def agree_small_decoders(torch, tm):
+    """The plain versions of this slice on the card against the CPU, on
+    the same weights (drawn on the CPU from a seed, every leaf perturbed)
+    and inputs: a 2-layer T5 (dim 256, 4 heads) with a partial mask and a
+    2-layer CLIP (width 256) with EOT-valued padding, float32; the FLUX
+    autoencoder at ch 32, ch_mult (1, 2) on a 16x16 latent, and the two
+    video VAEs at the JAX tests' tiny configs on 4 latent frames, float32
+    under DECODE_SETTING, and Wan's 2-frame decode on the card against
+    the first 5 frames of its 4-frame decode.  Each mean relative
+    difference within its tolerance, some ten to fifty times the
+    readings on an H100: 1e-4 for the float32 encoders (2e-6 read), 5e-3
+    for the TF32 decoders (7e-4 to 1.1e-3 read), 1e-3 for the prefix
+    (9e-5 read; another cuDNN algorithm at the shorter length)."""
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 11)
+
+    def held(tag, ref, card, tol, what='card vs CPU'):
+        rel = ((card.cpu() - ref.cpu()).abs().mean()
+               / ref.cpu().abs().mean()).item()
+        print(f'{tag} small-input agreement ({what}): mean relative '
+              f'difference {rel:.3e} (tolerance {tol:.0e})', flush=True)
+        if not rel <= tol:
+            fail(f'{tag} small-input output differs ({what}): {rel}')
+
+    def both(tree, fn, *args):
+        """fn on the CPU and on the card, with ``tree`` (CPU) and
+        ``args`` moved there."""
+        return (fn(tree, *args),
+                fn(to_device(tree, 'cuda'),
+                   *(a.cuda() if hasattr(a, 'cuda') else a for a in args)))
+
+    t5 = tm.T5Config(vocab_size=512, dim=256, d_kv=64, dim_ffn=512,
+                     num_heads=4, num_layers=2)
+    tp = perturbed(torch, tm.init_t5_params(gen, t5, 'cpu'), gen)
+    ids = torch.randint(0, 512, (2, 64), generator=gen)
+    mask = (torch.arange(64)[None] < torch.tensor([[64], [21]])).long()
+    held('T5', *both(tp, lambda p, i, m: tm.t5_encode(p, i, m, t5), ids,
+                     mask), 1e-4)
+    clip = tm.ClipTextConfig(vocab_size=512, width=256, num_heads=4,
+                             num_layers=2)
+    cp = perturbed(torch, tm.init_clip_params(gen, clip, 'cpu'), gen)
+    cids = torch.randint(0, 511, (2, 77), generator=gen)
+    cids[0, 30:], cids[1, 9:] = 511, 511
+    (h0, p0), (h1, p1) = both(cp, lambda p, i: tm.clip_text_encode(p, i,
+                                                                   clip),
+                              cids)
+    held('CLIP hidden', h0, h1, 1e-4)
+    held('CLIP pooled', p0, p1, 1e-4)
+    with default_tf32(torch):
+        acfg = tm.AutoEncoderParams(ch=32, ch_mult=(1, 2))
+        ap = perturbed(torch, tm.init_decoder_params(gen, acfg, device='cpu'),
+                       gen)
+        z = torch.randn((1, 16, 16, 16), generator=gen)
+        held('FLUX autoencoder', *both(ap, lambda p, x: tm.decode(p, x, acfg),
+                                       z), 5e-3)
+        hcfg = tm.HyVaeConfig(block_out_channels=(8, 8, 16, 16),
+                              layers_per_block=1, latent_channels=4,
+                              norm_groups=4)
+        hp = perturbed(torch, tm.init_hunyuan_vae_decoder(gen, hcfg, 'cpu'),
+                       gen)
+        z = torch.randn((1, 4, 4, 8, 8), generator=gen)
+        held('hunyuan VAE', *both(hp, lambda p, x: tm.hunyuan_vae_decode(
+            p, x, hcfg), z), 5e-3)
+        wcfg = tm.WanVaeConfig(dim=8, z_dim=4, num_res_blocks=1)
+        wp = perturbed(torch, tm.init_wan_vae_decoder(gen, wcfg, 'cpu'), gen)
+        cpu, card = both(wp, lambda p, x: tm.wan_vae_decode(p, x, wcfg), z)
+        held('wan VAE', cpu, card, 5e-3)
+        pre = tm.wan_vae_decode(to_device(wp, 'cuda'), z[:, :, :2].cuda(),
+                                wcfg)
+        held('wan VAE 2-frame prefix', card[:, :, :5], pre, 1e-3,
+             'on the card, against the first 5 frames of the 4-frame '
+             'decode')
 
 
 def main():
@@ -2635,6 +3008,11 @@ def main():
     torch.cuda.empty_cache()
     stamp('FLUX loops')
 
+    # ---- prompt to pixels: one FLUX.1-dev generation at 1280x768 through
+    # the encoders, loop (a)'s weights and schedule, and the autoencoder
+    flux_generation(torch, tm, kern, ck, model, launches)
+    stamp('FLUX generation')
+
     # ---- the video path: HunyuanVideo 540p, configs/hunyuan-chipmunk.yml
     # unchanged (compressed indices, packed-only states as its offloading
     # block decides, top_keys 0.05, random_keys 0.01)
@@ -2644,8 +3022,11 @@ def main():
           f'{str(vck.attn.should_compress_indices).lower()}, '
           f'first_n_dense_layers={vck.attn.first_n_dense_layers}, mlp '
           f'{"on" if vck.mlp.is_enabled else "off"})', flush=True)
-    vlaunches, v_sparse_s, v_dense_s, _ = drive_video_path(torch, kern, tm,
-                                                           vck)
+    vlaunches, v_sparse_s, v_dense_s, _, vlat = drive_video_path(
+        torch, kern, tm, vck)
+    decode_hunyuan(torch, tm, vlat)
+    del vlat
+    stamp('HunyuanVideo VAE')
     agree_small_video(torch, tm, kern, vck)
     stamp('video path')
 
@@ -2662,11 +3043,16 @@ def main():
           flush=True)
     ctx = encode_wan_text(torch, tm)
     stamp('UMT5-XXL')
-    drive_wan_path(torch, kern, tm, wck, ctx)
+    wlat = drive_wan_path(torch, kern, tm, wck, ctx)[-1]
     del ctx
     stamp('Wan loops')
+    decode_wan(torch, tm, wlat)
+    del wlat
+    stamp('Wan VAE')
     agree_small_wan(torch, tm, kern, wck)
     stamp('Wan agreement')
+    agree_small_decoders(torch, tm)
+    stamp('encoder and decoder agreement')
 
     # ---- agreement on small inputs, each path
     small_ck = cfgmod.config_from_dict(

@@ -44,6 +44,17 @@ def get_schedule(num_steps: int, image_seq_len: int,
     return timesteps
 
 
+def unpack(x: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """Latent tokens [B, (h w), (c 2 2)] -> z [B, c, 2h, 2w] for an image
+    of height x width pixels (h = ceil(height / 16)): the reference's
+    ``sampling.unpack``, the reshape of examples/flux_generate.py:155-157."""
+    B, S, D = x.shape
+    h, w = math.ceil(height / 16), math.ceil(width / 16)
+    c = D // 4
+    return x.reshape(B, h, w, c, 2, 2).permute(0, 3, 1, 4, 2, 5).reshape(
+        B, c, 2 * h, 2 * w)
+
+
 @dataclass
 class FluxSampler:
     """Model config + sparsity context + the image's patch grid."""

@@ -9,10 +9,12 @@ float32's lowest value, and the gated tanh-GELU feed-forward
 computes it outside any kernel.  ``umt5_encode`` returns every row at the
 full length; the caller zeroes the context rows past each prompt's valid
 length (``ctx * mask``), as the reference's ``WanTextEncoder.embed`` does.
+``select_skip_layer_hidden`` is HunyuanVideo's output selection.
 
 Params: ``token_embedding`` [vocab, dim], ``blocks`` a list of per-layer
 dicts (linear weights [d_in, d_out]), ``norm``.  Not ported: the
-tokenizer wrapper ``WanTextEncoder`` and the HunyuanVideo encoders.
+tokenizer wrapper ``WanTextEncoder`` and the LLaVA wrapper
+``HunyuanTextEncoders``.
 """
 from __future__ import annotations
 
@@ -172,3 +174,13 @@ def load_umt5_torch(path: str, cfg: Optional[UMT5Config] = None,
             'fc2': lin(f'{p}.ffn.fc2.weight')})
     return {'token_embedding': a('token_embedding.weight'),
             'blocks': blocks, 'norm': a('norm.weight')}
+
+
+def select_skip_layer_hidden(hidden_states, skip_layer: int,
+                             crop_start: int = 0) -> torch.Tensor:
+    """HunyuanVideo's text-encoder output selection: the hidden states of
+    the layer ``skip_layer`` before the last (no final norm: the shipped
+    config leaves apply_final_norm off), without the first
+    ``crop_start`` rows (the instruction template)."""
+    h = hidden_states[-(skip_layer + 1)]
+    return h[:, crop_start:] if crop_start > 0 else h

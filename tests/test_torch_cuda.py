@@ -9,8 +9,10 @@ earlier block, counts ending inside a tile, clipped counts, NaN in unselected K/
 blocks, bm/bn of 256, bm 64 and 512, fp8 and bf16 caches in every sparse-MLP
 kernel, NaN in unselected MLP weight blocks, int8 weights holding all
 256 codes, a8 neuron blocks of 384 and 512, the packed-KV csp kernel,
-keys and query rows passed as sliced views).  The kernels
-have no CPU mode, so every test here skips without a GPU.  This file
+keys and query rows passed as sliced views); and the plain versions of
+the FLUX prompt encoders and the three VAE decoders on the card against
+the CPU, with a causal conv and a group norm beyond int32 indexing.  The
+kernels have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
 
@@ -29,6 +31,7 @@ import os
 import pytest
 import torch
 
+from chip_smoke import perturbed
 from chipmunk_torch.ops import fp8
 from chipmunk_torch.ops.attn_ref import PAD_LSE
 
@@ -1518,3 +1521,113 @@ def test_cuda_compiled_loop_matches_host_loop(gen, model, skip):
         assert torch.equal(outs[0], outs[1])
     rel = ((outs[1] - outs[0]).abs().mean() / outs[0].abs().mean()).item()
     assert rel <= 1e-2, rel
+
+
+@pytest.mark.cuda
+def test_cuda_flux_encoders_match_cpu(gen):
+    """A 2-layer T5-v1.1 (dim 256, 4 heads) with a partial mask and a
+    2-layer CLIP text model (width 256) with EOT-valued padding, float32,
+    perturbed weights: the card against the CPU to 1e-4 (float32 matmuls,
+    summed in another order)."""
+    import chipmunk_torch.models as tm
+    g = torch.Generator().manual_seed(0)
+    t5 = tm.T5Config(vocab_size=512, dim=256, d_kv=64, dim_ffn=512,
+                     num_heads=4, num_layers=2)
+    tp = perturbed(torch, tm.init_t5_params(g, t5, 'cpu'), g)
+    ids = torch.randint(0, 512, (2, 64), generator=g)
+    mask = (torch.arange(64)[None] < torch.tensor([[64], [21]])).long()
+    ref = tm.t5_encode(tp, ids, mask, t5)
+    got = tm.t5_encode(_to_cuda(tp), ids.cuda(), mask.cuda(), t5)
+    torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+    clip = tm.ClipTextConfig(vocab_size=512, width=256, num_heads=4,
+                             num_layers=2)
+    cp = perturbed(torch, tm.init_clip_params(g, clip, 'cpu'), g)
+    cids = torch.randint(0, 511, (2, 77), generator=g)
+    cids[0, 30:], cids[1, 9:] = 511, 511
+    ref = tm.clip_text_encode(cp, cids, clip)
+    got = tm.clip_text_encode(_to_cuda(cp), cids.cuda(), clip)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('which', ['flux_ae', 'hunyuan', 'wan'])
+def test_cuda_decoders_match_cpu(gen, which):
+    """The FLUX autoencoder (ch 32, ch_mult (1, 2), 16x16 latent) and the
+    two video VAEs at the JAX tests' tiny configs on 4 latent frames,
+    float32 with TF32 off, perturbed weights: the card against the CPU to
+    1e-4; Wan's 2-frame decode on the card equals the first 5 frames of
+    its 4-frame decode to 1e-5."""
+    import chipmunk_torch.models as tm
+    g = torch.Generator().manual_seed(1)
+    if which == 'flux_ae':
+        cfg = tm.AutoEncoderParams(ch=32, ch_mult=(1, 2))
+        p = tm.init_decoder_params(g, cfg, device='cpu')
+        z = torch.randn((1, 16, 16, 16), generator=g)
+        fn = tm.decode
+    elif which == 'hunyuan':
+        cfg = tm.HyVaeConfig(block_out_channels=(8, 8, 16, 16),
+                             layers_per_block=1, latent_channels=4,
+                             norm_groups=4)
+        p = tm.init_hunyuan_vae_decoder(g, cfg, 'cpu')
+        z = torch.randn((1, 4, 4, 8, 8), generator=g)
+        fn = tm.hunyuan_vae_decode
+    else:
+        cfg = tm.WanVaeConfig(dim=8, z_dim=4, num_res_blocks=1)
+        p = tm.init_wan_vae_decoder(g, cfg, 'cpu')
+        z = torch.randn((1, 4, 4, 8, 8), generator=g)
+        fn = tm.wan_vae_decode
+    p = perturbed(torch, p, g)
+    ref = fn(p, z, cfg)
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        pc = _to_cuda(p)
+        got = fn(pc, z.cuda(), cfg)
+        torch.testing.assert_close(got.cpu(), ref, atol=1e-4, rtol=1e-4)
+        if which == 'wan':
+            pre = fn(pc, z[:, :, :2].cuda(), cfg)
+            torch.testing.assert_close(pre, got[:, :, :5], atol=1e-5,
+                                       rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_cuda_causal_conv3d_beyond_int32_indexing(gen):
+    """A causal conv over an input of more than 2^31 elements with batch 1
+    ([1, 64, 86, 480, 832], Wan's last-stage geometry): the port splits
+    the time axis into pieces, each with its own halo; every output frame
+    checked here equals one F.conv3d over that frame's three input frames
+    (zero frames before the first), to 1e-4 with TF32 off."""
+    import torch.nn.functional as F
+    from chipmunk_torch.models import video_vae as tvv
+    x = torch.randn((1, 64, 86, 480, 832), generator=gen, device='cuda')
+    assert x.numel() > 2 ** 31
+    w = torch.randn((64, 64, 3, 3, 3), generator=gen, device='cuda') \
+        * (64 * 27) ** -0.5
+    b = torch.randn(64, generator=gen, device='cuda')
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        y = tvv.causal_conv3d(x, w, b, 'constant')
+        assert y.shape == x.shape
+        for t in (0, 1, 2, 43, 85):
+            xs = F.pad(x[:, :, max(0, t - 2):t + 1],
+                       (1, 1, 1, 1, max(0, 2 - t), 0))
+            torch.testing.assert_close(y[:, :, t:t + 1], F.conv3d(xs, w, b),
+                                       atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_group_norm_beyond_int32_indexing(gen):
+    """HunyuanVideo's group norm over [1, 128, 33, 544, 960] (2.2e9
+    elements, its last stage at 33 output frames): the first and last
+    group against float64 statistics, to 1e-4."""
+    from chipmunk_torch.models import video_vae as tvv
+    x = torch.randn((1, 128, 33, 544, 960), generator=gen, device='cuda')
+    assert x.numel() > 2 ** 31
+    x[:, :4] = x[:, :4] * 3 + 1
+    gamma = torch.rand(128, generator=gen, device='cuda') + 0.5
+    beta = torch.randn(128, generator=gen, device='cuda')
+    y = tvv.group_norm(x, gamma, beta, 32)
+    for c0 in (0, 124):
+        xs = x[:, c0:c0 + 4].double()
+        ref = (xs - xs.mean()) / torch.sqrt(xs.var(unbiased=False) + 1e-6)
+        ref = ref * gamma[c0:c0 + 4, None, None, None].double() \
+            + beta[c0:c0 + 4, None, None, None].double()
+        assert (y[:, c0:c0 + 4].double() - ref).abs().max().item() < 1e-4

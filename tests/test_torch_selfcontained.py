@@ -51,6 +51,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     assert 'chipmunk_torch.models.wan' in MODULES
     assert 'chipmunk_torch.models.video_encoders' in MODULES
     assert 'chipmunk_torch.models.step_graphs' in MODULES
+    for m in ('flux_encoders', 'encoders', 'autoencoder', 'video_vae',
+              'loaders'):
+        assert f'chipmunk_torch.models.{m}' in MODULES
 
 
 def test_no_jax_or_reference_imports_in_sources():
