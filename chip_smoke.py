@@ -58,13 +58,25 @@
    all 24: the mask of all heads does not fit the card); then
    the main path ``hunyuan_denoise`` over the 50-step
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
-   the full-width model cut to 2 double + 4 single blocks, random bf16
+   the full-width model cut to 1 double + 2 single blocks, random bf16
    weights from a seed, with its launch counts, a trace of a window of
    sparse steps, its dense loop and its compiled sparse loop
-   (``hunyuan_denoise_compiled``, launches VIDEO_LAUNCHES too); and a
-   small full-width video model on the card (csp mode 'auto' and 'hbm')
-   against the plain versions on the CPU, and its compiled loop against
-   its host loop with random keeps on.
+   (``hunyuan_denoise_compiled``, launches VIDEO_LAUNCHES too) and its
+   streamed loop (``hunyuan_denoise(..., streamed=model.make_streamed(1,
+   2))``: the config's offloading, attention caches in pinned host
+   memory, one layer a chunk, every chunk streamed; equal to the host
+   loop bit for bit,
+   launches VIDEO_LAUNCHES; seconds, GB moved each way by step kind,
+   device peak, pinned GiB); a small full-width video model on the card
+   (csp mode 'auto' and 'hbm') against the plain versions on the CPU,
+   and its compiled loop against its host loop with random keeps on;
+   then HunyuanVideo as ``HunyuanModelConfig()`` stands (720x1280x129
+   frames, 119,168 tokens, 20 + 40 blocks), random bf16 weights from a
+   seed, the config as read, streamed one layer a chunk for the first
+   STEPS_720 steps of its plan (the cut): output finite, launches the
+   plan's count (``plan_launches``); the host's memory, the host link
+   (``link_probe``), each step's seconds and bytes, the device peak,
+   the pinned GiB and a labelled projection of the 50-step loop.
 5. The Wan2.1 slice: ``dense_attn`` (self-attention over the keys cut at
    32,760, the 128-row dense tail, and the cross-attention of 32,768
    queries over 512 text keys), ``dense_colsum_attn`` and ``csp_attn``
@@ -156,17 +168,28 @@ B, H, S, D = 1, 24, 4352, 128          # FLUX.1-dev at 1280x768
 H_IMG, W_IMG = 48, 80                  # latent patch grid: 3840 img tokens
 T_SINGLE, C, N = 4608, 3072, 12288     # single-block MLP tokens (padded to bm)
 # HunyuanVideo: latent (t, h, w) of 544x960 and 720x1280 at 129 frames,
-# depth cut to 2 double + 4 single blocks (scripts/bench_hunyuan.py)
+# depth cut to 1 double + 2 single blocks (scripts/bench_hunyuan.py cuts
+# to 2 + 4; 1 + 2 since the 720p full-depth phase took the room: the
+# whole script ran 1112 s of its 1200 s at 2 + 4 on an H100 80GB HBM3
+# host)
 V540 = dict(latent_t=33, latent_h=68, latent_w=120)
 V720 = dict(latent_t=33, latent_h=90, latent_w=160)
-V_DEPTH = dict(depth_double=2, depth_single=4)
+V_DEPTH = dict(depth_double=1, depth_single=2)
+# HunyuanModelConfig() as it stands: 720x1280x129 frames, 20 + 40 blocks,
+# streamed; the cut is the number of steps (the first STEPS_720 of 50:
+# step 0 full, step 1 colsum, steps 2-3 sparse).  720p, not 544x960: the
+# H100 host read MemTotal 101.00 GiB, MemAvailable 96.56 GiB, and 53.69
+# GiB stayed available with the 41.06 GiB of caches page-locked
+V_FULL = {}
+STEPS_720 = 4
 LIB_HEADS = 4     # heads of the 540p scaled_dot_product_attention yardstick
 VIDEO_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn_hbm')
-# the schedule's count: 25 computed steps; step 0 runs 6 dense layers;
-# steps 1, 10, 40 run 2 dense + 4 colsum (+ 4 csp); the 21 sparse steps
-# run 2 dense layers, 4 csp and 4 dense tails
-VIDEO_LAUNCHES = {'dense_attn': 138, 'dense_colsum_attn': 12,
-                  'csp_attn_hbm': 96}
+# the schedule's count (plan_launches): 25 computed steps; step 0 runs 3
+# dense layers; steps 1, 10, 40 run 2 dense (first_n_dense_layers) + 1
+# colsum (+ 1 csp); the 21 sparse steps run 2 dense layers, 1 csp and 1
+# dense tail
+VIDEO_LAUNCHES = {'dense_attn': 72, 'dense_colsum_attn': 3,
+                  'csp_attn_hbm': 24}
 # Wan2.1-T2V-1.3B at 480x832x81 frames: latent (21, 60, 104), 32,760
 # tokens padded to 32,768, 12 heads, 30 layers (scripts/bench_wan.py)
 WAN_LATENT = dict(latent_t=21, latent_h=60, latent_w=104)
@@ -1948,11 +1971,12 @@ def agree_compiled_small(torch, tm, kern, ck, model, tag, params_cpu=None):
 
 
 def run_video(torch, tm, model, params, inputs, steps=None, callback=None,
-              compiled=False):
+              compiled=False, streamed=None):
     """One hunyuan_denoise (``compiled``: hunyuan_denoise_compiled, no
-    callback) over the config's schedule (unshifted, as the reference's
-    video bench), the first ``steps`` steps only if given, guidance 6.0,
-    random keeps from a seeded generator on the model's device.  Returns
+    callback; ``streamed``: (runner, state) of ``model.make_streamed``)
+    over the config's schedule (unshifted, as the reference's video
+    bench), the first ``steps`` steps only if given, guidance 6.0, random
+    keeps from a seeded generator on the model's device.  Returns
     (latent, seconds)."""
     dev = model.device
     ts = tm.get_schedule(model.ck.steps, model.cfg.img_len, shift=False)
@@ -1968,7 +1992,8 @@ def run_video(torch, tm, model, params, inputs, steps=None, callback=None,
                                           guidance=6.0, generator=gen)
     else:
         out = tm.hunyuan_denoise(model, params, *inputs, ts, guidance=6.0,
-                                 generator=gen, callback=callback)
+                                 generator=gen, callback=callback,
+                                 streamed=streamed)
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
@@ -1995,7 +2020,7 @@ def dense_config(ck):
 
 def drive_video_path(torch, kern, tm, ck):
     """The video main path: hunyuan_denoise at 544x960x129 frames (67,584
-    tokens), full width, 2 double + 4 single blocks, random bf16 weights
+    tokens), full width, 1 double + 2 single blocks, random bf16 weights
     from a seed, the shipped config unchanged: launch counts set to 0 just
     before and read just after (each must equal the schedule's count,
     VIDEO_LAUNCHES, and no other kernel may run), output finite and of
@@ -2033,6 +2058,9 @@ def drive_video_path(torch, kern, tm, ck):
     missing = [k for k in VIDEO_PATH if launches[k] == 0]
     if missing:
         fail(f'video: kernels not launched on the main path: {missing}')
+    if plan_launches(model) != VIDEO_LAUNCHES:
+        fail(f'video: the plan\'s count {plan_launches(model)} is not '
+             f'VIDEO_LAUNCHES')
     wrong = {k: n for k, n in launches.items()
              if n != VIDEO_LAUNCHES.get(k, 0)}
     if wrong:
@@ -2049,9 +2077,10 @@ def drive_video_path(torch, kern, tm, ck):
     out_d, dense_s = run_video(torch, tm, dmodel, params, inputs)
     if not bool(torch.isfinite(out_d).all()):
         fail('video: non-finite values in the dense loop output')
-    if kern.LAUNCHES['dense_attn'] != 6 * ck.steps:
+    depth = cfg.depth_double + cfg.depth_single
+    if kern.LAUNCHES['dense_attn'] != depth * ck.steps:
         fail(f'video dense loop: {kern.LAUNCHES["dense_attn"]} dense_attn '
-             f'launches, expected {6 * ck.steps}')
+             f'launches, expected {depth * ck.steps}')
     print(f'video dense loop: {ck.steps} steps, {dense_s:.3f} s; sparse '
           f'{sparse_s:.3f} s; sparse speedup {dense_s / sparse_s:.3f}x',
           flush=True)
@@ -2063,9 +2092,254 @@ def drive_video_path(torch, kern, tm, ck):
         out, launches, sparse_s)
     print(f'video compiled sparse loop: host dense loop / compiled sparse '
           f'loop {dense_s / c_s:.3f}x', flush=True)
+    torch.cuda.empty_cache()
+    streamed_video_loop(torch, kern, tm, model, params, inputs, out,
+                        sparse_s)
     del params
     torch.cuda.empty_cache()
     return launches, sparse_s, dense_s, c_s, out
+
+
+def plan_launches(model, steps=None):
+    """Each video kernel's launches over the computed steps of the model's
+    plan (its first ``steps`` only if given), from the layers' roles: a
+    dense layer runs dense_attn every step; a sparse layer dense_attn on
+    step 0, dense_colsum_attn + csp on a colsum step, dense_attn + csp on
+    a plain full step, csp (+ dense_attn on the dense tail) on a sparse
+    step; a skipped step runs nothing."""
+    from chipmunk_torch.schedule import step_plan
+    sp = model.sp
+    n = model.cfg.depth_double + model.cfg.depth_single
+    dense = sp.n_dense_attn_double + sp.n_dense_attn_single
+    tail = sp.attn_s.dense_tail_g is not None
+    c = dict.fromkeys(VIDEO_PATH, 0)
+    computed = False
+    for i, kind in enumerate(step_plan(model.ck)[:steps]):
+        if kind.skip and computed:
+            continue
+        computed, k = True, n - dense
+        c['dense_attn'] += dense
+        if i == 0:
+            c['dense_attn'] += k
+        elif kind.full_attn:
+            c['dense_colsum_attn' if kind.colsum else 'dense_attn'] += k
+            c['csp_attn_hbm'] += k
+        else:
+            c['csp_attn_hbm'] += k
+            c['dense_attn'] += k if tail else 0
+    return c
+
+
+def step_label(kind, i, skipped):
+    return ('skipped' if skipped else 'first' if i == 0 else 'colsum'
+            if kind.colsum else 'full' if kind.full_attn else 'sparse')
+
+
+def copy_marks(torch, recs, sync_at=()):
+    """A denoise callback that records, after each step, the step's label
+    inputs and the bytes the offload copies issued each way during it (and
+    the host clock, synchronised, after the steps in ``sync_at``, or after
+    every step if ``sync_at`` is None)."""
+    from chipmunk_torch.utils import offload
+    offload.reset_copy_stats()
+
+    def step_done(i, skipped):
+        if sync_at is None or i in sync_at:
+            torch.cuda.synchronize()
+        recs.append((i, skipped, time.perf_counter(),
+                     offload.COPY_STATS['h2d_bytes'],
+                     offload.COPY_STATS['d2h_bytes']))
+        offload.reset_copy_stats()
+    return step_done
+
+
+def bytes_by_kind(ck, recs):
+    """Mean GB moved H2D and D2H a step, by step kind."""
+    from chipmunk_torch.schedule import step_plan
+    plan, by = step_plan(ck), {}
+    for i, skipped, _, h2d, d2h in recs:
+        by.setdefault(step_label(plan[i], i, skipped), []).append((h2d, d2h))
+    return {k: (sum(h for h, _ in v) / len(v) / 1e9,
+                sum(d for _, d in v) / len(v) / 1e9, len(v))
+            for k, v in by.items()}
+
+
+def streamed_video_loop(torch, kern, tm, model, params, inputs, ref, ref_s):
+    """The 540p loop of drive_video_path streamed: the same weights,
+    inputs and keep seed, the config's offloading (attention out_cache
+    and packed indices in pinned host memory), one layer a chunk, every
+    chunk streamed (no resident chunk: each layer's caches cross the link
+    every step), launch counts set to 0 just before and read just after:
+    the latent must equal the resident loop's (``ref``) bit for bit, with
+    VIDEO_LAUNCHES.  Prints its seconds beside the resident loop's, the
+    GB moved each way a step by step kind, the device peak and the pinned
+    GiB."""
+    t0 = time.perf_counter()
+    runner, sst = model.make_streamed(model.cfg.depth_double,
+                                      model.cfg.depth_single)
+    streamed = (dataclasses.replace(runner, resident_chunks=0), sst)
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    out, secs = run_video(torch, tm, model, params, inputs,
+                          callback=copy_marks(torch, recs, (1, 9)),
+                          streamed=streamed)
+    launches = dict(kern.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    print(json.dumps({'path': 'video streamed', 'launches': launches}),
+          flush=True)
+    kinds = bytes_by_kind(model.ck, recs)
+    print(f'video streamed loop (540p, one layer a chunk): {secs:.3f} s, '
+          f'resident loop {ref_s:.3f} s ({secs / ref_s:.4f}x); pinned '
+          f'{streamed[1].host_bytes() / 2 ** 30:.3f} GiB (state built and '
+          f'page-locked in {pin_s:.2f} s); peak {peak[0]:.2f} GiB '
+          f'allocated, {peak[1]:.2f} reserved; GB a step H2D / D2H: '
+          + '; '.join(f'{k} {h:.4f} / {d:.4f} (x{n})'
+                      for k, (h, d, n) in kinds.items()), flush=True)
+    if launches != {k: VIDEO_LAUNCHES.get(k, 0) for k in launches}:
+        fail(f'video streamed loop: launches {launches} differ from '
+             f'{VIDEO_LAUNCHES}')
+    if not torch.equal(out, ref):
+        fail(f'video streamed loop differs from the resident loop: max '
+             f'abs {(out - ref).abs().max().item()}')
+    print('video streamed loop: latent equal to the resident loop\'s bit '
+          'for bit', flush=True)
+    del streamed, out
+    torch.cuda.empty_cache()
+
+
+def meminfo():
+    """MemTotal and MemAvailable of the host in GiB."""
+    got = {}
+    with open('/proc/meminfo') as f:
+        for line in f:
+            k, v = line.split(':')
+            if k in ('MemTotal', 'MemAvailable'):
+                got[k] = int(v.split()[0]) * 1024 / 2 ** 30
+    return got
+
+
+def link_probe(torch, nbytes=2 ** 30):
+    """The host link: one page-locked 1 GiB buffer (offload.HostSlab)
+    copied to and from the card, 3 times each way, timed with CUDA
+    events; and what PyTorch's own pinned allocator reserves for one
+    request of the 720p out_cache's size.  Returns (H2D GB/s, D2H GB/s),
+    the best of 3."""
+    from chipmunk_torch.utils import offload
+    host = offload.HostSlab(nbytes, torch.device('cuda')).take(
+        (nbytes,), torch.uint8)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device='cuda')
+    rates = {}
+    for name, dst, src in (('H2D', dev, host), ('D2H', host, dev)):
+        best = math.inf
+        for _ in range(3):
+            a, b = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            a.record()
+            dst.copy_(src, non_blocking=True)
+            b.record()
+            b.synchronize()
+            best = min(best, a.elapsed_time(b) / 1e3)
+        rates[name] = nbytes / best / 1e9
+    del host, dev
+    req = 24 * 119168 * 128 * 2            # one 720p bf16 out_cache
+    msg = 'PyTorch pinned allocator: not probed (no host_memory_stats)'
+    if hasattr(torch.cuda, 'host_memory_stats'):
+        before = torch.cuda.host_memory_stats()
+        t = torch.empty(req, dtype=torch.uint8, pin_memory=True)
+        after = torch.cuda.host_memory_stats()
+        grown = {k: after[k] - before.get(k, 0) for k in after
+                 if 'bytes' in k and k.endswith('current')
+                 and after[k] != before.get(k, 0)}
+        msg = (f'PyTorch pinned allocator: {req} bytes requested, counters '
+               f'grown {grown}')
+        del t
+    print(f'host link (page-locked 1 GiB, best of 3): H2D '
+          f'{rates["H2D"]:.2f} GB/s, D2H {rates["D2H"]:.2f} GB/s; {msg}',
+          flush=True)
+    return rates['H2D'], rates['D2H']
+
+
+def drive_streamed_720p(torch, kern, tm, ck):
+    """HunyuanVideo as ``HunyuanModelConfig()`` stands (720x1280x129
+    frames: 118,800 image + 256 text + 112 pad = 119,168 tokens; 20 + 40
+    blocks, width 3072, 24 heads, bf16), random weights from a seed,
+    inputs as video_inputs draws them, the shipped config as read,
+    streamed with one layer a chunk: its attention caches (44 GB) in
+    pinned host memory.  The cut: the first STEPS_720 steps of its
+    50-step plan.  Gates: output finite and of its shape, launches equal
+    to the plan's count for those steps kernel by kernel.  Prints the
+    host's memory, the link, each step's seconds, kind and GB moved each
+    way, the device peak, the pinned GiB, and a projection of the 50-step
+    loop from the step times."""
+    from chipmunk_torch.schedule import step_plan
+    torch.cuda.empty_cache()
+    mem = meminfo()
+    print(f'host memory: MemTotal {mem["MemTotal"]:.2f} GiB, MemAvailable '
+          f'{mem["MemAvailable"]:.2f} GiB', flush=True)
+    link = link_probe(torch)
+    cfg = tm.HunyuanModelConfig(**V_FULL)
+    t0 = time.perf_counter()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED)
+    params = tm.init_hunyuan_params(gen, cfg, 'cuda')
+    inputs = video_inputs(torch, cfg, 'cuda')
+    model = tm.HunyuanModel(cfg=cfg, ck=ck)
+    torch.cuda.synchronize()
+    w_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    runner, sst = model.make_streamed(cfg.depth_double, cfg.depth_single)
+    torch.cuda.synchronize()
+    pin_s = time.perf_counter() - t0
+    expect = plan_launches(model, STEPS_720)
+    print(f'video 720p full depth: latent {tuple(inputs[0].shape)}, '
+          f'{cfg.img_len} image + {cfg.txt_len} text + {cfg.seq_pad} pad = '
+          f'{model.seq_padded} tokens, depth {cfg.depth_double}+'
+          f'{cfg.depth_single}, jmax {model.sp.attn_s.jmax}; weights '
+          f'{sum(x.numel() * x.element_size() for x in tensors(params)) / 1e9:.2f}'
+          f' GB drawn in {w_s:.1f} s; streamed state {sst.host_bytes() / 2 ** 30:.2f}'
+          f' GiB pinned, built in {pin_s:.1f} s; host MemAvailable now '
+          f'{meminfo()["MemAvailable"]:.2f} GiB; expected launches {expect}',
+          flush=True)
+    recs = []
+    torch.cuda.reset_peak_memory_stats()
+    kern.reset_launches()
+    t_start = time.perf_counter()
+    out, secs = run_video(torch, tm, model, params, inputs, steps=STEPS_720,
+                          callback=copy_marks(torch, recs, None),
+                          streamed=(runner, sst))
+    launches = dict(kern.LAUNCHES)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 30,
+            torch.cuda.max_memory_reserved() / 2 ** 30)
+    print(json.dumps({'path': 'video 720p streamed', 'launches': launches}),
+          flush=True)
+    plan, prev, times = step_plan(ck), t_start, {}
+    for i, skipped, t, h2d, d2h in recs:
+        label = step_label(plan[i], i, skipped)
+        times[i] = (label, t - prev)
+        print(f'video 720p step {i} ({label}): {t - prev:.3f} s, H2D '
+              f'{h2d / 1e9:.3f} GB, D2H {d2h / 1e9:.3f} GB', flush=True)
+        prev = t
+    sparse = [s for lb, s in times.values() if lb == 'sparse']
+    proj = times[0][1] + 3 * times[1][1] + 21 * sum(sparse) / len(sparse)
+    print(f'video 720p full depth streamed: {STEPS_720} steps {secs:.3f} '
+          f's; peak {peak[0]:.2f} GiB allocated, {peak[1]:.2f} reserved; '
+          f'pinned {sst.host_bytes() / 2 ** 30:.2f} GiB; link H2D '
+          f'{link[0]:.2f} / D2H {link[1]:.2f} GB/s; PROJECTION (not a '
+          f'measurement) of the 50-step loop: step 0 + 3 x step 1 + 21 x '
+          f'the mean sparse step = {proj:.1f} s (25 steps skipped)',
+          flush=True)
+    if out.shape != inputs[0].shape:
+        fail(f'video 720p: output shape {tuple(out.shape)}')
+    if not bool(torch.isfinite(out).all()):
+        fail('video 720p: non-finite values in the streamed output')
+    if launches != {k: expect.get(k, 0) for k in launches}:
+        fail(f'video 720p: launches {launches} differ from the plan\'s '
+             f'count {expect}')
+    del params, runner, sst, out, inputs
+    torch.cuda.empty_cache()
 
 
 def agree_small_video(torch, tm, kern, ck):
@@ -3029,6 +3303,8 @@ def main():
     stamp('HunyuanVideo VAE')
     agree_small_video(torch, tm, kern, vck)
     stamp('video path')
+    drive_streamed_720p(torch, kern, tm, vck)
+    stamp('HunyuanVideo 720p streamed')
 
     # ---- the Wan path: Wan2.1-T2V-1.3B at 480x832x81 frames, full width
     # and depth, configs/wan-chipmunk.yml as read (attention only, the MLP

@@ -10,6 +10,7 @@ from .flux_encoders import (ClipTextConfig, T5Config, clip_text_encode,
                             t5_encode)
 from .loaders import load_ae_decoder_safetensors
 from .sampling import FluxSampler, get_schedule, unpack
+from .streamed import StreamedFluxRunner, StreamedFluxState
 from .video_encoders import (UMT5Config, init_umt5_params, load_umt5_torch,
                              select_skip_layer_hidden, umt5_encode)
 from .video_vae import (HyVaeConfig, WanVaeConfig, hunyuan_vae_decode,
@@ -24,7 +25,8 @@ from .wan import (WanModel, WanModelConfig, WanState, init_wan_params)
 
 __all__ = ['FluxModelConfig', 'init_flux_params', 'params_from_jax',
            'flux_forward', 'FluxSparse', 'FluxState', 'FluxStep',
-           'FluxSampler', 'get_schedule', 'HunyuanModelConfig',
+           'FluxSampler', 'get_schedule', 'StreamedFluxRunner',
+           'StreamedFluxState', 'HunyuanModelConfig',
            'HunyuanModel', 'init_hunyuan_params', 'text_refiner',
            'hunyuan_denoise', 'hunyuan_denoise_compiled', 'WanModelConfig',
            'WanModel', 'WanState', 'init_wan_params', 'wan_denoise',

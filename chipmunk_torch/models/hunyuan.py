@@ -8,10 +8,11 @@ linear), 3-axis RoPE over the (t, h, w) latent grid, the voxel token order
 (each 128-token query group is a 4x4x8 voxel), the static local-attention
 mask with its text tail, the text token refiner, and the pad that makes
 the joint sequence a multiple of 128 (pad keys are excluded through
-``SparseDiffAttn.valid_len``).
+``SparseDiffAttn.valid_len``), and the streamed forward over host-
+offloaded caches (``make_streamed``, ``forward_streamed``) that the
+config's ``offloading`` block selects.
 
-Not ported yet: ``sharded`` (Ulysses), ``make_streamed`` and
-``forward_streamed`` (host offload).
+Not ported yet: ``sharded`` (Ulysses).
 """
 from __future__ import annotations
 
@@ -33,6 +34,7 @@ from .flux import (FluxModelConfig, FluxSparse, FluxState, FluxStep,
                    flux_forward, init_flux_params)
 from .layers import (build_rope, layernorm, linear, mlp_embedder,
                      timestep_embedding)
+from .streamed import StreamedFluxRunner, StreamedFluxState
 
 
 @dataclass(frozen=True)
@@ -279,18 +281,71 @@ class HunyuanModel(VideoTokens):
         prediction [B, C, T, H, W], new state)."""
         cfg = self.cfg
         B = latents.shape[0]
-        img = self.patchify_video(latents)
-        t_emb = timestep_embedding(t_vec, 256).to(cfg.dtype)
-        txt_ref = text_refiner(params['refiner'], txt.to(cfg.dtype), t_emb,
-                               cfg.num_heads, txt_mask=txt_mask)
+        img, txt_ref = self.prep_tokens(params, latents, txt, t_vec, txt_mask)
         pe = pe if pe is not None else self.rope(B)
-        if cfg.seq_pad:
-            txt_ref = torch.cat([txt_ref, txt_ref.new_zeros(
-                (B, cfg.seq_pad, txt_ref.shape[-1]))], 1)
         pred, state = flux_forward(params, cfg.core(), self.sp, img, txt_ref,
                                    t_vec, y, pe, state, step,
                                    guidance=guidance, generator=generator)
         return self.unpatchify_video(pred[:, :cfg.img_len], B), state
+
+    def prep_tokens(self, params: Dict, latents: torch.Tensor,
+                    txt: torch.Tensor, t_vec: torch.Tensor,
+                    txt_mask: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The front of ``forward`` that both forwards share: the patch
+        tokens and the refined text padded to the sequence's multiple of
+        128."""
+        cfg = self.cfg
+        B = latents.shape[0]
+        img = self.patchify_video(latents)
+        t_emb = timestep_embedding(t_vec, 256).to(cfg.dtype)
+        txt_ref = text_refiner(params['refiner'], txt.to(cfg.dtype), t_emb,
+                               cfg.num_heads, txt_mask=txt_mask)
+        if cfg.seq_pad:
+            txt_ref = torch.cat([txt_ref, txt_ref.new_zeros(
+                (B, cfg.seq_pad, txt_ref.shape[-1]))], 1)
+        return img, txt_ref
+
+    # ------------------------------------------------ streamed (offload)
+    def make_streamed(self, n_chunks_double: int = 2,
+                      n_chunks_single: int = 4, B: int = 1
+                      ) -> Tuple[StreamedFluxRunner, StreamedFluxState]:
+        """The host-offloaded runner and its state as the config's
+        ``offloading`` block asks (the shipped config: attention out_cache
+        and indices in host memory), for ``hunyuan_denoise(...,
+        streamed=...)``.  Each chunk count is cut to the largest divisor
+        of its depth that is at most the count asked for."""
+        def fit(n, depth):
+            n = max(1, min(n, depth))
+            while depth % n:
+                n -= 1
+            return n
+
+        n_chunks_double = fit(n_chunks_double, self.cfg.depth_double)
+        n_chunks_single = fit(n_chunks_single, self.cfg.depth_single)
+        core = self.cfg.core()
+        runner = StreamedFluxRunner(cfg=core, sp=self.sp)
+        sst = StreamedFluxState.create_hostwise(
+            self.sp, core, B, n_chunks_double, n_chunks_single,
+            OffloadPolicy.from_config(self.ck.offloading), self.device)
+        return runner, sst
+
+    def forward_streamed(self, params: Dict, latents: torch.Tensor,
+                         txt: torch.Tensor, t_vec: torch.Tensor,
+                         y: torch.Tensor, runner: StreamedFluxRunner,
+                         sst: StreamedFluxState, step: FluxStep,
+                         guidance: Optional[torch.Tensor] = None,
+                         generator: Optional[torch.Generator] = None,
+                         pe=None, txt_mask: Optional[torch.Tensor] = None
+                         ) -> torch.Tensor:
+        """``forward`` with the caches in ``sst`` (mutated in place),
+        streamed chunk by chunk; returns the velocity prediction only."""
+        B = latents.shape[0]
+        img, txt_ref = self.prep_tokens(params, latents, txt, t_vec, txt_mask)
+        pe = pe if pe is not None else self.rope(B)
+        pred = runner.forward(params, sst, img, txt_ref, t_vec, y, pe, step,
+                              guidance=guidance, generator=generator)
+        return self.unpatchify_video(pred[:, :self.cfg.img_len], B)
 
     def init_state(self, B: int) -> FluxState:
         return self.sp.init_state(self.cfg.core(), B, self.device)

@@ -6,7 +6,9 @@ The latent is patch-reordered and RoPE built once, then the Euler loop
 runs over the timesteps; on a skipped (step-cached) step the model is not
 invoked and the previous prediction is reused.  The compiled loop folds
 the skipped steps into the computed ones and replays one CUDA graph per
-step kind (``step_graphs``).
+step kind (``step_graphs``); the streamed loop keeps the caches in host
+memory between steps and runs the layers chunk by chunk
+(``models/streamed.py``).
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from ..config import ChipmunkConfig
 from ..device import DeviceLike, resolve_device
 from ..ops.patch import inverse_patch_order, patch_order
 from ..schedule import step_plan
+from ..utils.offload import OffloadPolicy
 from .flux import (FluxModelConfig, FluxSparse, FluxStep, flux_forward,
                    flux_rope_ids)
 from .layers import build_rope
 from .step_graphs import carry_state, compiled_euler, draws_keeps
+from .streamed import StreamedFluxRunner, StreamedFluxState
 
 
 def flux_time_shift(mu: float, sigma: float, t: torch.Tensor) -> torch.Tensor:
@@ -95,6 +99,42 @@ class FluxSampler:
     def unpatchify_img(self, img: torch.Tensor) -> torch.Tensor:
         return img[:, self._order(True)] if self.use_patchify else img
 
+    def _inputs(self, img, txt, y, guidance, generator):
+        """The loops' common inputs on the sampler's device: the latent
+        patch-reordered in float32, txt, y, RoPE, the guidance vector and
+        the generator (seed 0 if None)."""
+        dev = self.device
+        B = img.shape[0]
+        g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
+            if self.cfg.guidance_embed else None
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        return (self.patchify_img(img.to(dev)).float(), txt.to(dev),
+                y.to(dev), self.rope(B), g, generator)
+
+    def _euler(self, img, timesteps, callback, predict) -> torch.Tensor:
+        """Euler over the step plan: ``predict(img, t_vec, step)`` on each
+        computed step, the previous prediction reused on a skipped one."""
+        B = img.shape[0]
+        plan = step_plan(self.ck)
+        ts = torch.as_tensor(timesteps, dtype=torch.float32).tolist()
+        pred = None
+        for i in range(min(len(plan), len(ts) - 1)):
+            kind = plan[i]
+            dt = ts[i + 1] - ts[i]
+            if kind.skip and pred is not None:
+                img = img + dt * pred
+                if callback:
+                    callback(i, skipped=True)
+                continue
+            t_vec = torch.full((B,), ts[i], dtype=torch.float32,
+                               device=self.device)
+            pred = predict(img, t_vec, FluxStep.of(kind, i))
+            img = img + dt * pred.float()
+            if callback:
+                callback(i, skipped=False)
+        return self.unpatchify_img(img)
+
     def denoise(self, params: Dict, img: torch.Tensor, txt: torch.Tensor,
                 y: torch.Tensor,
                 timesteps: Union[torch.Tensor, Sequence[float]],
@@ -106,37 +146,54 @@ class FluxSampler:
         device; seed 0 if None) draws the random keeps.  The latent is
         carried in float32.  Returns the denoised latent [B, S_img, C_in]
         (float32)."""
-        dev = self.device
-        B = img.shape[0]
-        img = self.patchify_img(img.to(dev)).float()
-        txt, y = txt.to(dev), y.to(dev)
-        pe = self.rope(B)
-        state = self.sp.init_state(self.cfg, B, dev)
-        plan = step_plan(self.ck)
-        ts = torch.as_tensor(timesteps, dtype=torch.float32).tolist()
-        g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
-            if self.cfg.guidance_embed else None
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
+        img, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
+                                                     generator)
+        state = self.sp.init_state(self.cfg, img.shape[0], self.device)
 
-        pred = None
-        for i in range(min(len(plan), len(ts) - 1)):
-            kind = plan[i]
-            dt = ts[i + 1] - ts[i]
-            if kind.skip and pred is not None:
-                img = img + dt * pred
-                if callback:
-                    callback(i, skipped=True)
-                continue
-            t_vec = torch.full((B,), ts[i], dtype=torch.float32, device=dev)
-            pred, state = flux_forward(params, self.cfg, self.sp, img, txt,
-                                       t_vec, y, pe, state,
-                                       FluxStep.of(kind, i), guidance=g,
+        def predict(lat, t_vec, step):
+            nonlocal state
+            pred, state = flux_forward(params, self.cfg, self.sp, lat, txt,
+                                       t_vec, y, pe, state, step, guidance=g,
                                        generator=generator)
-            img = img + dt * pred.float()
-            if callback:
-                callback(i, skipped=False)
-        return self.unpatchify_img(img)
+            return pred
+
+        return self._euler(img, timesteps, callback, predict)
+
+    def make_streamed(self, n_chunks_double: int = 1,
+                      n_chunks_single: int = 2, B: int = 1,
+                      policy: Optional[OffloadPolicy] = None):
+        """The layer-chunked runner (``models/streamed.py``) and its state,
+        for ``denoise_streamed``: the caches that ``policy`` names (the
+        config's ``offloading`` block if None) live in host memory between
+        steps; with a policy that offloads nothing the step still runs
+        chunk by chunk."""
+        if policy is None:
+            policy = OffloadPolicy.from_config(self.ck.offloading)
+        runner = StreamedFluxRunner(cfg=self.cfg, sp=self.sp)
+        sst = StreamedFluxState.create_hostwise(
+            self.sp, self.cfg, B, n_chunks_double, n_chunks_single, policy,
+            self.device)
+        return runner, sst
+
+    def denoise_streamed(self, params: Dict, img: torch.Tensor,
+                         txt: torch.Tensor, y: torch.Tensor,
+                         timesteps: Union[torch.Tensor, Sequence[float]],
+                         streamed, guidance: float = 4.0,
+                         generator: Optional[torch.Generator] = None,
+                         callback: Optional[Callable] = None
+                         ) -> torch.Tensor:
+        """The loop of ``denoise`` over the layer-chunked runner
+        (``streamed`` = (runner, state) from ``make_streamed``).  Arguments
+        and result as ``denoise``; equal to it bit for bit."""
+        runner, sst = streamed
+        img, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
+                                                     generator)
+
+        def predict(lat, t_vec, step):
+            return runner.forward(params, sst, lat, txt, t_vec, y, pe, step,
+                                  guidance=g, generator=generator)
+
+        return self._euler(img, timesteps, callback, predict)
 
     def denoise_compiled(self, params: Dict, img: torch.Tensor,
                          txt: torch.Tensor, y: torch.Tensor,
@@ -150,16 +207,9 @@ class FluxSampler:
         card each computed step a replay of the CUDA graph of its step
         kind (``step_graphs.compiled_euler``).  Arguments and result as
         ``denoise``; the keeps are drawn in the host loop's order."""
-        dev = self.device
-        B = img.shape[0]
-        lat = self.patchify_img(img.to(dev)).float()
-        txt, y = txt.to(dev), y.to(dev)
-        pe = self.rope(B)
-        state = self.sp.init_state(self.cfg, B, dev)
-        g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
-            if self.cfg.guidance_embed else None
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
+        lat, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
+                                                     generator)
+        state = self.sp.init_state(self.cfg, lat.shape[0], self.device)
 
         def predict(lat, t_vec, step):
             pred, new = flux_forward(params, self.cfg, self.sp, lat, txt,

@@ -8,8 +8,10 @@ streamed=None)`` and ``wan_denoise`` and of the compiled loops
 Euler flow-matching loops over the chipmunk step plan; on a skipped
 (step-cached) step the model is not invoked and the previous prediction
 is reused.  The compiled loops fold the skipped steps into the computed
-ones and replay one CUDA graph per step kind (``step_graphs``).  Not
-ported yet: the host-offload streamed runner (``streamed=``).
+ones and replay one CUDA graph per step kind (``step_graphs``).
+``hunyuan_denoise(..., streamed=model.make_streamed())`` keeps the
+caches in host memory between steps and streams them chunk by chunk
+(``models/streamed.py``).
 """
 from __future__ import annotations
 
@@ -52,12 +54,16 @@ def hunyuan_denoise(model, params: Dict, latents: torch.Tensor,
                     guidance: float = 6.0,
                     generator: Optional[torch.Generator] = None,
                     callback: Optional[Callable] = None,
-                    txt_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+                    txt_mask: Optional[torch.Tensor] = None,
+                    streamed=None) -> torch.Tensor:
     """Euler loop for a HunyuanModel.  latents [B, C, T, H, W]; the latent
     is carried in float32 on the model's device.  ``generator`` (on that
     device; seed 0 if None) draws the attention random keeps.
-    ``callback(i, skipped=...)`` is called after every step.  Returns the
-    denoised latent (float32)."""
+    ``callback(i, skipped=...)`` is called after every step.  ``streamed``:
+    (runner, state) from ``model.make_streamed()``: the caches then live
+    in host memory between steps, as the config's ``offloading`` block
+    asks, and stream chunk by chunk (equal to the resident loop bit for
+    bit).  Returns the denoised latent (float32)."""
     dev = model.device
     B = latents.shape[0]
     txt, y = txt.to(dev), y.to(dev)
@@ -65,13 +71,18 @@ def hunyuan_denoise(model, params: Dict, latents: torch.Tensor,
         txt_mask = txt_mask.to(dev)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    state = model.init_state(B)
+    state = model.init_state(B) if streamed is None else None
     pe = model.rope(B)
     g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
         if model.cfg.guidance_embed else None
 
     def predict(lat, t_vec, step):
         nonlocal state
+        if streamed is not None:
+            return model.forward_streamed(params, lat, txt, t_vec, y,
+                                          *streamed, step, guidance=g,
+                                          generator=generator, pe=pe,
+                                          txt_mask=txt_mask)
         pred, state = model.forward(params, lat, txt, t_vec, y, state, step,
                                     guidance=g, generator=generator, pe=pe,
                                     txt_mask=txt_mask)

@@ -1631,3 +1631,129 @@ def test_cuda_group_norm_beyond_int32_indexing(gen):
         ref = ref * gamma[c0:c0 + 4, None, None, None].double() \
             + beta[c0:c0 + 4, None, None, None].double()
         assert (y[:, c0:c0 + 4].double() - ref).abs().max().item() < 1e-4
+
+
+# ------------------------------------------- host offload (streamed runner)
+
+@pytest.mark.cuda
+def test_cuda_offload_pinned_buffers_and_side_streams(gen, tmp_path):
+    """Host buffers are one page-locked slab of the exact size; a fetch
+    and a writeback run on the two side streams, not on the compute
+    stream, as copies from and into pinned memory (the profiler's memcpy
+    records), and give back what was stored."""
+    import json
+    from torch.profiler import ProfilerActivity, profile
+    from chipmunk_torch.utils import offload
+    tree = {'a': torch.randn((3, 1 << 20), generator=gen, device='cuda'),
+            'b': [None, torch.arange(1000, device='cuda', dtype=torch.int32)]}
+    host = offload.offload_to_host(tree)
+    leaves = offload.tree_leaves(host)
+    assert all(x.device.type == 'cpu' and x.is_pinned() for x in leaves)
+    assert offload.pinned_bytes(host) == 3 * 4 * (1 << 20) + 4096
+    side = offload.side_streams('cuda')
+    cur = torch.cuda.current_stream()
+    assert cur.cuda_stream not in (side.h2d.cuda_stream,
+                                   side.d2h.cuda_stream)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        dev = offload.fetch_to_device(host)
+        dev['a'].mul_(2)
+        offload.offload_to_host(dev, out=host)
+        torch.cuda.synchronize()
+    prof.export_chrome_trace(str(tmp_path / 'trace.json'))
+    events = json.load(open(tmp_path / 'trace.json'))['traceEvents']
+    copies = [e for e in events if e.get('cat') == 'gpu_memcpy']
+    kernels = {e['args']['stream'] for e in events
+               if e.get('cat') == 'kernel'}
+    assert len(copies) == 4, [e['name'] for e in copies]
+    assert all('Pinned' in e['name'] for e in copies)
+    assert kernels and not kernels & {e['args']['stream'] for e in copies}
+    assert len({e['args']['stream'] for e in copies}) == 2
+    assert torch.equal(host['a'], 2 * tree['a'].cpu())
+    assert torch.equal(host['b'][1], tree['b'][1].cpu())
+
+
+@pytest.mark.cuda
+def test_cuda_failed_pinned_allocation_raises(gen):
+    """A host slab that cannot be allocated, or memory that cannot be
+    page-locked (already registered), raises; the card still works."""
+    from chipmunk_torch.utils import offload
+    with pytest.raises(RuntimeError):
+        offload.HostSlab(1 << 50, torch.device('cuda'))
+    slab = offload.HostSlab(1 << 20, torch.device('cuda'))
+    assert slab.take((256,), torch.float32).is_pinned()
+    with pytest.raises(RuntimeError, match='page-locked'):
+        offload.page_lock(slab.base, torch.device('cuda'))
+    x = torch.ones(4, device='cuda')
+    assert (x * 2).sum().item() == 8.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', ['flux', 'video'])
+def test_cuda_streamed_loop_matches_resident(gen, model):
+    """A small FLUX (depth 2+2, every cache host-side) and a small
+    full-width HunyuanVideo (latent (5, 16, 30), depth 2+2, the shipped
+    config's offloading: attention out_cache and indices), with random
+    keeps, streamed on the card one layer a chunk: equal bit for bit to
+    the resident loop on the card, with the same launches; the host
+    caches pinned, and copies issued each way."""
+    import dataclasses
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.config import config_from_dict, load_config
+    from chipmunk_torch.utils import offload
+    if model == 'flux':
+        cfg, ck, _, img, txt, y = _small_flux()
+        cfg = dataclasses.replace(cfg, depth=2, depth_single_blocks=2)
+        params = _to_cuda(tm.init_flux_params(
+            torch.Generator().manual_seed(0), cfg, 'cpu'))
+        sampler = tm.FluxSampler(cfg=cfg, ck=ck,
+                                 sp=tm.FluxSparse.build(ck, cfg, 512),
+                                 h_img=16, w_img=24)
+        args = (params, img.cuda(), txt.cuda(), y.cuda(),
+                tm.get_schedule(8, 384))
+        streamed = sampler.make_streamed(2, 2, policy=offload.OffloadPolicy(
+            *(True,) * 9))
+
+        def loop(s=None):
+            g = torch.Generator('cuda').manual_seed(3)
+            if s is None:
+                return sampler.denoise(*args, generator=g)
+            return sampler.denoise_streamed(*args, s, generator=g)
+    else:
+        ck = config_from_dict({
+            'steps': 6,
+            'attn': {'full_step_schedule': [0, 1, 4],
+                     'first_n_dense_layers': 1, 'top_keys': 0.3,
+                     'random_keys': 0.05, 'dense_fallback_frac': 1.0},
+            'step_caching': {'is_enabled': True, 'skip_step_schedule': [3]}},
+            load_config(os.path.join(os.path.dirname(os.path.dirname(
+                os.path.abspath(__file__))), 'configs',
+                'hunyuan-chipmunk.yml')))
+        cfg = tm.HunyuanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                                    depth_double=2, depth_single=2)
+        g0 = torch.Generator().manual_seed(0)
+        params = _to_cuda(tm.init_hunyuan_params(g0, cfg, 'cpu'))
+        inputs = tuple(torch.randn(s, generator=g0).to(torch.bfloat16).cuda()
+                       for s in ((1, 16, 5, 16, 30), (1, 256, 4096),
+                                 (1, 768)))
+        m = tm.HunyuanModel(cfg=cfg, ck=ck)
+        streamed = m.make_streamed(2, 2)
+        ts = tm.get_schedule(6, cfg.img_len, shift=False)
+
+        def loop(s=None):
+            return tm.hunyuan_denoise(m, params, *inputs, ts, streamed=s,
+                                      generator=torch.Generator(
+                                          'cuda').manual_seed(3))
+    host = [x for x in offload.tree_leaves(
+        [streamed[1].double, streamed[1].single]) if x.device.type == 'cpu']
+    assert host and all(x.is_pinned() for x in host)
+    outs, launches = [], []
+    for s in (None, streamed):
+        FA._build.reset_launches()
+        offload.reset_copy_stats()
+        outs.append(loop(s))
+        torch.cuda.synchronize()
+        launches.append(dict(FA._build.LAUNCHES))
+    assert offload.COPY_STATS['h2d'] > 0 and offload.COPY_STATS['d2h'] > 0
+    assert launches[0] == launches[1] and launches[0]['dense_colsum_attn']
+    assert torch.isfinite(outs[0]).all()
+    assert torch.equal(outs[0], outs[1])
