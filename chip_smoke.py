@@ -30,13 +30,15 @@
    from a seed, (b) with the quantized weights the JAX package ships
    (``synth_quantized_flux_params``, int4 attention/modulation, int8
    sparse MLP, int4 text MLP) and the config unchanged, so every sparse
-   MLP step takes the int8-activation kernels, (c) with the same quantized
-   weights and ``mlp.int8_act`` off, so every sparse MLP step takes the
-   int8-weight, bf16-activation pair (``wq``).  Each checks that the
-   output is finite and which kernels ran, is traced over a window of
-   sparse steps, and is timed against a dense loop (sparsity and step
-   caching off) on the same weights ((c) against (b)'s: the dense path
-   does not read ``int8_act``).  Each loop is then run compiled
+   MLP step takes the int8-activation kernels, (c) with the same
+   quantized weights and ``mlp.int8_act`` off, so every sparse MLP step
+   takes the int8-weight, bf16-activation pair (``wq``); (b) and (c) at
+   the first QUANT_DEPTH blocks.  Each checks that the output is finite
+   and that each kernel ran exactly as often as ``flux_launches``
+   counts, is traced over a window of sparse steps, and is timed against
+   a dense loop (sparsity and step caching off) on the same weights ((c)
+   against (b)'s: the dense path does not read ``int8_act``).  Each loop
+   is then run compiled
    (``FluxSampler.denoise_compiled``: skipped steps folded, each
    computed step after a kind's first a CUDA graph replay), the sparse
    loop against the host sparse loop, the dense loop (for (a) and (b))
@@ -114,13 +116,32 @@
    HY_DECODE_N of 33 latent frames (a shorter video).  The decoders run
    PyTorch's default TF32 convolutions (DECODE_SETTING).  Then small T5,
    CLIP, FLUX autoencoder and video VAEs on the card against the CPU.
-7. Prints the card line, one JSON line with the kernels' numbers, and as
+7. Checkpoint to latents (after the FLUX generation).  (a) FLUX.1-dev
+   at full width and depth from a BFL state dict (the keys and shapes of
+   tests/test_loaders.py's ``synth_state_dict``, drawn on the card one
+   tensor at a time from a seed by a lazy mapping, bf16, weights at
+   fan-in^-0.5) through ``load_flux_params`` with configs/flux-chipmunk.yml
+   as read and ``mlp.is_fp8`` set: int8 sparse-MLP and fp8 text-MLP
+   weights quantized on the card; the first double and single block
+   torch.equal to the same loader on the CPU over the same tensors; the
+   50-step host loop through ``cli.flux_generate.generate``, finite, with
+   exact launch counts (``flux_launches``, which also gates loops (a) and
+   (b) of 3); the loader's seconds, the GiB resident and the loop's
+   seconds printed.  (b) ``mlp_fp8.f8_input_matmul`` (``torch._scaled_mm``)
+   against its plain version at the FLUX dense-step shape, timed beside
+   ``torch.matmul`` on the dequantized weight (its own line).  (c) The
+   three generate CLIs run at once as subprocesses from .safetensors
+   files written by ``safetensors_io.save_file``: FLUX at full width and
+   depth 1 + 1, HunyuanVideo (streamed, as its config asks) and Wan at
+   ``--tiny``; each must exit 0 with finite latents of their shape.
+8. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
 device, or without the ``chipmunk_torch`` package beside it, it exits
 non-zero and prints no result.
 """
+import collections.abc
 import contextlib
 import dataclasses
 import importlib
@@ -162,6 +183,10 @@ QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
 WQ_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1_wq',
            'csp_mlp_mm2_wq')
 SPEC = ('int4', 'int4', 'int8', 'int4')    # QuantSpec of bench.py:62-67
+# the quantized loops (b) and (c) run the first 10 + 19 of the 19 + 38
+# blocks: the cut that made room for the checkpoint phase, whose is_fp8
+# loop runs the a8 pair of (b) at full depth
+QUANT_DEPTH = dict(depth=10, depth_single_blocks=19)
 GEMM_NAMES = ('nvjet', 'gemm', 'cutlass', 'xmma', 'gemv')
 
 B, H, S, D = 1, 24, 4352, 128          # FLUX.1-dev at 1280x768
@@ -3168,6 +3193,418 @@ def agree_small_decoders(torch, tm):
              'decode')
 
 
+# ------------------------------------------------- checkpoint to latents
+
+def _lin_shapes(out, name, d_in, d_out):
+    """A torch Linear's state-dict entries: weight [out, in] at scale
+    d_in^-0.5, bias [out] at 0.02."""
+    out[f'{name}.weight'] = ((d_out, d_in), d_in ** -0.5)
+    out[f'{name}.bias'] = ((d_out,), 0.02)
+
+
+def flux_bfl_shapes(cfg):
+    """name -> (shape, scale) of a BFL FLUX state dict: the keys and shapes
+    of ``synth_state_dict`` (tests/test_loaders.py) at ``cfg``, weights at
+    fan-in^-0.5, biases at 0.02, norm scales ones (scale None)."""
+    h, mh, hd = cfg.hidden_size, cfg.mlp_hidden, cfg.head_dim
+    out = {}
+    _lin_shapes(out, 'img_in', cfg.in_channels, h)
+    _lin_shapes(out, 'txt_in', cfg.context_in_dim, h)
+    for e in ('time_in', 'vector_in', 'guidance_in'):
+        _lin_shapes(out, f'{e}.in_layer',
+                    cfg.vec_in_dim if e == 'vector_in' else 256, h)
+        _lin_shapes(out, f'{e}.out_layer', h, h)
+    for i in range(cfg.depth):
+        p = f'double_blocks.{i}'
+        for s in ('img', 'txt'):
+            _lin_shapes(out, f'{p}.{s}_mod.lin', h, 6 * h)
+            _lin_shapes(out, f'{p}.{s}_attn.qkv', h, 3 * h)
+            out[f'{p}.{s}_attn.norm.query_norm.scale'] = ((hd,), None)
+            out[f'{p}.{s}_attn.norm.key_norm.scale'] = ((hd,), None)
+            _lin_shapes(out, f'{p}.{s}_attn.proj', h, h)
+            _lin_shapes(out, f'{p}.{s}_mlp.0', h, mh)
+            _lin_shapes(out, f'{p}.{s}_mlp.2', mh, h)
+    for i in range(cfg.depth_single_blocks):
+        p = f'single_blocks.{i}'
+        _lin_shapes(out, f'{p}.modulation.lin', h, 3 * h)
+        _lin_shapes(out, f'{p}.linear1', h, 3 * h + mh)
+        _lin_shapes(out, f'{p}.linear2', h + mh, h)
+        out[f'{p}.norm.query_norm.scale'] = ((hd,), None)
+        out[f'{p}.norm.key_norm.scale'] = ((hd,), None)
+    _lin_shapes(out, 'final_layer.adaLN_modulation.1', h, 2 * h)
+    _lin_shapes(out, 'final_layer.linear', h, cfg.in_channels)
+    return out
+
+
+def hunyuan_shapes(cfg):
+    """The hyvideo transformer layout of ``synth_hunyuan_state_dict``
+    (tests/test_loaders.py) at ``cfg``, scaled as flux_bfl_shapes."""
+    core = cfg.core()
+    h, mh, hd = core.hidden_size, core.mlp_hidden, core.head_dim
+    pt, ph, pw = cfg.patch_size
+    patch = cfg.in_channels * pt * ph * pw
+    out = {'img_in.proj.weight': ((h, cfg.in_channels, pt, ph, pw),
+                                  patch ** -0.5),
+           'img_in.proj.bias': ((h,), 0.02)}
+    _lin_shapes(out, 'txt_in.input_embedder', cfg.text_dim, h)
+    _lin_shapes(out, 'txt_in.t_embedder.mlp.0', 256, h)
+    _lin_shapes(out, 'txt_in.t_embedder.mlp.2', h, h)
+    _lin_shapes(out, 'txt_in.c_embedder.linear_1', cfg.text_dim, h)
+    _lin_shapes(out, 'txt_in.c_embedder.linear_2', h, h)
+    for i in range(2):
+        p = f'txt_in.individual_token_refiner.blocks.{i}'
+        _lin_shapes(out, f'{p}.self_attn_qkv', h, 3 * h)
+        _lin_shapes(out, f'{p}.self_attn_proj', h, h)
+        _lin_shapes(out, f'{p}.mlp.fc1', h, 4 * h)
+        _lin_shapes(out, f'{p}.mlp.fc2', 4 * h, h)
+        _lin_shapes(out, f'{p}.adaLN_modulation.1', h, 2 * h)
+        for n in ('norm1', 'norm2'):
+            out[f'{p}.{n}.weight'] = ((h,), None)
+            out[f'{p}.{n}.bias'] = ((h,), 0.02)
+    _lin_shapes(out, 'time_in.mlp.0', 256, h)
+    _lin_shapes(out, 'time_in.mlp.2', h, h)
+    _lin_shapes(out, 'vector_in.in_layer', cfg.vec_in_dim, h)
+    _lin_shapes(out, 'vector_in.out_layer', h, h)
+    _lin_shapes(out, 'guidance_in.mlp.0', 256, h)
+    _lin_shapes(out, 'guidance_in.mlp.2', h, h)
+    for i in range(cfg.depth_double):
+        p = f'double_blocks.{i}'
+        for s in ('img', 'txt'):
+            _lin_shapes(out, f'{p}.{s}_mod.linear', h, 6 * h)
+            _lin_shapes(out, f'{p}.{s}_attn_qkv', h, 3 * h)
+            out[f'{p}.{s}_attn_q_norm.weight'] = ((hd,), None)
+            out[f'{p}.{s}_attn_k_norm.weight'] = ((hd,), None)
+            _lin_shapes(out, f'{p}.{s}_attn_proj', h, h)
+            _lin_shapes(out, f'{p}.{s}_mlp.fc1', h, mh)
+            _lin_shapes(out, f'{p}.{s}_mlp.fc2', mh, h)
+    for i in range(cfg.depth_single):
+        p = f'single_blocks.{i}'
+        _lin_shapes(out, f'{p}.modulation.linear', h, 3 * h)
+        _lin_shapes(out, f'{p}.linear1', h, 3 * h + mh)
+        _lin_shapes(out, f'{p}.linear2', h + mh, h)
+        out[f'{p}.q_norm.weight'] = ((hd,), None)
+        out[f'{p}.k_norm.weight'] = ((hd,), None)
+    _lin_shapes(out, 'final_layer.adaLN_modulation.1', h, 2 * h)
+    _lin_shapes(out, 'final_layer.linear', h, patch)
+    return out
+
+
+def wan_shapes(cfg):
+    """The wan/modules/model.py layout of ``synth_wan_state_dict``
+    (tests/test_loaders.py) at ``cfg``, scaled as flux_bfl_shapes."""
+    d, f = cfg.dim, cfg.ffn_dim
+    pt, ph, pw = cfg.patch_size
+    patch = cfg.in_channels * pt * ph * pw
+    out = {'patch_embedding.weight': ((d, cfg.in_channels, pt, ph, pw),
+                                      patch ** -0.5),
+           'patch_embedding.bias': ((d,), 0.02)}
+    _lin_shapes(out, 'text_embedding.0', cfg.text_dim, d)
+    _lin_shapes(out, 'text_embedding.2', d, d)
+    _lin_shapes(out, 'time_embedding.0', cfg.freq_dim, d)
+    _lin_shapes(out, 'time_embedding.2', d, d)
+    _lin_shapes(out, 'time_projection.1', d, 6 * d)
+    for i in range(cfg.num_layers):
+        p = f'blocks.{i}'
+        out[f'{p}.modulation'] = ((1, 6, d), 0.02)
+        for a in ('self_attn', 'cross_attn'):
+            for n in ('q', 'k', 'v', 'o'):
+                _lin_shapes(out, f'{p}.{a}.{n}', d, d)
+            out[f'{p}.{a}.norm_q.weight'] = ((d,), None)
+            out[f'{p}.{a}.norm_k.weight'] = ((d,), None)
+        out[f'{p}.norm3.weight'] = ((d,), None)
+        out[f'{p}.norm3.bias'] = ((d,), 0.02)
+        _lin_shapes(out, f'{p}.ffn.0', d, f)
+        _lin_shapes(out, f'{p}.ffn.2', f, d)
+    out['head.modulation'] = ((1, 2, d), 0.02)
+    _lin_shapes(out, 'head.head', d, patch)
+    return out
+
+
+class SeededStateDict(collections.abc.Mapping):
+    """A lazy state dict: each value drawn when read, from its own
+    generator seeded by (seed, the key's position), on ``device``, normal
+    times its scale (ones where the scale is None), in ``dtype``; the
+    same key gives the same tensor on every read.  Membership draws
+    nothing."""
+
+    def __init__(self, torch, shapes, seed, device='cuda', dtype=None):
+        self.torch, self.shapes, self.device = torch, shapes, device
+        self.dtype = dtype or torch.bfloat16
+        self.index = {k: i for i, k in enumerate(shapes)}
+        self.seed = seed
+
+    def __getitem__(self, key):
+        torch = self.torch
+        shape, scale = self.shapes[key]
+        if scale is None:
+            return torch.ones(shape, dtype=self.dtype, device=self.device)
+        g = torch.Generator(self.device).manual_seed(
+            self.seed * 1_000_003 + self.index[key])
+        return (torch.randn(shape, generator=g, device=self.device)
+                * scale).to(self.dtype)
+
+    def __contains__(self, key):
+        return key in self.shapes
+
+    def __iter__(self):
+        return iter(self.shapes)
+
+    def __len__(self):
+        return len(self.shapes)
+
+
+def flux_launches(ck, model, mlp_kernels):
+    """Every kernel's launches in one host loop of FluxSampler.denoise over
+    the plan of ``ck`` at ``model``'s depth, counted from the modules'
+    rules: a dense layer (first_n_dense_layers) runs ``dense_attn`` on
+    every computed step; a sparse one runs ``dense_attn`` on step 0,
+    ``dense_colsum_attn`` + ``csp_attn`` on a colsum step, ``dense_attn``
+    + ``csp_attn`` on another full step and ``csp_attn`` on a sparse step;
+    a sparse MLP layer runs each of ``mlp_kernels`` once on each step that
+    is not an MLP full step.  FLUX has no static mask, so no dense tail."""
+    from chipmunk_torch.schedule import step_plan
+    depth, single = model.depth, model.depth_single_blocks
+
+    def sparse_layers(n_dense):
+        return (depth - min(n_dense, depth)
+                + single - max(0, min(n_dense - depth, single)))
+
+    la = sparse_layers(ck.attn.first_n_dense_layers)
+    lm = sparse_layers(ck.mlp.first_n_dense_layers) \
+        if ck.mlp.is_enabled else 0
+    n = {'dense_attn': 0, 'dense_colsum_attn': 0, 'csp_attn': 0}
+    n.update({k: 0 for k in mlp_kernels})
+    for i, kind in enumerate(step_plan(ck)):
+        if kind.skip and i > 0:
+            continue
+        n['dense_attn'] += depth + single - la
+        if kind.full_attn and i == 0:
+            n['dense_attn'] += la
+        elif kind.full_attn:
+            n['dense_colsum_attn' if kind.colsum else 'dense_attn'] += la
+            n['csp_attn'] += la
+        else:
+            n['csp_attn'] += la
+        if not kind.full_mlp:
+            for k in mlp_kernels:
+                n[k] += lm
+    return n
+
+
+def check_launches(tag, launches, want):
+    """Exact counts: each kernel of ``want`` as often as it says, every
+    other kernel never."""
+    bad = {k: (v, want.get(k, 0)) for k, v in launches.items()
+           if v != want.get(k, 0)}
+    if bad:
+        fail(f'{tag}: launches (got, want) {bad}')
+
+
+def same_tree(torch, tag, got, want, path=''):
+    """Leaf for leaf torch.equal (QTensors by q, scale and pack_axis),
+    ``got`` moved to the host."""
+    if isinstance(want, dict):
+        if sorted(got) != sorted(want):
+            fail(f'{tag}{path}: keys {sorted(got)} against {sorted(want)}')
+        for k in want:
+            same_tree(torch, tag, got[k], want[k], f'{path}/{k}')
+    elif hasattr(want, 'q'):
+        if got.pack_axis != want.pack_axis:
+            fail(f'{tag}{path}: pack_axis {got.pack_axis} against '
+                 f'{want.pack_axis}')
+        same_tree(torch, tag, got.q, want.q, path + '.q')
+        same_tree(torch, tag, got.scale, want.scale, path + '.scale')
+    else:
+        g = got.cpu()
+        if g.dtype != want.dtype or not torch.equal(g, want):
+            fail(f'{tag}{path}: differs from the loader on the CPU '
+                 f'({g.dtype} against {want.dtype})')
+
+
+def flux_from_checkpoint(torch, tm, kern, ck):
+    """(a) FLUX.1-dev at full width and depth from a checkpoint: the BFL
+    state dict drawn on the card one tensor at a time (SeededStateDict,
+    bf16 as checkpoints store it), loaded by ``load_flux_params`` with
+    the config as read and ``mlp.is_fp8`` set (int8 sparse-MLP weights,
+    fp8 text-MLP weights, quantized on the card); its first double and
+    single block torch.equal to the same loader on the CPU over the same
+    tensors; then the 50-step host loop through the FLUX twin's
+    ``generate``, with exact launch counts (``flux_launches``: the a8 pair
+    on every sparse MLP step, no bf16 or wq MLP kernel)."""
+    from chipmunk_torch.cli import flux_generate
+    from chipmunk_torch.models import loaders
+    from chipmunk_torch.utils import quant
+    ck8 = ck.replace(mlp=dataclasses.replace(ck.mlp, is_fp8=True))
+    model = tm.FluxModelConfig()
+    sd = SeededStateDict(torch, flux_bfl_shapes(model), SEED, 'cuda')
+    params, load_s = synced(torch, lambda: loaders.load_flux_params(
+        sd, model, ck=ck8, device='cuda'))
+    gib = quant.param_bytes(params) / 2 ** 30
+    blk = params['double'][0]
+    kinds = (blk['img_w1t'].q.dtype, blk['txt_w1t'].q.dtype,
+             params['single'][0]['w2'].q.dtype, blk['img_qkv']['w'].dtype)
+    if kinds != (torch.int8, torch.float8_e4m3fn, torch.int8,
+                 torch.bfloat16):
+        fail(f'checkpoint: is_fp8 storage {kinds}')
+    first = dataclasses.replace(model, depth=1, depth_single_blocks=1)
+    host = {k: sd[k].cpu() for k in flux_bfl_shapes(first)}
+    t0 = time.perf_counter()
+    cpu = loaders.load_flux_params(host, first, ck=ck8, device='cpu')
+    cpu_s = time.perf_counter() - t0
+    for part in ('double', 'single'):
+        same_tree(torch, f'checkpoint {part} block 0', params[part][0],
+                  cpu[part][0])
+    del host, cpu
+    print(f'checkpoint: FLUX.1-dev state dict ({len(sd)} tensors, bf16, '
+          f'drawn on the card) loaded with mlp.is_fp8 in {load_s:.3f} s: '
+          f'{gib:.2f} GiB of weights resident (int8 sparse MLP, fp8 text '
+          f'MLP, the rest bf16); first double and single block equal to '
+          f'the loader on the CPU ({cpu_s:.1f} s there)', flush=True)
+    kern.reset_launches()
+    out, loop_s = synced(torch, lambda: flux_generate.generate(
+        params, model, ck8, width=W_IMG * 16, height=H_IMG * 16, seed=SEED,
+        device='cuda'))
+    launches = dict(kern.LAUNCHES)
+    check_launches('checkpoint is_fp8 loop', launches, flux_launches(
+        ck8, model, ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')))
+    if out.shape != (1, H_IMG * W_IMG, 64) or not bool(
+            torch.isfinite(out).all()):
+        fail(f'checkpoint is_fp8 loop: output {tuple(out.shape)}, finite '
+             f'{bool(torch.isfinite(out).all())}')
+    print(f'checkpoint is_fp8 loop: {ck8.steps} steps, depth {model.depth}+'
+          f'{model.depth_single_blocks}, {loop_s:.3f} s through '
+          f'cli.flux_generate.generate; launches {json.dumps(launches)}',
+          flush=True)
+    del params, out
+    torch.cuda.empty_cache()
+    return launches, loop_s
+
+
+def f8_input_matmul_phase(torch):
+    """(b) ``mlp_fp8.f8_input_matmul`` on the card (``torch._scaled_mm``
+    on the fp8 operands) against its plain version (both operands upcast
+    to float32, ``torch.matmul``, TF32 off) on the same inputs at the
+    FLUX dense-step shape: x [4608, 3072] bf16, w1t an fp8 QTensor
+    [12288, 3072] with per-row scales.  The products are exact on both
+    sides, but Hopper's fp8 tensor cores sum them in less than float32
+    precision (on an H100 80GB HBM3, 700 W: 0.9% of the outputs 2 bf16
+    ulps away, the largest error 3.1e-2 at outputs of RMS ~1); tolerance:
+    one e4m3 ulp at the larger of the plain value and the outputs' RMS
+    (fp8_ulp), the precision the fp8 operands carry.  Times it against
+    ``torch.matmul`` on the dequantized bf16 weight.  Not a port of a
+    Pallas kernel: a line of its own, no row in the kernels JSON."""
+    from chipmunk_torch.modules import mlp_fp8
+    from chipmunk_torch.utils.quant import dequant, quantize
+    gen = torch.Generator('cuda').manual_seed(SEED)
+    x = torch.randn((T_SINGLE, C), generator=gen, device='cuda').to(
+        torch.bfloat16)
+    wq = quantize(torch.randn((N, C), generator=gen, device='cuda')
+                  * C ** -0.5, 'fp8', keep_axes=(0,))
+    b1 = (torch.randn((N,), generator=gen, device='cuda') * 0.02).to(
+        torch.bfloat16)
+    got = mlp_fp8.f8_input_matmul(x, wq, b1)
+    x8, sx = mlp_fp8.quantize_input(x, None)
+    plain = ((x8.float() @ wq.q.float().t()) * (sx * wq.scale.reshape(1, -1))
+             + b1.float()).to(torch.bfloat16)
+    if got.shape != (T_SINGLE, N) or got.dtype != torch.bfloat16:
+        fail(f'f8_input_matmul: {tuple(got.shape)} {got.dtype}')
+    g, r = got.float(), plain.float()
+    rms = r.pow(2).mean().sqrt()
+    diff = (g - r).abs()
+    err = diff.max().item()
+    bad = diff > fp8_ulp(torch, torch.maximum(r.abs(), rms))
+    if not bool(torch.isfinite(g).all()) or bool(bad.any()):
+        fail(f'f8_input_matmul: {int(bad.sum())} outputs beyond one e4m3 '
+             f'ulp of the plain version (max abs err {err:.3e})')
+    past = (diff > fp8_ulp(torch, r, torch.bfloat16)).float().mean().item()
+    w_bf16 = dequant(wq, torch.bfloat16)
+    ms = time_ms(torch, lambda: mlp_fp8.f8_input_matmul(x, wq, b1), 20)
+    plain_ms = time_ms(torch, lambda: (x8.float() @ wq.q.float().t()), 5)
+    lib_ms = time_ms(torch, lambda: x @ w_bf16.t(), 20)
+    flops = 2 * T_SINGLE * C * N
+    print(f'f8_input_matmul [{T_SINGLE}, {C}] x fp8 [{N}, {C}]: {ms:.4f} ms '
+          f'({flops / ms / 1e9:.0f} TFLOP/s, with the input quantization '
+          f'and scaling), plain version {plain_ms:.4f} ms, torch.matmul on '
+          f'the dequantized bf16 weight {lib_ms:.4f} ms; max abs err '
+          f'{err:.3e} at output RMS {rms.item():.3f}, {past:.2%} of the '
+          f'outputs beyond one bf16 ulp (tolerance: one e4m3 ulp at '
+          f'max(|plain|, RMS))', flush=True)
+
+
+def run_twins(torch, tm):
+    """(c) the three twins as a user runs them, each as ``python -m
+    chipmunk_torch.cli.<name> --ckpt <file>`` from .safetensors files
+    written by ``safetensors_io.save_file`` (state dicts drawn as in (a)):
+    FLUX.1-dev at full width, depth 1 + 1, 4 steps, configs/flux-chipmunk.yml;
+    HunyuanVideo (configs/hunyuan-chipmunk.yml: the streamed runner) and
+    Wan (configs/wan-chipmunk.yml) at --tiny, 4 steps, 128x128, 5 frames.
+    The three run at once; each must exit 0, say what it loaded, and
+    write finite latents of their shape."""
+    import numpy as np
+    from chipmunk_torch.utils.safetensors_io import save_file
+    d = os.path.join(ROOT, 'build', 'smoke_cli')
+    os.makedirs(d, exist_ok=True)
+    video = ['--tiny', '--steps', '4', '--seed', '1']
+    hcfg = tm.HunyuanModelConfig(latent_t=2, latent_h=16, latent_w=16,
+                                 depth_double=1, depth_single=2,
+                                 hidden_size=256, num_heads=2, txt_len=32)
+    wcfg = tm.WanModelConfig(latent_t=2, latent_h=16, latent_w=16,
+                             num_layers=2, dim=256, num_heads=2,
+                             ffn_dim=1024, txt_len=32)
+    runs = {
+        'flux_generate': (flux_bfl_shapes(tm.FluxModelConfig(
+            depth=1, depth_single_blocks=1)), (1, H_IMG * W_IMG, 64),
+            ['--depth', '1', '--depth-single', '1', '--steps', '4'],
+            'flux-chipmunk.yml', 'loaded'),
+        'hunyuan_generate': (hunyuan_shapes(hcfg), (1, 16, 2, 16, 16),
+                             video + ['--depth', '1', '--depth-single', '2',
+                                      '--video-size', '128', '128',
+                                      '--video-length', '5'],
+                             'hunyuan-chipmunk.yml', 'streamed'),
+        'wan_generate': (wan_shapes(wcfg), (1, 16, 2, 16, 16),
+                         video + ['--layers', '2', '--size', '128', '128',
+                                  '--frames', '5'], 'wan-chipmunk.yml',
+                         'done'),
+    }
+    procs = {}
+    t0 = time.perf_counter()
+    for i, (name, (shapes, _, args, cfg, _)) in enumerate(runs.items()):
+        sd = SeededStateDict(torch, shapes, SEED + 1 + i, 'cuda')
+        ckpt = os.path.join(d, f'{name}.safetensors')
+        save_file({k: sd[k] for k in sd}, ckpt)
+        out = os.path.join(d, f'{name}.npy')
+        if os.path.exists(out):
+            os.remove(out)
+        procs[name] = (subprocess.Popen(
+            [sys.executable, '-m', f'chipmunk_torch.cli.{name}', '--ckpt',
+             ckpt, '--chipmunk-config', os.path.join(ROOT, 'configs', cfg),
+             '--out', out, *args], cwd=ROOT, stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True), out,
+            os.path.getsize(ckpt))
+    torch.cuda.empty_cache()
+    for name, (p, out, size) in procs.items():
+        try:
+            so, se = p.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            for q, _, _ in procs.values():
+                q.kill()
+            fail(f'cli {name}: no exit within 600 s')
+        shape, word = runs[name][1], runs[name][4]
+        if p.returncode != 0 or word not in so:
+            fail(f'cli {name}: exit {p.returncode}; stdout {so[-1500:]!r}; '
+                 f'stderr {se[-1500:]!r}')
+        lat = np.load(out)
+        if lat.shape != shape or lat.dtype != np.float32 or not bool(
+                np.isfinite(lat).all()):
+            fail(f'cli {name}: latents {lat.shape} {lat.dtype}, finite '
+                 f'{bool(np.isfinite(lat).all())}')
+        print(f'cli {name}: exit 0 from a {size / 2 ** 30:.2f} GiB '
+              f'checkpoint, latents {lat.shape} finite; its output: '
+              f'{" | ".join(so.strip().splitlines())}', flush=True)
+    print(f'cli: three twins in {time.perf_counter() - t0:.1f} s '
+          f'(run at once)', flush=True)
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -3241,40 +3678,44 @@ def main():
           f'{ck.attn.first_n_dense_layers}/{ck.mlp.first_n_dense_layers}',
           flush=True)
     model = tm.FluxModelConfig()          # full width and depth, bf16
-    launches, bf16_sparse_s, bf16_dense_s, _, _ = drive_path(
-        torch, kern, tm, ck, model, 'bf16', BF16_PATH, trace_compiled=True)
+    launches = drive_path(torch, kern, tm, ck, model, 'bf16', BF16_PATH,
+                          trace_compiled=True)[0]
+    check_launches('bf16', launches, flux_launches(
+        ck, model, ('csp_mlp_mm1', 'csp_mlp_mm2')))
 
-    # (b) quantized weights as bench.py builds them; the bf16 model of
-    # (a) lives only inside its loops and is freed by now
+    # (b) quantized weights as bench.py builds them, at the first
+    # QUANT_DEPTH blocks; the bf16 model of (a) lives only inside its loops
+    # and is freed by now
+    model_q = dataclasses.replace(model, **QUANT_DEPTH)
     t0 = time.perf_counter()
     qparams = quant.synth_quantized_flux_params(
-        SEED, model, quant.QuantSpec(*SPEC), device='cuda')
+        SEED, model_q, quant.QuantSpec(*SPEC), device='cuda')
     torch.cuda.synchronize()
     print(f'quantized weights synthesized on the host and moved to the card '
           f'in {time.perf_counter() - t0:.1f} s: '
-          f'{quant.param_bytes(qparams) / 2 ** 30:.2f} GiB, QuantSpec'
-          f'{SPEC}', flush=True)
+          f'{quant.param_bytes(qparams) / 2 ** 30:.2f} GiB at depth '
+          f'{model_q.depth}+{model_q.depth_single_blocks}, QuantSpec{SPEC}',
+          flush=True)
     qlaunches, q_sparse_s, q_dense_s, _, _ = drive_path(
-        torch, kern, tm, ck, model, 'quantized', QUANT_PATH, qparams,
+        torch, kern, tm, ck, model_q, 'quantized', QUANT_PATH, qparams,
         trace_compiled=True)
+    check_launches('quantized', qlaunches, flux_launches(
+        ck, model_q, ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')))
     print(f'quantized sparse loop {q_sparse_s:.3f} s: '
           f'{q_dense_s / q_sparse_s:.3f}x against the quantized dense loop '
-          f'({q_dense_s:.3f} s), {bf16_dense_s / q_sparse_s:.3f}x against '
-          f'the bf16 dense loop ({bf16_dense_s:.3f} s); bf16 sparse loop '
-          f'{bf16_sparse_s:.3f} s', flush=True)
+          f'({q_dense_s:.3f} s), both at depth {model_q.depth}+'
+          f'{model_q.depth_single_blocks}', flush=True)
 
     # (c) the same weights with mlp.int8_act off: every sparse MLP step
-    # takes the wq pair, as often as the bf16 loop takes its pair; the
-    # dense yardstick is (b)'s dense loop (the dense path does not read
+    # takes the wq pair, as often as flux_launches counts; the dense
+    # yardstick is (b)'s dense loop (the dense path does not read
     # int8_act)
     no_a8 = ck.replace(mlp=dataclasses.replace(ck.mlp, int8_act=False))
     wlaunches, w_sparse_s, _, _, _ = drive_path(
-        torch, kern, tm, no_a8, model, 'quantized int8_act off', WQ_PATH,
+        torch, kern, tm, no_a8, model_q, 'quantized int8_act off', WQ_PATH,
         qparams, dense=False)
-    for k in ('csp_mlp_mm1_wq', 'csp_mlp_mm2_wq'):
-        if wlaunches[k] != launches['csp_mlp_mm1']:
-            fail(f'quantized int8_act off: {wlaunches[k]} {k} launches, '
-                 f'the bf16 loop {launches["csp_mlp_mm1"]} of its pair')
+    check_launches('quantized int8_act off', wlaunches, flux_launches(
+        no_a8, model_q, ('csp_mlp_mm1_wq', 'csp_mlp_mm2_wq')))
     print(f'quantized int8_act off sparse loop {w_sparse_s:.3f} s: '
           f'{q_dense_s / w_sparse_s:.3f}x against the quantized dense loop '
           f'({q_dense_s:.3f} s); int8_act on {q_sparse_s:.3f} s', flush=True)
@@ -3286,6 +3727,13 @@ def main():
     # the encoders, loop (a)'s weights and schedule, and the autoencoder
     flux_generation(torch, tm, kern, ck, model, launches)
     stamp('FLUX generation')
+
+    # ---- checkpoint to latents: FLUX.1-dev from a BFL state dict through
+    # load_flux_params with mlp.is_fp8, the fp8 product, the three twins
+    flaunches, _ = flux_from_checkpoint(torch, tm, kern, ck)
+    f8_input_matmul_phase(torch)
+    run_twins(torch, tm)
+    stamp('checkpoint to latents')
 
     # ---- the video path: HunyuanVideo 540p, configs/hunyuan-chipmunk.yml
     # unchanged (compressed indices, packed-only states as its offloading
@@ -3377,9 +3825,9 @@ def main():
         r['route'] = 'cuda'
         r['launches'] = launches[r['name']]
     for r in qrows + prows:             # the quantized paths (probe: 0)
-        r['route'] = 'cuda'
+        r['route'] = 'cuda'             # a8: the full-depth is_fp8 loop
         r['launches'] = (wlaunches if r['name'] in WQ_PATH
-                         else qlaunches)[r['name']]
+                         else flaunches)[r['name']]
     vrow['route'] = 'cuda'
     vrow['launches'] = vlaunches[vrow['name']]
     rows += qrows + prows + [vrow]

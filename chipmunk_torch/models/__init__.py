@@ -8,7 +8,10 @@ from .flux_encoders import (ClipTextConfig, T5Config, clip_text_encode,
                             init_clip_params, init_t5_params,
                             load_clip_safetensors, load_t5_safetensors,
                             t5_encode)
-from .loaders import load_ae_decoder_safetensors
+from .loaders import (load_ae_decoder_safetensors, load_flux_params,
+                      load_flux_safetensors, load_hunyuan_params,
+                      load_hunyuan_safetensors, load_wan_params,
+                      load_wan_safetensors)
 from .sampling import FluxSampler, get_schedule, unpack
 from .streamed import StreamedFluxRunner, StreamedFluxState
 from .video_encoders import (UMT5Config, init_umt5_params, load_umt5_torch,
@@ -36,6 +39,9 @@ __all__ = ['FluxModelConfig', 'init_flux_params', 'params_from_jax',
            'ClipTextConfig', 'init_clip_params', 'clip_text_encode',
            'load_clip_safetensors', 'TextEncoders', 'AutoEncoderParams',
            'decode', 'init_decoder_params', 'load_ae_decoder_safetensors',
+           'load_flux_params', 'load_flux_safetensors', 'load_hunyuan_params',
+           'load_hunyuan_safetensors', 'load_wan_params',
+           'load_wan_safetensors',
            'unpack', 'HyVaeConfig', 'init_hunyuan_vae_decoder',
            'hunyuan_vae_decode', 'load_hunyuan_vae_decoder',
            'load_hunyuan_vae_safetensors', 'hunyuan_vae_params_from_jax',

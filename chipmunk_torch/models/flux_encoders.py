@@ -21,13 +21,13 @@ dicts (``params_from_jax`` splits the reference's stacked trees).
 """
 from __future__ import annotations
 
-import os
 from dataclasses import dataclass
 from typing import Dict, Optional, Tuple
 
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..utils.safetensors_io import load_file
 from .video_encoders import _bucket_ids, _gelu_tanh, _t5_layer_norm
 
 
@@ -193,16 +193,8 @@ def clip_text_encode(params: Dict, ids: torch.Tensor, cfg: ClipTextConfig
 
 def _load_safetensors_dir(path: str) -> Dict[str, torch.Tensor]:
     """A single .safetensors file or a directory of shards, as CPU
-    tensors (``safetensors`` is imported here: the package does not
-    depend on it)."""
-    import safetensors.torch
-    if os.path.isdir(path):
-        sd = {}
-        for f in sorted(os.listdir(path)):
-            if f.endswith('.safetensors'):
-                sd.update(safetensors.torch.load_file(os.path.join(path, f)))
-        return sd
-    return dict(safetensors.torch.load_file(path))
+    tensors (``utils/safetensors_io``)."""
+    return load_file(path)
 
 
 def _getters(sd: Dict[str, torch.Tensor], dtype: torch.dtype,

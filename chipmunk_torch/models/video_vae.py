@@ -44,6 +44,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..utils.safetensors_io import load_file
 
 # the largest padded input or output of one convolution call (elements)
 PIECE_ELEMS = 2 ** 28
@@ -408,9 +409,7 @@ def load_hunyuan_vae_decoder(sd: Dict[str, Any],
 
 
 def _read_safetensors(path: str, prefix: str = '') -> Dict[str, torch.Tensor]:
-    from safetensors import safe_open
-    with safe_open(path, framework='pt') as f:
-        return {k: f.get_tensor(k) for k in f.keys() if k.startswith(prefix)}
+    return load_file(path, prefix)
 
 
 def load_hunyuan_vae_safetensors(path: str, cfg: HyVaeConfig = HyVaeConfig(),
@@ -645,7 +644,7 @@ def load_wan_vae_decoder(sd: Dict[str, Any],
 def load_wan_vae(path: str, cfg: WanVaeConfig = WanVaeConfig(),
                  device: DeviceLike = 'cuda') -> Dict:
     """The Wan VAE checkpoint: a ``.pth`` state dict (torch.load) or
-    ``.safetensors`` (read with ``safetensors``, imported here)."""
+    ``.safetensors`` (``utils/safetensors_io``)."""
     if path.endswith('.safetensors'):
         sd = _read_safetensors(path)
     else:

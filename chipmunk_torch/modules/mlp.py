@@ -28,11 +28,18 @@ from ..kernels.csp_mlp import gelu_tanh
 from ..ops import fp8, indexing
 from ..ops.mlp_ref import block_mean
 from ..utils.quant import QTensor, materialize
+from .mlp_fp8 import f8_input_matmul
 
 _SAID = set()      # the int8_act message, once per weight type
 
 
-def _fc1(x, w1t, b1):
+def _fc1(cfg: MlpConfig, x, w1t, b1):
+    """fc1 = x @ w1t^T + b1; under ``mlp.is_fp8`` with an fp8 QTensor
+    weight, x is quantized per call and the product runs fp8 x fp8
+    (``mlp_fp8.f8_input_matmul``).  fc2 stays in x's dtype, as the
+    reference keeps the sparse MLP's second product."""
+    if cfg.is_fp8 and isinstance(w1t, QTensor) and w1t.q.dtype == fp8.FP8:
+        return f8_input_matmul(x, w1t, b1, out_dtype=x.dtype)
     return x @ materialize(w1t, x.dtype).t() + b1.to(x.dtype)
 
 
@@ -86,7 +93,7 @@ class SparseDiffMlp:
     # ---------------------------------------------------------------- steps
     def dense(self, x, w1t, b1, w2, b2):
         """x: [T, C]; w1t, w2: [N, C] (tensors or QTensors)."""
-        mid = _fc1(x, w1t, b1)
+        mid = _fc1(self.cfg, x, w1t, b1)
         return (gelu_tanh(mid.float()).to(x.dtype) @ materialize(w2, x.dtype)
                 + b2.to(x.dtype))
 
@@ -99,7 +106,7 @@ class SparseDiffMlp:
     def full_step(self, x, w1t, b1, w2, b2, state: MlpState
                   ) -> Tuple[torch.Tensor, MlpState]:
         x, t = self._pad(x)
-        mid = _fc1(x, w1t, b1)
+        mid = _fc1(self.cfg, x, w1t, b1)
         pa = gelu_tanh(mid.float()).to(x.dtype)
         out = pa @ materialize(w2, x.dtype) + b2.to(x.dtype)
         return out[:t], state._replace(
@@ -119,7 +126,7 @@ class SparseDiffMlp:
         place of the draw from ``generator``."""
         mbm, bm, bn = self.cfg.mbm, self.cfg.bm, self.cfg.neuron_block
         bmx = block_mean(x[None], mbm)[0]                   # [Mb, C]
-        bmfc1 = _fc1(bmx, w1t, b1)                           # [Mb, N]
+        bmfc1 = _fc1(self.cfg, bmx, w1t, b1)                # [Mb, N]
         mdiff = (bmfc1 - state.bm_mid).float().abs()
         r = bm // mbm
         Mb = mdiff.shape[0]

@@ -2,10 +2,10 @@
 
 ``torch``'s ``.to(torch.float8_e4m3fn)`` saturates: 470 and 1e4 become
 448.  The reference (``jnp.astype(jnp.float8_e4m3fn)``, ml_dtypes) gives
-NaN for every |x| > 464 (448 plus half an ulp) and for +-inf, and rounds
-to nearest even below that.  Every fp8 cache write of the port goes
-through :func:`to_fp8` (or :func:`cast`), and the CUDA kernels convert
-with the same rule (``f2fp8_hw`` in ``csrc/common.cuh``).
+NaN, with x's sign, for every |x| > 464 (448 plus half an ulp) and for
++-inf, and rounds to nearest even below that.  Every fp8 cache write of
+the port goes through :func:`to_fp8` (or :func:`cast`), and the CUDA
+kernels convert with the same rule (``f2fp8_hw`` in ``csrc/common.cuh``).
 """
 from __future__ import annotations
 
@@ -19,8 +19,8 @@ FP8_OVERFLOW = 464.0
 
 def to_fp8(x: torch.Tensor) -> torch.Tensor:
     xf = x.float()
-    return torch.where(xf.abs() > FP8_OVERFLOW,
-                       torch.full_like(xf, float('nan')), xf).to(FP8)
+    nan = torch.copysign(torch.full_like(xf, float('nan')), xf)
+    return torch.where(xf.abs() > FP8_OVERFLOW, nan, xf).to(FP8)
 
 
 def cast(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:

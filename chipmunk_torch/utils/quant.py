@@ -71,6 +71,13 @@ def _check_int4(shape, keep, pack_axis):
         raise ValueError(f'int4 pack axis of {tuple(shape)} must be even')
 
 
+def true_div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c rounded as IEEE division on every device: CUDA divides by a
+    Python scalar as a product with its reciprocal, which can land one
+    ulp away from the reference's quotient."""
+    return x / x.new_tensor(c)
+
+
 def quantize(w: torch.Tensor, kind: str, keep_axes,
              pack_axis: Optional[int] = None) -> QTensor:
     """kind: 'fp8' | 'int8' | 'int4'.  keep_axes: the axes the scale
@@ -81,15 +88,15 @@ def quantize(w: torch.Tensor, kind: str, keep_axes,
     red = tuple(i for i in range(w.ndim) if i not in keep)
     amax = wf.abs().amax(dim=red, keepdim=True).clamp(min=1e-8)
     if kind == 'fp8':
-        scale = amax / F8_MAX
+        scale = true_div(amax, F8_MAX)
         return QTensor(fp8.to_fp8(wf / scale), scale, None)
     if kind == 'int8':
-        scale = amax / 127.0
+        scale = true_div(amax, 127.0)
         q = torch.round(wf / scale).clamp(-127, 127).to(torch.int8)
         return QTensor(q, scale, None)
     if kind == 'int4':
         _check_int4(w.shape, keep, pack_axis)
-        scale = amax / 7.0
+        scale = true_div(amax, 7.0)
         qi = torch.round(wf / scale).clamp(-8, 7).to(torch.int32) + 8
         q, pa = _int4_pack(qi, pack_axis, w.ndim)
         return QTensor(q, scale, pa)

@@ -11,7 +11,10 @@ kernel, NaN in unselected MLP weight blocks, int8 weights holding all
 256 codes, a8 neuron blocks of 384 and 512, the packed-KV csp kernel,
 keys and query rows passed as sliced views); and the plain versions of
 the FLUX prompt encoders and the three VAE decoders on the card against
-the CPU, with a causal conv and a group norm beyond int32 indexing.  The
+the CPU, with a causal conv and a group norm beyond int32 indexing; the
+checkpoint loaders on the card against the CPU, ``f8_input_matmul``
+(``torch._scaled_mm``) against its plain version and ``load_file`` to
+the card.  The
 kernels have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -1757,3 +1760,110 @@ def test_cuda_streamed_loop_matches_resident(gen, model):
     assert launches[0] == launches[1] and launches[0]['dense_colsum_attn']
     assert torch.isfinite(outs[0]).all()
     assert torch.equal(outs[0], outs[1])
+
+
+def _same_tree(got, want, path=''):
+    """Leaf for leaf torch.equal, ``got`` moved to the host."""
+    if isinstance(want, dict):
+        assert sorted(got) == sorted(want), path
+        for k in want:
+            _same_tree(got[k], want[k], f'{path}/{k}')
+    elif isinstance(want, list):
+        assert len(got) == len(want), path
+        for i, (g, w) in enumerate(zip(got, want)):
+            _same_tree(g, w, f'{path}/{i}')
+    elif isinstance(want, QT.QTensor):
+        assert got.pack_axis == want.pack_axis, path
+        _same_tree(got.q, want.q, path + '.q')
+        _same_tree(got.scale, want.scale, path + '.scale')
+    else:
+        assert got.device.type == 'cuda', path
+        assert got.dtype == want.dtype and torch.equal(got.cpu(), want), path
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('model', ['flux', 'flux_fp8', 'hunyuan', 'wan'])
+def test_cuda_loaders_match_cpu(gen, model):
+    """The loaders on device='cuda' over a state dict on the card equal
+    the loaders on the CPU over the same tensors (is_fp8: the int8 and
+    fp8 quantization on the card byte for byte the CPU's)."""
+    import chipmunk_torch.models as tm
+    from chip_smoke import (SeededStateDict, flux_bfl_shapes, hunyuan_shapes,
+                            wan_shapes)
+    from chipmunk_torch.config import config_from_dict
+    from chipmunk_torch.models import loaders
+    if model.startswith('flux'):
+        cfg = tm.FluxModelConfig(depth=2, depth_single_blocks=2,
+                                 hidden_size=256, num_heads=2)
+        shapes = flux_bfl_shapes(cfg)
+        ck = config_from_dict({'mlp': {'is_fp8': model == 'flux_fp8'}})
+
+        def load(sd, dev):
+            return loaders.load_flux_params(sd, cfg, ck=ck, device=dev)
+    elif model == 'hunyuan':
+        cfg = tm.HunyuanModelConfig(latent_t=2, latent_h=16, latent_w=16,
+                                    depth_double=2, depth_single=2,
+                                    hidden_size=256, num_heads=2, txt_len=32)
+        shapes = hunyuan_shapes(cfg)
+
+        def load(sd, dev):
+            return loaders.load_hunyuan_params(sd, cfg, device=dev)
+    else:
+        cfg = tm.WanModelConfig(latent_t=2, latent_h=16, latent_w=16,
+                                num_layers=2, dim=256, num_heads=2,
+                                ffn_dim=1024, txt_len=32)
+        shapes = wan_shapes(cfg)
+
+        def load(sd, dev):
+            return loaders.load_wan_params(sd, cfg, device=dev)
+    sd = SeededStateDict(torch, shapes, 5, 'cuda', torch.float32)
+    host = {k: sd[k].cpu() for k in sd}
+    _same_tree(load(sd, 'cuda'), load(host, 'cpu'))
+
+
+@pytest.mark.cuda
+def test_cuda_f8_input_matmul_matches_plain(gen):
+    """torch._scaled_mm on the card against the plain version on the CPU
+    (exact fp8 products; the card's fp8 tensor cores sum them in less
+    than float32 precision, 1e-3 absolute at K = 512 and outputs of RMS
+    ~1): float32 outputs within one e4m3 ulp at the larger of the value
+    and the outputs' RMS, the largest error below 1% of the RMS; a K or N
+    that is not a multiple of 16 raises on the card."""
+    from chipmunk_torch.modules import mlp_fp8
+    x = torch.randn((300, 512), generator=gen, device='cuda')
+    wq = QT.quantize(torch.randn((1024, 512), generator=gen, device='cuda')
+                     * 512 ** -0.5, 'fp8', keep_axes=(0,))
+    b = torch.randn((1024,), generator=gen, device='cuda') * 0.02
+    got = mlp_fp8.f8_input_matmul(x, wq, b)
+    want = mlp_fp8.f8_input_matmul(x.cpu(), wq.to('cpu'), b.cpu())
+    assert got.dtype == torch.float32 and got.is_cuda
+    rms = want.pow(2).mean().sqrt()
+    mag = torch.maximum(want.abs(), rms)
+    e4m3_ulp = torch.exp2(torch.floor(torch.log2(mag.clamp(min=2 ** -6))) - 3)
+    diff = (got.cpu() - want).abs()
+    assert bool((diff <= e4m3_ulp).all()), diff.max()
+    assert diff.max() < 1e-2 * rms
+    bf = mlp_fp8.f8_input_matmul(x.to(torch.bfloat16), wq, b)
+    assert bf.dtype == torch.bfloat16
+    odd = QT.quantize(torch.randn((40, 24), generator=gen, device='cuda'),
+                      'fp8', keep_axes=(0,))
+    with pytest.raises(ValueError, match='multiples of 16'):
+        mlp_fp8.f8_input_matmul(torch.ones((8, 24), device='cuda'), odd)
+
+
+@pytest.mark.cuda
+def test_cuda_load_file_to_the_card(gen, tmp_path):
+    from chipmunk_torch.utils.safetensors_io import load_file, save_file
+    ts = {'a': torch.randn((64, 32), generator=gen, device='cuda'),
+          'b': torch.randn((7,), generator=gen, device='cuda').to(
+              torch.bfloat16),
+          'c': fp8.to_fp8(torch.randn((16, 16), generator=gen,
+                                      device='cuda'))}
+    f = str(tmp_path / 'x.safetensors')
+    save_file(ts, f)
+    got = load_file(f, device='cuda')
+    for k, v in ts.items():
+        assert got[k].is_cuda and got[k].dtype == v.dtype
+        assert torch.equal(got[k].view(torch.uint8) if v.dtype == fp8.FP8
+                           else got[k], v.view(torch.uint8)
+                           if v.dtype == fp8.FP8 else v)

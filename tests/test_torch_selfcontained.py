@@ -23,16 +23,17 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     code = textwrap.dedent(f'''
         import importlib, importlib.abc, sys
 
+        BLOCKED = ('jax', 'jaxlib', 'chipmunk_tpu', 'safetensors')
+
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
-                if name.split('.')[0] in ('jax', 'jaxlib', 'chipmunk_tpu'):
+                if name.split('.')[0] in BLOCKED:
                     raise ImportError('blocked: ' + name)
 
         sys.meta_path.insert(0, Block())
         for m in {MODULES!r}:
             importlib.import_module(m)
-        bad = [m for m in sys.modules
-               if m.split('.')[0] in ('jax', 'jaxlib', 'chipmunk_tpu')]
+        bad = [m for m in sys.modules if m.split('.')[0] in BLOCKED]
         assert not bad, bad
         # importing compiled and loaded no kernel library
         assert not sys.modules['chipmunk_torch.kernels._build']._libs
@@ -54,6 +55,10 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     for m in ('flux_encoders', 'encoders', 'autoencoder', 'video_vae',
               'loaders'):
         assert f'chipmunk_torch.models.{m}' in MODULES
+    for m in ('modules.mlp_fp8', 'utils.safetensors_io', 'cli',
+              'cli.flux_generate', 'cli.hunyuan_generate',
+              'cli.wan_generate'):
+        assert f'chipmunk_torch.{m}' in MODULES
 
 
 def test_no_jax_or_reference_imports_in_sources():
@@ -61,6 +66,17 @@ def test_no_jax_or_reference_imports_in_sources():
     for root, _, names in os.walk(PKG):
         files += [os.path.join(root, n) for n in names if n.endswith('.py')]
     hits = [f for f in files if FORBIDDEN.search(open(f).read())]
+    assert not hits, hits
+
+
+def test_no_module_of_the_port_imports_safetensors():
+    """Checkpoints are read with utils/safetensors_io: the card's machine
+    has no safetensors package."""
+    pattern = re.compile(r'^\s*(import|from)\s+safetensors\b', re.M)
+    files = [os.path.join(root, n) for root, _, names in os.walk(PKG)
+             for n in names if n.endswith('.py')]
+    assert len(files) > 40
+    hits = [f for f in files if pattern.search(open(f).read())]
     assert not hits, hits
 
 
