@@ -58,10 +58,19 @@
    ``scaled_dot_product_attention`` call computing the same function (for
    the csp kernels with a boolean block mask on a few heads, scaled to
    all 24: the mask of all heads does not fit the card); then
+   HunyuanVideo's prompt encoders at full size in bf16 (random weights
+   from a seed): LLaVA-LLaMA-3-8B's language model and CLIP-L through
+   ``HunyuanTextEncoders.embed`` with stand-in tokenizers (the card's
+   machine has no tokenizer package), one prompt under the video
+   template (parameters, GB, draw seconds, encode ms, peak GiB; shapes,
+   finite values, the pooled row the first EOT's; the first 2 layers on
+   the card in bf16 against the CPU in float32 within LLAMA_TOL), the
+   encoders released; then
    the main path ``hunyuan_denoise`` over the 50-step
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
    the full-width model cut to 1 double + 2 single blocks, random bf16
-   weights from a seed, with its launch counts, a trace of a window of
+   weights from a seed, that prompt's (txt, txt_mask, vec), with its
+   launch counts, a trace of a window of
    sparse steps, its dense loop and its compiled sparse loop
    (``hunyuan_denoise_compiled``, launches VIDEO_LAUNCHES too) and its
    streamed loop (``hunyuan_denoise(..., streamed=model.make_streamed(1,
@@ -86,8 +95,9 @@
    block) at Wan's shapes (12 heads), each against its plain version,
    with device times, bounds and the matching
    ``scaled_dot_product_attention`` call; the UMT5-XXL encoder at full
-   size in bf16 (random weights from a seed) on two prompts of random
-   ids, zero-padded past their valid prefixes; then the main path
+   size in bf16 (random weights from a seed) through
+   ``WanTextEncoder.embed`` with a stand-in tokenizer on two prompts
+   (cond, uncond), zeroed past each prompt; then the main path
    ``wan_denoise`` over the 50-step schedule of
    ``configs/wan-chipmunk.yml`` (as read) at 480x832x81 frames with
    Wan2.1-T2V-1.3B at full width and depth (30 layers), random bf16
@@ -133,7 +143,12 @@
    three generate CLIs run at once as subprocesses from .safetensors
    files written by ``safetensors_io.save_file``: FLUX at full width and
    depth 1 + 1, HunyuanVideo (streamed, as its config asks) and Wan at
-   ``--tiny``; each must exit 0 with finite latents of their shape.
+   ``--tiny``; beside them HunyuanVideo with ``--prompt`` and tiny local
+   ``--llm`` / ``--clip`` directories (stand-in tokenizers), and FLUX at
+   ``--tiny`` with ``--profile`` in a temporary working directory; each
+   must exit 0 with finite latents of their shape, the prompt's latents
+   must differ from the zero-text run's and the trace must name the
+   port's attention kernel.
 8. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
@@ -148,8 +163,10 @@ import importlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -230,6 +247,14 @@ WAN_DENSE_LAUNCHES = {'dense_attn': 6000}
 # UMT5-XXL prompts: two rows of 512 ids, valid prefixes of these lengths
 # (cond, uncond)
 UMT5_VALID = (93, 27)
+# the prompts the stand-in tokenizers encode (one id a character)
+WAN_PROMPT = 'A red fox runs through deep snow at dawn, cinematic. '
+HY_PROMPT = 'A cat walks on the grass, realistic style.'
+# LLaVA-LLaMA-3-8B against the CPU: a 2-layer full-width trunk in bf16 on
+# the card, float32 on the CPU, every hidden state within a mean relative
+# difference of LLAMA_TOL and a largest difference of LLAMA_TOL of its
+# largest magnitude (the bf16 tolerance of tests/test_torch_llama.py)
+LLAMA_TOL = 2e-2
 # HunyuanVideo's VAE decodes the first HY_DECODE_N of the 540p loop's 33
 # latent frames (4 * 19 + 1 = 77 of 129 frames): the largest N whose
 # reserved peak left at least 8 GiB of an 80 GB H100's 79.2 GiB in a sweep
@@ -243,6 +268,58 @@ HY_DECODE_N = 20
 def fail(msg):
     print(f'chip_smoke: FAILED: {msg}', file=sys.stderr)
     sys.exit(1)
+
+
+class StandInTokenizer:
+    """A tokenizer's call as the prompt holders make it (the card's
+    machine has no tokenizer package): one id a character (its code point
+    folded below ``vocab - 1``), then ``eot`` where given, padded with
+    ``pad`` to max_length and cut there; a text that starts with
+    ``prefix`` takes ``prefix_len`` ids for it, as LLaMA-3's tokenizer
+    cuts HunyuanVideo's instruction template into 95."""
+
+    def __init__(self, vocab, pad, eot=None, prefix=None, prefix_len=0):
+        self.vocab, self.pad, self.eot = vocab, pad, eot
+        self.prefix, self.prefix_len = prefix, prefix_len
+
+    def __call__(self, texts, max_length, padding='max_length',
+                 truncation=True, return_tensors='np'):
+        import numpy as np
+        ids = np.full((len(texts), max_length), self.pad, np.int64)
+        mask = np.zeros((len(texts), max_length), np.int64)
+        for b, t in enumerate(texts):
+            row = []
+            if self.prefix and t.startswith(self.prefix):
+                row = [(7 * i + 3) % (self.vocab - 1)
+                       for i in range(self.prefix_len)]
+                t = t[len(self.prefix):]
+            row += [ord(ch) % (self.vocab - 1) for ch in t]
+            if self.eot is not None:
+                row.append(self.eot)
+            row = row[:max_length]
+            ids[b, :len(row)], mask[b, :len(row)] = row, 1
+        return {'input_ids': ids, 'attention_mask': mask}
+
+
+def llm_tokenizer(vocab):
+    from chipmunk_torch.models import (PROMPT_TEMPLATE_ENCODE_VIDEO,
+                                       VIDEO_CROP_START)
+    return StandInTokenizer(vocab, vocab - 1,
+                            prefix=PROMPT_TEMPLATE_ENCODE_VIDEO.split('{}')[0],
+                            prefix_len=VIDEO_CROP_START)
+
+
+def local_tokenizer(path, who):
+    """``video_encoders.load_tokenizer``'s stand-in for a twin run on the
+    card's machine: the stand-in of the directory's model (its
+    config.json: a LLaMA, a CLIP text tower, else UMT5's ids)."""
+    cfg_file = os.path.join(path, 'config.json')
+    with open(cfg_file) as f:
+        d = json.load(f)
+    if d.get('model_type') == 'llama':
+        return llm_tokenizer(d['vocab_size'])
+    return StandInTokenizer(d['vocab_size'], d['vocab_size'] - 1,
+                            eot=d['vocab_size'] - 1)
 
 
 def bound_ms(flops, nbytes, peak=PEAK_BF16_FLOPS):
@@ -2001,8 +2078,11 @@ def run_video(torch, tm, model, params, inputs, steps=None, callback=None,
     callback; ``streamed``: (runner, state) of ``model.make_streamed``)
     over the config's schedule (unshifted, as the reference's video
     bench), the first ``steps`` steps only if given, guidance 6.0, random
-    keeps from a seeded generator on the model's device.  Returns
+    keeps from a seeded generator on the model's device.  ``inputs``:
+    (latent, txt, vec) or (latent, txt, vec, txt_mask).  Returns
     (latent, seconds)."""
+    mask = inputs[3] if len(inputs) > 3 else None
+    inputs = inputs[:3]
     dev = model.device
     ts = tm.get_schedule(model.ck.steps, model.cfg.img_len, shift=False)
     if steps is not None:
@@ -2014,11 +2094,12 @@ def run_video(torch, tm, model, params, inputs, steps=None, callback=None,
     t0 = time.perf_counter()
     if compiled:
         out = tm.hunyuan_denoise_compiled(model, params, *inputs, ts,
-                                          guidance=6.0, generator=gen)
+                                          guidance=6.0, generator=gen,
+                                          txt_mask=mask)
     else:
         out = tm.hunyuan_denoise(model, params, *inputs, ts, guidance=6.0,
                                  generator=gen, callback=callback,
-                                 streamed=streamed)
+                                 streamed=streamed, txt_mask=mask)
     if dev.type == 'cuda':
         torch.cuda.synchronize()
     return out, time.perf_counter() - t0
@@ -2043,10 +2124,125 @@ def dense_config(ck):
         step_caching=dataclasses.replace(ck.step_caching, is_enabled=False))
 
 
-def drive_video_path(torch, kern, tm, ck):
+def llama_agreement(torch, tm, params, cfg, ids, mask):
+    """The first 2 layers of ``params`` at full width: the card in bf16
+    against the CPU in float32 on the same weights (the embedding rows of
+    ``ids`` only), every hidden state within LLAMA_TOL."""
+    cfg2 = dataclasses.replace(cfg, num_hidden_layers=2)
+    p2 = {'embed': params['embed'], 'layers': params['layers'][:2],
+          'norm': params['norm']}
+    got = tm.llama_hidden_states(p2, ids, mask, cfg2)
+    rows, inv = torch.unique(ids, return_inverse=True)
+    cpu = {'embed': p2['embed'][rows].float().cpu(),
+           'layers': [{k: v.float().cpu() for k, v in lp.items()}
+                      for lp in p2['layers']],
+           'norm': p2['norm'].float().cpu()}
+    t0 = time.perf_counter()
+    ref = tm.llama_hidden_states(
+        cpu, inv.cpu(), mask.cpu(),
+        dataclasses.replace(cfg2, dtype=torch.float32))
+    cpu_s = time.perf_counter() - t0
+    errs = []
+    for g, r in zip(got, ref):
+        d = (g.float().cpu() - r).abs()
+        errs.append(((d.mean() / r.abs().mean()).item(),
+                     (d.max() / r.abs().max()).item()))
+    print(f'LLaMA-3 2-layer full-width trunk, card bf16 vs CPU float32 '
+          f'(CPU {cpu_s:.1f} s): (mean relative, largest / largest '
+          f'magnitude) per hidden state '
+          f'{[(float(f"{a:.3e}"), float(f"{b:.3e}")) for a, b in errs]}; '
+          f'tolerance {LLAMA_TOL}', flush=True)
+    bad = [e for e in errs if not (e[0] <= LLAMA_TOL and e[1] <= LLAMA_TOL)]
+    if bad:
+        fail(f'LLaMA-3 trunk on the card differs from the CPU: {errs}')
+
+
+def encode_hunyuan_text(torch, tm):
+    """HunyuanVideo's prompt encoders at full size in bf16, weights drawn
+    on the card from a seed: LLaVA-LLaMA-3-8B's language model
+    (``LlamaConfig()``: 32 layers, hidden 4096, 32 heads over 8 key/value
+    heads, vocab 128,256, theta 500,000) and CLIP-L (``ClipTextConfig()``,
+    its EOT id 49,407 the largest id and the pad), through
+    ``HunyuanTextEncoders.embed`` with stand-in tokenizers set on the
+    holder: HY_PROMPT under the video template, 95 + 256 rows.  Prints the
+    parameters, GB, draw seconds, encode ms and peak GiB; checks finite
+    values, the shapes [1, 256, 4096] / [1, 256] / [1, 768], that the
+    pooled row is the first EOT's and that the text rows are the prompt's;
+    holds the first 2 layers against the CPU (``llama_agreement``);
+    releases the encoders.  Returns (txt, txt_mask, vec)."""
+    cfg = tm.LlamaConfig(dtype=torch.bfloat16)
+    ccfg = tm.ClipTextConfig(dtype=torch.bfloat16, eos_token_id=49407)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 8)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = tm.init_llama_params(gen, cfg, 'cuda')
+    cparams = tm.init_clip_params(gen, ccfg, 'cuda')
+    torch.cuda.synchronize()
+    draw_s = time.perf_counter() - t0
+    leaves = tensors(params)
+    n_par = sum(t.numel() for t in leaves)
+    gb = sum(t.numel() * t.element_size() for t in leaves) / 1e9
+    del leaves
+    enc = tm.HunyuanTextEncoders(dtype=torch.bfloat16)
+    enc._llm, enc._clip = (params, cfg), (cparams, ccfg)
+    enc._llm_tok = llm_tokenizer(cfg.vocab_size)
+    enc._clip_tok = StandInTokenizer(ccfg.vocab_size, 49407, eot=49407)
+    print(f'LLaVA-LLaMA-3-8B trunk: {cfg.num_hidden_layers} layers, hidden '
+          f'{cfg.hidden_size}, {cfg.num_attention_heads} heads over '
+          f'{cfg.num_key_value_heads} kv heads, vocab {cfg.vocab_size}, '
+          f'theta {cfg.rope_theta:g}: {n_par / 1e9:.3f}B parameters, '
+          f'{gb:.2f} GB bf16; with CLIP-L drawn on the card in '
+          f'{draw_s:.2f} s', flush=True)
+    enc.embed([HY_PROMPT])                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    txt, txt_mask, y = enc.embed([HY_PROMPT])
+    torch.cuda.synchronize()
+    enc_ms = (time.perf_counter() - t0) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_valid = int(txt_mask.sum())
+    print(f'HunyuanTextEncoders.embed: 1 prompt, {enc.max_length} rows '
+          f'(95 template + {txt.shape[1]}; {n_valid} prompt rows valid), '
+          f'the LLM to its layer {cfg.num_hidden_layers - 2} of '
+          f'{cfg.num_hidden_layers} and CLIP-L: {enc_ms:.1f} ms, peak '
+          f'{peak:.2f} GiB allocated', flush=True)
+    if (tuple(txt.shape) != (1, 256, 4096) or tuple(txt_mask.shape)
+            != (1, 256) or tuple(y.shape) != (1, 768)):
+        fail(f'HunyuanTextEncoders: shapes {tuple(txt.shape)} '
+             f'{tuple(txt_mask.shape)} {tuple(y.shape)}')
+    if not (bool(torch.isfinite(txt).all()) and bool(
+            torch.isfinite(y).all())):
+        fail('HunyuanTextEncoders: non-finite values')
+    want = len(HY_PROMPT) + len('<|eot_id|>')
+    if n_valid != want or not bool(txt_mask[0, :want].all()):
+        fail(f'HunyuanTextEncoders: {n_valid} valid rows, expected {want}')
+    ct = enc._clip_tok([HY_PROMPT], 77)
+    cids = torch.as_tensor(ct['input_ids'], device='cuda')
+    hidden, pooled = tm.clip_text_encode(cparams, cids, ccfg)
+    eot = len(HY_PROMPT)
+    if not torch.equal(pooled, y) or not torch.equal(y[0], hidden[0, eot]):
+        fail('CLIP-L: the pooled row is not the first EOT\'s')
+    tt = enc._llm_tok([tm.PROMPT_TEMPLATE_ENCODE_VIDEO.format(HY_PROMPT)],
+                      enc.max_length)
+    llama_agreement(torch, tm, params, cfg,
+                    torch.as_tensor(tt['input_ids'], device='cuda'),
+                    torch.as_tensor(tt['attention_mask'], device='cuda'))
+    enc.release()
+    del params, cparams, hidden, pooled
+    torch.cuda.empty_cache()
+    print(f'prompt encoders released: '
+          f'{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB allocated on '
+          f'the card', flush=True)
+    return txt, txt_mask, y
+
+
+def drive_video_path(torch, kern, tm, ck, text):
     """The video main path: hunyuan_denoise at 544x960x129 frames (67,584
     tokens), full width, 1 double + 2 single blocks, random bf16 weights
-    from a seed, the shipped config unchanged: launch counts set to 0 just
+    from a seed, the shipped config unchanged, the prompt's (txt,
+    txt_mask, vec) of encode_hunyuan_text: launch counts set to 0 just
     before and read just after (each must equal the schedule's count,
     VIDEO_LAUNCHES, and no other kernel may run), output finite and of
     the latent's shape; a trace of steps 2-9; the dense loop on the same
@@ -2058,7 +2254,8 @@ def drive_video_path(torch, kern, tm, ck):
     gen = torch.Generator('cuda')
     gen.manual_seed(SEED)
     params = tm.init_hunyuan_params(gen, cfg, 'cuda')
-    inputs = video_inputs(torch, cfg, 'cuda')
+    txt, txt_mask, y = text
+    inputs = (video_inputs(torch, cfg, 'cuda')[0], txt, y, txt_mask)
     model = tm.HunyuanModel(cfg=cfg, ck=ck)
     a = model.sp.attn_s
     print(f'video model: latent {tuple(inputs[0].shape)}, {cfg.img_len} '
@@ -2067,7 +2264,9 @@ def drive_video_path(torch, kern, tm, ck):
           f'{cfg.depth_single}, jmax {a.jmax}, dense tail from group '
           f'{a.dense_tail_g}, materialize_indices '
           f'{model.ck.attn.materialize_indices}; weights and model built in '
-          f'{time.perf_counter() - t0:.1f} s', flush=True)
+          f'{time.perf_counter() - t0:.1f} s; text from the prompt encoder '
+          f'({int(txt_mask.sum())} of {txt_mask.shape[1]} rows valid)',
+          flush=True)
     kern.reset_launches()
     marks = {}
     out, sparse_s = run_video(torch, tm, model, params, inputs,
@@ -2590,56 +2789,64 @@ def tensors(tree):
 
 def encode_wan_text(torch, tm):
     """UMT5-XXL at full size in bf16 (24 layers, dim 4096, 64 heads, vocab
-    256,384; weights from init_umt5_params on a seed) encodes two rows of
-    512 random ids with valid prefixes of UMT5_VALID tokens (cond,
-    uncond); each row is zeroed past its prefix, as the reference's
-    WanTextEncoder.embed does.  Checks: finite, [2, 512, 4096], and a
-    second encoding with the ids past each prefix redrawn agrees on the
-    valid rows (mean relative difference <= 1e-3: masked keys add exactly
-    0).  The encoder is released before returning (ctx_cond,
-    ctx_uncond), each [1, 512, 4096] bf16."""
+    256,384; weights from init_umt5_params on a seed) through
+    ``WanTextEncoder.embed``, a stand-in tokenizer set on the holder: two
+    prompts (cond, uncond) of UMT5_VALID tokens padded to 512, each row
+    zeroed past its prompt.  Checks: finite, [2, 512, 4096], the rows past
+    each prompt exactly 0, and the tokenizer's ids with those past each
+    prompt redrawn, through ``umt5_encode``, agree on the valid rows
+    (mean relative difference <= 1e-3: masked keys add exactly 0).  The
+    encoder is released before returning (ctx_cond, ctx_uncond), each
+    [1, 512, 4096] bf16."""
     cfg = tm.UMT5Config(dtype=torch.bfloat16)
     gen = torch.Generator('cuda')
     gen.manual_seed(SEED + 6)
+    enc = tm.WanTextEncoder(text_len=512, dtype=torch.bfloat16)
     t0 = time.perf_counter()
-    params = tm.init_umt5_params(gen, cfg, 'cuda')
+    enc._params, enc._cfg = tm.init_umt5_params(gen, cfg, 'cuda'), cfg
+    enc._tok = StandInTokenizer(cfg.vocab_size, 0, eot=1)
     torch.cuda.synchronize()
-    leaves = tensors(params)
+    leaves = tensors(enc._params)
     n_par = sum(t.numel() for t in leaves)
     print(f'UMT5-XXL: {cfg.num_layers} layers, dim {cfg.dim}, '
           f'{cfg.num_heads} heads, vocab {cfg.vocab_size}: '
           f'{n_par / 1e9:.3f}B parameters, '
           f'{sum(t.numel() * t.element_size() for t in leaves) / 1e9:.2f} '
-          f'GB bf16, drawn on the card in {time.perf_counter() - t0:.1f} s',
+          f'GB bf16, drawn on the card in {time.perf_counter() - t0:.2f} s',
           flush=True)
     L = 512
-    ids = torch.randint(0, cfg.vocab_size, (2, L), generator=gen,
-                        device='cuda')
-    valid = torch.tensor(UMT5_VALID, device='cuda')
-    mask = (torch.arange(L, device='cuda')[None] < valid[:, None]).int()
-    tm.umt5_encode(params, ids, mask, cfg)        # warm-up
+    prompts = [(WAN_PROMPT * 4)[:n - 1] for n in UMT5_VALID]
+    enc.embed(prompts)                            # warm-up
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    ctx = tm.umt5_encode(params, ids, mask, cfg)
+    ctx = enc.embed(prompts)
     torch.cuda.synchronize()
     enc_s = time.perf_counter() - t0
+    tt = enc._tok(prompts, L)
+    ids = torch.as_tensor(tt['input_ids'], device='cuda')
+    mask = torch.as_tensor(tt['attention_mask'], device='cuda')
+    if tuple(mask.sum(1).tolist()) != UMT5_VALID:
+        fail(f'UMT5: the stand-in gave {mask.sum(1).tolist()} tokens')
     ids2 = torch.where(mask.bool(), ids, torch.randint(
         0, cfg.vocab_size, (2, L), generator=gen, device='cuda'))
-    ctx2 = tm.umt5_encode(params, ids2, mask, cfg)
+    ctx2 = tm.umt5_encode(enc._params, ids2, mask, cfg)
     if ctx.shape != (2, L, cfg.dim) or ctx.dtype != torch.bfloat16:
         fail(f'UMT5: output {tuple(ctx.shape)} {ctx.dtype}')
     if not bool(torch.isfinite(ctx).all()):
         fail('UMT5: non-finite values')
-    ctx = ctx * mask[..., None].to(ctx.dtype)
+    if bool((ctx * (1 - mask[..., None]).to(ctx.dtype)).any()):
+        fail('UMT5: WanTextEncoder.embed left rows past a prompt non-zero')
     ctx2 = ctx2 * mask[..., None].to(ctx2.dtype)
     rel = ((ctx.float() - ctx2.float()).abs().mean()
            / ctx.float().abs().mean()).item()
-    print(f'UMT5-XXL: encoded 2 x {L} ids (valid {UMT5_VALID}) in '
-          f'{enc_s * 1e3:.1f} ms; the ids past the prefixes redrawn: mean '
-          f'relative difference {rel:.3e} on the valid rows', flush=True)
+    print(f'UMT5-XXL: WanTextEncoder.embed of 2 prompts ({UMT5_VALID} '
+          f'tokens of {L}) in {enc_s * 1e3:.1f} ms; the ids past the '
+          f'prompts redrawn: mean relative difference {rel:.3e} on the '
+          f'valid rows', flush=True)
     if not rel <= 1e-3:
         fail(f'UMT5: the padded ids change the valid rows: {rel}')
-    del params, leaves, ctx2
+    enc.release()
+    del leaves, ctx2
     torch.cuda.empty_cache()
     print(f'UMT5-XXL released: {torch.cuda.memory_allocated() / 1e9:.2f} GB '
           f'allocated on the card', flush=True)
@@ -3531,6 +3738,85 @@ def f8_input_matmul_phase(torch):
           f'max(|plain|, RMS))', flush=True)
 
 
+def write_tiny_video_encoders(torch, tm, d):
+    """Local encoder directories for the HunyuanVideo twin's --llm and
+    --clip, at the widths the model reads (text 4096, pooled 768): a
+    LLaMA of 3 layers (the skip-2 selection runs one), 32 heads over 1
+    key/value head, SwiGLU 64, vocab 512, theta 500,000, bf16, its names
+    under ``model.`` with an lm_head; a 1-layer CLIP text tower of width
+    768, vocab 512 (the EOT 511 also the pad).  config.json and one
+    safetensors file each, written by ``save_file``; weights from a
+    seed."""
+    from chipmunk_torch.utils.safetensors_io import save_file
+    gen = torch.Generator()
+    gen.manual_seed(SEED + 9)
+    lcfg = tm.LlamaConfig(vocab_size=512, num_hidden_layers=3,
+                          num_key_value_heads=1, intermediate_size=64)
+    p = tm.init_llama_params(gen, lcfg, 'cpu')
+    sd = {'model.embed_tokens.weight': p['embed'],
+          'model.norm.weight': p['norm'], 'lm_head.weight': p['embed']}
+    names = {'q': 'self_attn.q_proj', 'k': 'self_attn.k_proj',
+             'v': 'self_attn.v_proj', 'o': 'self_attn.o_proj',
+             'gate': 'mlp.gate_proj', 'up': 'mlp.up_proj',
+             'down': 'mlp.down_proj'}
+    for i, lp in enumerate(p['layers']):
+        pre = f'model.layers.{i}.'
+        sd[pre + 'input_layernorm.weight'] = lp['ln1']
+        sd[pre + 'post_attention_layernorm.weight'] = lp['ln2']
+        for n, hf in names.items():
+            sd[f'{pre}{hf}.weight'] = lp[n].t()
+    llm = os.path.join(d, 'llm')
+    os.makedirs(llm)
+    save_file({k: v.to(torch.bfloat16) for k, v in sd.items()},
+              os.path.join(llm, 'model.safetensors'))
+    with open(os.path.join(llm, 'config.json'), 'w') as f:
+        json.dump({'model_type': 'llama', 'hidden_act': 'silu',
+                   'vocab_size': 512, 'hidden_size': 4096,
+                   'num_hidden_layers': 3, 'num_attention_heads': 32,
+                   'num_key_value_heads': 1, 'intermediate_size': 64,
+                   'rms_norm_eps': 1e-5, 'rope_theta': 500000.0}, f)
+    ccfg = tm.ClipTextConfig(vocab_size=512, num_layers=1, eos_token_id=511)
+    c = tm.init_clip_params(gen, ccfg, 'cpu')
+    sd = {'text_model.embeddings.token_embedding.weight':
+          c['token_embedding'],
+          'text_model.embeddings.position_embedding.weight':
+          c['pos_embedding'],
+          'text_model.final_layer_norm.weight': c['lnf_w'],
+          'text_model.final_layer_norm.bias': c['lnf_b']}
+    for i, b in enumerate(c['blocks']):
+        pre = f'text_model.encoder.layers.{i}.'
+        for n, src in (('q', 'self_attn.q_proj'), ('k', 'self_attn.k_proj'),
+                       ('v', 'self_attn.v_proj'),
+                       ('o', 'self_attn.out_proj'), ('fc1', 'mlp.fc1'),
+                       ('fc2', 'mlp.fc2')):
+            sd[f'{pre}{src}.weight'] = b[n].t()
+            sd[f'{pre}{src}.bias'] = b[n + '_b']
+        for n in ('1', '2'):
+            sd[f'{pre}layer_norm{n}.weight'] = b[f'ln{n}_w']
+            sd[f'{pre}layer_norm{n}.bias'] = b[f'ln{n}_b']
+    clip = os.path.join(d, 'clip')
+    os.makedirs(clip)
+    save_file(sd, os.path.join(clip, 'model.safetensors'))
+    with open(os.path.join(clip, 'config.json'), 'w') as f:
+        json.dump({'model_type': 'clip_text_model', 'vocab_size': 512,
+                   'hidden_size': 768, 'num_attention_heads': 12,
+                   'num_hidden_layers': 1, 'max_position_embeddings': 77,
+                   'hidden_act': 'quick_gelu', 'layer_norm_eps': 1e-5,
+                   'eos_token_id': 511}, f)
+    return llm, clip
+
+
+# a twin run with the stand-in tokenizers in place of transformers'
+# (video_encoders.load_tokenizer), as a user without the package would
+# hand the holders their own
+PROMPT_DRIVER = (
+    'import sys; sys.path.insert(0, {root!r}); import chip_smoke; '
+    'import chipmunk_torch.models.video_encoders as ve; '
+    've.load_tokenizer = chip_smoke.local_tokenizer; '
+    'from chipmunk_torch.cli.hunyuan_generate import main; '
+    'sys.exit(main(sys.argv[1:]))')
+
+
 def run_twins(torch, tm):
     """(c) the three twins as a user runs them, each as ``python -m
     chipmunk_torch.cli.<name> --ckpt <file>`` from .safetensors files
@@ -3538,12 +3824,20 @@ def run_twins(torch, tm):
     FLUX.1-dev at full width, depth 1 + 1, 4 steps, configs/flux-chipmunk.yml;
     HunyuanVideo (configs/hunyuan-chipmunk.yml: the streamed runner) and
     Wan (configs/wan-chipmunk.yml) at --tiny, 4 steps, 128x128, 5 frames.
-    The three run at once; each must exit 0, say what it loaded, and
-    write finite latents of their shape."""
+    Beside them: the same HunyuanVideo run with --prompt HY_PROMPT and
+    --llm / --clip, tiny local encoders in a temporary directory
+    (``write_tiny_video_encoders``; the stand-in tokenizers replace
+    transformers', which the card's machine lacks); and the FLUX twin at
+    --tiny with --profile in a temporary working directory.  The five run
+    at once; each must exit 0, say what it loaded, and write finite
+    latents of their shape; the prompt's latents must differ from the
+    zero-text run's, and the profiled run must leave a trace under
+    ./profiles that names the port's attention kernel."""
     import numpy as np
     from chipmunk_torch.utils.safetensors_io import save_file
     d = os.path.join(ROOT, 'build', 'smoke_cli')
     os.makedirs(d, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix='chip_smoke_twins_')
     video = ['--tiny', '--steps', '4', '--seed', '1']
     hcfg = tm.HunyuanModelConfig(latent_t=2, latent_h=16, latent_w=16,
                                  depth_double=1, depth_single=2,
@@ -3551,16 +3845,15 @@ def run_twins(torch, tm):
     wcfg = tm.WanModelConfig(latent_t=2, latent_h=16, latent_w=16,
                              num_layers=2, dim=256, num_heads=2,
                              ffn_dim=1024, txt_len=32)
+    hy_args = video + ['--depth', '1', '--depth-single', '2',
+                       '--video-size', '128', '128', '--video-length', '5']
     runs = {
         'flux_generate': (flux_bfl_shapes(tm.FluxModelConfig(
             depth=1, depth_single_blocks=1)), (1, H_IMG * W_IMG, 64),
             ['--depth', '1', '--depth-single', '1', '--steps', '4'],
             'flux-chipmunk.yml', 'loaded'),
         'hunyuan_generate': (hunyuan_shapes(hcfg), (1, 16, 2, 16, 16),
-                             video + ['--depth', '1', '--depth-single', '2',
-                                      '--video-size', '128', '128',
-                                      '--video-length', '5'],
-                             'hunyuan-chipmunk.yml', 'streamed'),
+                             hy_args, 'hunyuan-chipmunk.yml', 'streamed'),
         'wan_generate': (wan_shapes(wcfg), (1, 16, 2, 16, 16),
                          video + ['--layers', '2', '--size', '128', '128',
                                   '--frames', '5'], 'wan-chipmunk.yml',
@@ -3568,20 +3861,47 @@ def run_twins(torch, tm):
     }
     procs = {}
     t0 = time.perf_counter()
+
+    def start(name, cmd, out, size, cwd=ROOT):
+        if os.path.exists(out):
+            os.remove(out)
+        procs[name] = (subprocess.Popen(
+            cmd, cwd=cwd, env=dict(os.environ, PYTHONPATH=ROOT),
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True), out,
+            size)
+
     for i, (name, (shapes, _, args, cfg, _)) in enumerate(runs.items()):
         sd = SeededStateDict(torch, shapes, SEED + 1 + i, 'cuda')
         ckpt = os.path.join(d, f'{name}.safetensors')
         save_file({k: sd[k] for k in sd}, ckpt)
-        out = os.path.join(d, f'{name}.npy')
-        if os.path.exists(out):
-            os.remove(out)
-        procs[name] = (subprocess.Popen(
-            [sys.executable, '-m', f'chipmunk_torch.cli.{name}', '--ckpt',
-             ckpt, '--chipmunk-config', os.path.join(ROOT, 'configs', cfg),
-             '--out', out, *args], cwd=ROOT, stdout=subprocess.PIPE,
-            stderr=subprocess.PIPE, text=True), out,
-            os.path.getsize(ckpt))
+        start(name, [sys.executable, '-m', f'chipmunk_torch.cli.{name}',
+                     '--ckpt', ckpt, '--chipmunk-config',
+                     os.path.join(ROOT, 'configs', cfg), '--out',
+                     os.path.join(d, f'{name}.npy'), *args],
+              os.path.join(d, f'{name}.npy'), os.path.getsize(ckpt))
+    llm, clip = write_tiny_video_encoders(torch, tm, tmp)
+    hy_ckpt = os.path.join(d, 'hunyuan_generate.safetensors')
+    start('hunyuan_generate --prompt',
+          [sys.executable, '-c', PROMPT_DRIVER.format(root=ROOT), '--ckpt',
+           hy_ckpt, '--chipmunk-config',
+           os.path.join(ROOT, 'configs', 'hunyuan-chipmunk.yml'), '--out',
+           os.path.join(d, 'hunyuan_prompt.npy'), *hy_args, '--llm', llm,
+           '--clip', clip, '--prompt', HY_PROMPT],
+          os.path.join(d, 'hunyuan_prompt.npy'), os.path.getsize(hy_ckpt))
+    prof_dir = os.path.join(tmp, 'profiled')
+    os.makedirs(prof_dir)
+    start('flux_generate --profile',
+          [sys.executable, '-m', 'chipmunk_torch.cli.flux_generate',
+           '--tiny', '--depth', '1', '--depth-single', '1', '--steps', '4',
+           '--width', '256', '--height', '256', '--profile', '--out',
+           'flux_tiny.npy'], os.path.join(prof_dir, 'flux_tiny.npy'), 0,
+          cwd=prof_dir)
+    runs['hunyuan_generate --prompt'] = (None, (1, 16, 2, 16, 16), None,
+                                         None, 'streamed')
+    runs['flux_generate --profile'] = (None, (1, 256, 64), None, None,
+                                       'profile trace')
     torch.cuda.empty_cache()
+    lats = {}
     for name, (p, out, size) in procs.items():
         try:
             so, se = p.communicate(timeout=600)
@@ -3590,18 +3910,40 @@ def run_twins(torch, tm):
                 q.kill()
             fail(f'cli {name}: no exit within 600 s')
         shape, word = runs[name][1], runs[name][4]
-        if p.returncode != 0 or word not in so:
+        if p.returncode != 0 or word not in so or 'zero embeddings' in se:
             fail(f'cli {name}: exit {p.returncode}; stdout {so[-1500:]!r}; '
                  f'stderr {se[-1500:]!r}')
-        lat = np.load(out)
+        lat = lats[name] = np.load(out)
         if lat.shape != shape or lat.dtype != np.float32 or not bool(
                 np.isfinite(lat).all()):
             fail(f'cli {name}: latents {lat.shape} {lat.dtype}, finite '
                  f'{bool(np.isfinite(lat).all())}')
-        print(f'cli {name}: exit 0 from a {size / 2 ** 30:.2f} GiB '
-              f'checkpoint, latents {lat.shape} finite; its output: '
-              f'{" | ".join(so.strip().splitlines())}', flush=True)
-    print(f'cli: three twins in {time.perf_counter() - t0:.1f} s '
+        src = (f'a {size / 2 ** 30:.2f} GiB checkpoint' if size
+               else 'random weights')
+        print(f'cli {name}: exit 0 from {src}, latents {lat.shape} finite; '
+              f'its output: {" | ".join(so.strip().splitlines())}',
+              flush=True)
+    if np.array_equal(lats['hunyuan_generate'],
+                      lats['hunyuan_generate --prompt']):
+        fail('cli hunyuan_generate --prompt: the latents equal the '
+             'zero-text run\'s')
+    traces = [f for f in os.listdir(os.path.join(prof_dir, 'profiles'))
+              if f.endswith('.json')]
+    if len(traces) != 1:
+        fail(f'cli flux_generate --profile: traces {traces}')
+    with open(os.path.join(prof_dir, 'profiles', traces[0])) as f:
+        events = json.load(f)['traceEvents']
+    ours = sorted({e['name'][:60] for e in events
+                   if e.get('cat') == 'kernel'
+                   and 'attn_sm90_kernel' in e.get('name', '')})
+    print(f'cli flux_generate --profile: trace {traces[0]}, '
+          f'{len(events)} events, {len(ours)} of the port\'s attention '
+          f'kernels by name: {ours[:2]}', flush=True)
+    if not ours:
+        fail('cli flux_generate --profile: the trace names none of the '
+             'port\'s kernels')
+    shutil.rmtree(tmp)
+    print(f'cli: five twin runs in {time.perf_counter() - t0:.1f} s '
           f'(run at once)', flush=True)
 
 
@@ -3744,8 +4086,11 @@ def main():
           f'{str(vck.attn.should_compress_indices).lower()}, '
           f'first_n_dense_layers={vck.attn.first_n_dense_layers}, mlp '
           f'{"on" if vck.mlp.is_enabled else "off"})', flush=True)
+    text = encode_hunyuan_text(torch, tm)
+    stamp('LLaVA-LLaMA-3-8B and CLIP-L')
     vlaunches, v_sparse_s, v_dense_s, _, vlat = drive_video_path(
-        torch, kern, tm, vck)
+        torch, kern, tm, vck, text)
+    del text
     decode_hunyuan(torch, tm, vlat)
     del vlat
     stamp('HunyuanVideo VAE')

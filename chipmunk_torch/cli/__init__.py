@@ -15,8 +15,6 @@ from ..config import ChipmunkConfig, load_config
 # the ROADMAP items that flags of the JAX CLIs wait for
 WAITS = {
     'parallel': 'ROADMAP Queue 1 item 5 (parallel/ on torch.distributed)',
-    'profiling': 'ROADMAP Queue 1 item 6 (utils/profiling.py)',
-    'text': 'ROADMAP Queue 1 item 3 (the tokenizer-bound text encoders)',
 }
 
 
@@ -25,29 +23,25 @@ def refuse(flag: str, wait: str, why: str = 'is not ported yet') -> None:
     raise SystemExit(f'{flag} {why}: it waits for {WAITS[wait]}')
 
 
-def refuse_unported(args, parallel=(), text=()) -> None:
-    """Refuse every given flag of ``parallel`` / ``text`` (attribute
-    names of ``args``), and ``--profile`` where the parser has it."""
+def refuse_unported(args, parallel=()) -> None:
+    """Refuse every given flag of ``parallel`` (attribute names of
+    ``args``)."""
     for name in parallel:
         value = getattr(args, name, None)
         if value is not None and value is not False:
             refuse('--' + name.replace('_', '-'), 'parallel')
-    for name in text:
-        if getattr(args, name, None):
-            refuse('--' + name.replace('_', '-'), 'text')
-    if getattr(args, 'profile', False):
-        refuse('--profile', 'profiling')
 
 
 def read_config(path: Optional[str], steps: int,
                 default: Optional[ChipmunkConfig] = None) -> ChipmunkConfig:
-    """The config file (or ``default``) with ``steps`` set; a config that
-    asks for a profile trace is refused, as ``--profile`` is."""
+    """The config file (or ``default``) with ``steps`` set."""
     ck = load_config(path) if path else (default or ChipmunkConfig())
-    if ck.should_profile:
-        refuse('should_profile in the config', 'profiling',
-               why='asks for a trace, which is not ported yet')
     return ck.replace(steps=steps)
+
+
+# where a profiled generation writes its trace (utils/profiling.py), as
+# the JAX CLIs write theirs: relative to the working directory
+PROFILE_DIR = './profiles'
 
 
 def model_dtype(dev: torch.device) -> torch.dtype:

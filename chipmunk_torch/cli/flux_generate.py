@@ -12,7 +12,9 @@ the latents as float32 ``.npy`` and, with ``--ae``, the pixels.
 Without ``--ckpt`` the weights are random (and say so); without prompts
 the text is zeros.  ``--prompt`` needs ``--t5`` and ``--clip`` (local
 checkpoint directories with their tokenizers; ``'|'`` separates the
-prompts of a batch).  ``--profile`` waits for the port's profiling.
+prompts of a batch).  ``--profile``, or a config with ``should_profile``
+and ``generation_index >= 3``, traces the denoise loop into
+``./profiles`` (``utils/profiling.py``).
 """
 from __future__ import annotations
 
@@ -26,8 +28,8 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import (FluxModelConfig, FluxSampler, FluxSparse,
                       get_schedule, init_flux_params, load_flux_safetensors)
-from . import (model_dtype, noise, read_config, refuse_unported,
-               save_latents, warn)
+from ..utils.profiling import StepTimer, profile_region
+from . import PROFILE_DIR, model_dtype, noise, read_config, save_latents, warn
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -159,7 +161,6 @@ def decode_to_images(args, out: torch.Tensor, width: int, height: int,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args)
     if args.prompt and not (args.t5 and args.clip):
         raise SystemExit('--prompt needs --t5 and --clip (local encoder '
                          'checkpoints); without them the text would be '
@@ -180,13 +181,20 @@ def main(argv=None) -> int:
     txt = y = None
     if args.prompt:
         txt, y = encode_prompts(args, model, B, dev)
-    t0 = time.perf_counter()
-    out = generate(params, model, ck, width=width, height=height,
-                   guidance=args.guidance, seed=args.seed, batch=B, txt=txt,
-                   y=y, loop=args.loop, device=dev)
-    if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
-    print(f'denoise {time.perf_counter() - t0:.3f} s ({args.loop} loop)')
+    # --profile traces this generation; the config's keys follow the
+    # reference's gate (should_profile and generation_index >= 3)
+    timer = StepTimer()
+    with profile_region(PROFILE_DIR, enabled=args.profile or
+                        ck.should_profile,
+                        warmup_done=args.profile or
+                        ck.generation_index >= 3) as prof:
+        with timer.span('denoise', sync=dev):
+            out = generate(params, model, ck, width=width, height=height,
+                           guidance=args.guidance, seed=args.seed, batch=B,
+                           txt=txt, y=y, loop=args.loop, device=dev)
+    if prof is not None:
+        print(f'profile trace -> {PROFILE_DIR}')
+    print(f'denoise {timer.records["denoise"][0]:.3f} s ({args.loop} loop)')
     if args.ae:
         decode_to_images(args, out, width, height, dev)
     save_latents(out, args.out)

@@ -12,10 +12,15 @@ its full-step schedule and step caching, write the latents as float32
 
 The config's ``offloading:`` block is honoured as the JAX CLI honours
 it: when the policy offloads a cache the streamed runner
-(``HunyuanModel.make_streamed``) runs, else the compiled loop.  Text is
-zeros: ``--llm``/``--clip``/``--prompt`` wait for the tokenizer-bound
-encoders, and the multi-host and mesh flags for the port's
-``parallel/``; each exits non-zero naming its ROADMAP item.
+(``HunyuanModel.make_streamed``) runs, else the compiled loop.  With
+``--llm`` and ``--clip`` (local LLaVA-LLaMA-3 and CLIP-L directories, each
+with its tokenizer) ``--prompt`` and every ``--interactive`` prompt are
+encoded (``HunyuanTextEncoders``, kept across prompts); a prompt without
+them warns and the text is zeros.  A config with ``should_profile``
+traces each generation from the fourth (its ``generation_index`` counts
+up per generation) into ``./profiles``.  The multi-host and mesh flags
+wait for the port's ``parallel/`` and exit non-zero naming its ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -26,12 +31,14 @@ from typing import Dict, Optional
 import torch
 
 from ..device import DeviceLike, resolve_device
-from ..models import (HunyuanModel, HunyuanModelConfig, get_schedule,
-                      hunyuan_denoise, hunyuan_denoise_compiled,
-                      init_hunyuan_params, load_hunyuan_safetensors)
+from ..models import (VIDEO_CROP_START, HunyuanModel, HunyuanModelConfig,
+                      HunyuanTextEncoders, get_schedule, hunyuan_denoise,
+                      hunyuan_denoise_compiled, init_hunyuan_params,
+                      load_hunyuan_safetensors)
 from ..utils.offload import OffloadPolicy
-from . import (model_dtype, noise, read_config, refuse, refuse_unported,
-               save_frames, save_latents)
+from ..utils.profiling import profile_region
+from . import (PROFILE_DIR, model_dtype, noise, read_config, refuse_unported,
+               save_frames, save_latents, warn)
 
 OFFLOADED = ('attn_out_cache', 'attn_indices', 'mlp_out_cache',
              'mlp_act_cache')
@@ -54,8 +61,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help='causal-3D VAE .safetensors path; decodes the '
                          'latents to frames. "random" decodes with random '
                          'weights.')
-    ap.add_argument('--llm', default=None)
-    ap.add_argument('--clip', default=None)
+    ap.add_argument('--llm', default=None,
+                    help='local LLaVA-LLaMA-3-8B language-model directory '
+                         '(config.json, safetensors, tokenizer)')
+    ap.add_argument('--clip', default=None,
+                    help='local CLIP-L text directory (safetensors, '
+                         'tokenizer)')
     ap.add_argument('--prompt', default=None)
     ap.add_argument('--out', default='hunyuan_latents.npy')
     ap.add_argument('--tiny', action='store_true',
@@ -98,12 +109,14 @@ def wants_streamed(ck) -> bool:
 def generate(model: HunyuanModel, params: Dict, *, seed: int = 0,
              txt: Optional[torch.Tensor] = None,
              y: Optional[torch.Tensor] = None,
+             txt_mask: Optional[torch.Tensor] = None,
              latents: Optional[torch.Tensor] = None, streamed=None,
              compiled: bool = True, chunk: Optional[int] = None
              ) -> torch.Tensor:
     """One generation over ``model.ck.steps`` steps: the latent [1, C, T,
     H, W] (float32).  ``latents`` (else a normal draw from ``seed``) is
-    the noise, ``txt``/``y`` the text (else zeros); the random keeps are
+    the noise, ``txt``/``y`` the text (else zeros) and ``txt_mask`` its
+    valid rows (else all); the random keeps are
     drawn from ``seed`` on the model's device.  ``streamed`` =
     ``model.make_streamed()`` runs the host loop over host-offloaded
     caches; else the compiled loop (``compiled``) or the host loop."""
@@ -120,16 +133,17 @@ def generate(model: HunyuanModel, params: Dict, *, seed: int = 0,
     gen = torch.Generator(dev).manual_seed(seed)
     if streamed is not None or not compiled:
         return hunyuan_denoise(model, params, latents, txt, y, ts,
-                               generator=gen, streamed=streamed)
+                               generator=gen, streamed=streamed,
+                               txt_mask=txt_mask)
     return hunyuan_denoise_compiled(model, params, latents, txt, y, ts,
-                                    generator=gen, chunk=chunk)
+                                    generator=gen, txt_mask=txt_mask,
+                                    chunk=chunk)
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     refuse_unported(args, parallel=('multihost', 'coordinator',
-                                    'num_processes', 'process_id', 'mesh'),
-                    text=('llm', 'clip', 'prompt'))
+                                    'num_processes', 'process_id', 'mesh'))
     ck = read_config(args.chipmunk_config, args.steps)
     dev = resolve_device(args.device)
     cfg = model_config(args.video_size, args.video_length, args.depth,
@@ -141,6 +155,23 @@ def main(argv=None) -> int:
         print('no --ckpt given: using random weights (pipeline demo mode)')
         params = init_hunyuan_params(torch.Generator(dev).manual_seed(1),
                                      cfg, dev)
+    # the text encoders stay loaded across --interactive prompts
+    enc = None
+    if args.llm and args.clip:
+        enc = HunyuanTextEncoders(llm_path=args.llm, clip_path=args.clip,
+                                  max_length=cfg.txt_len + VIDEO_CROP_START,
+                                  dtype=cfg.dtype, device=dev)
+
+    def encode(prompt):
+        if prompt and enc is not None:
+            txt, txt_mask, y = enc.embed([prompt])
+            return (txt[:, :cfg.txt_len].to(cfg.dtype),
+                    txt_mask[:, :cfg.txt_len], y.to(cfg.dtype))
+        if prompt:
+            warn('--prompt given without --llm/--clip; using zero '
+                 'embeddings')
+        return None, None, None
+
     streamed = None
     if wants_streamed(ck):
         print('offloading config active -> streamed (host-offload) runner')
@@ -154,13 +185,21 @@ def main(argv=None) -> int:
                                        vcfg, dev)
               if args.vae == 'random'
               else load_hunyuan_vae_safetensors(args.vae, vcfg, dev))
+    # the reference's profiler gate: should_profile and a warmed-up
+    # generation, the index counting up per generation
+    gen_index = [ck.generation_index]
 
-    def run(seed: int, out_path: str) -> None:
+    def run(prompt, seed: int, out_path: str) -> None:
+        txt, txt_mask, y = encode(prompt)
         t0 = time.perf_counter()
-        out = generate(model, params, seed=seed, streamed=streamed,
-                       chunk=args.chunk)
-        if dev.type == 'cuda':
-            torch.cuda.synchronize(dev)
+        with profile_region(PROFILE_DIR, enabled=ck.should_profile,
+                            warmup_done=gen_index[0] >= 3):
+            out = generate(model, params, seed=seed, txt=txt, y=y,
+                           txt_mask=txt_mask, streamed=streamed,
+                           chunk=args.chunk)
+            if dev.type == 'cuda':
+                torch.cuda.synchronize(dev)
+        gen_index[0] += 1
         print(f'done in {time.perf_counter() - t0:.1f}s')
         if vp is not None:
             from ..models import hunyuan_vae_decode
@@ -169,8 +208,10 @@ def main(argv=None) -> int:
             save_latents(out, out_path)
             print(f'latents -> {out_path}')
 
-    run(args.seed, args.out)
+    run(args.prompt, args.seed, args.out)
     if args.interactive:
+        gen_i = 1
+        stem = args.out.rsplit('.npy', 1)[0]
         while True:
             try:
                 prompt = input('prompt> ').strip()
@@ -178,8 +219,8 @@ def main(argv=None) -> int:
                 break
             if not prompt or prompt in ('exit', 'quit'):
                 break
-            refuse('a prompt', 'text', why='needs the text encoders, '
-                   'which are not ported yet')
+            run(prompt, args.seed + gen_i, f'{stem}_{gen_i}.npy')
+            gen_i += 1
     return 0
 
 

@@ -10,10 +10,14 @@ float32 ``.npy`` (or, with ``--vae``, the uint8 frames).
         --steps 4 --size 128 128 --frames 5
 
 Wan has no streamed runner (the JAX package has none): offloading keys
-in the config are reported and ignored, as the JAX CLI does.  Text is
-zeros: ``--umt5``/``--tokenizer``/``--prompt``/``--neg-prompt`` wait for
-the tokenizer-bound encoder, ``--mesh`` for the port's ``parallel/``;
-each exits non-zero naming its ROADMAP item.
+in the config are reported and ignored, as the JAX CLI does.  With
+``--umt5`` (the encoder's ``.pth`` or ``.safetensors``) and
+``--tokenizer`` (a local tokenizer directory), ``--prompt`` and
+``--neg-prompt`` are encoded (``WanTextEncoder``) and the encoder is
+released before the loop; a prompt without them warns and the text is
+zeros.  A config with ``should_profile`` and ``generation_index >= 3``
+traces the loop into ``./profiles``.  ``--mesh`` waits for the port's
+``parallel/`` and exits non-zero naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -25,12 +29,13 @@ import torch
 
 from ..config import config_from_dict
 from ..device import DeviceLike, resolve_device
-from ..models import (WanModel, WanModelConfig, get_schedule,
-                      init_wan_params, load_wan_safetensors, wan_denoise,
-                      wan_denoise_compiled)
+from ..models import (WanModel, WanModelConfig, WanTextEncoder,
+                      get_schedule, init_wan_params, load_wan_safetensors,
+                      wan_denoise, wan_denoise_compiled)
 from ..utils.offload import OffloadPolicy
-from . import (model_dtype, noise, read_config, refuse_unported, save_frames,
-               save_latents, warn)
+from ..utils.profiling import profile_region
+from . import (PROFILE_DIR, model_dtype, noise, read_config, refuse_unported,
+               save_frames, save_latents, warn)
 
 OFFLOAD_KEYS = ('attn_out_cache', 'attn_indices', 'attn_counts',
                 'mlp_out_cache', 'mlp_act_cache')
@@ -53,8 +58,10 @@ def build_parser() -> argparse.ArgumentParser:
                     help='Wan VAE checkpoint (.pth/.safetensors); decodes '
                          'the latents to frames. "random" decodes with '
                          'random weights.')
-    ap.add_argument('--umt5', default=None)
-    ap.add_argument('--tokenizer', default=None)
+    ap.add_argument('--umt5', default=None,
+                    help='UMT5-XXL encoder checkpoint (.pth/.safetensors)')
+    ap.add_argument('--tokenizer', default=None,
+                    help='local UMT5 tokenizer directory')
     ap.add_argument('--prompt', default=None)
     ap.add_argument('--neg-prompt', default='')
     ap.add_argument('--tiny', action='store_true',
@@ -116,8 +123,7 @@ def generate(model: WanModel, params: Dict, *, seed: int = 0,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args, parallel=('mesh',),
-                    text=('umt5', 'tokenizer', 'prompt', 'neg_prompt'))
+    refuse_unported(args, parallel=('mesh',))
     ck = read_config(args.chipmunk_config, args.steps, config_from_dict(
         {'num_model_invocations_per_inference_step': 2}))
     policy = OffloadPolicy.from_config(ck.offloading)
@@ -134,12 +140,26 @@ def main(argv=None) -> int:
         print('no --ckpt given: using random weights (pipeline demo mode)')
         params = init_wan_params(torch.Generator(dev).manual_seed(1), cfg,
                                  dev)
+    ctx_c = ctx_u = None
+    if args.prompt and args.umt5 and args.tokenizer:
+        enc = WanTextEncoder(args.umt5, args.tokenizer, text_len=cfg.txt_len,
+                             dtype=cfg.dtype, device=dev)
+        ctx = enc.embed([args.prompt, args.neg_prompt])
+        enc.release()      # the encoder's weights go before the loop
+        ctx_c, ctx_u = ctx[:1].to(cfg.dtype), ctx[1:].to(cfg.dtype)
+    elif args.prompt:
+        warn('--prompt given without --umt5/--tokenizer; using zero '
+             'embeddings')
     t0 = time.perf_counter()
-    out = generate(model, params, seed=args.seed,
-                   guide_scale=args.guide_scale, loop=args.loop,
-                   chunk=args.chunk)
-    if dev.type == 'cuda':
-        torch.cuda.synchronize(dev)
+    # the reference's profiler gate: should_profile and generation_index
+    # >= 3 (one generation per process)
+    with profile_region(PROFILE_DIR, enabled=ck.should_profile,
+                        warmup_done=ck.generation_index >= 3):
+        out = generate(model, params, seed=args.seed, ctx_cond=ctx_c,
+                       ctx_uncond=ctx_u, guide_scale=args.guide_scale,
+                       loop=args.loop, chunk=args.chunk)
+        if dev.type == 'cuda':
+            torch.cuda.synchronize(dev)
     print(f'done in {time.perf_counter() - t0:.1f}s')
     if args.vae:
         from ..models import (WanVaeConfig, init_wan_vae_decoder,

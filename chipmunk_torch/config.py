@@ -148,6 +148,23 @@ def load_config(path: str, base: Optional[ChipmunkConfig] = None
         return config_from_dict(parse_yaml(f.read()) or {}, base)
 
 
+# A mutable global at the command-line edge, as the reference's
+# ``GLOBAL_CONFIG`` / ``load_from_file``; library code never reads it.
+GLOBAL_CONFIG: ChipmunkConfig = ChipmunkConfig()
+
+
+def load_from_file(path: str) -> ChipmunkConfig:
+    """Merge a config file onto GLOBAL_CONFIG and return the result."""
+    global GLOBAL_CONFIG
+    GLOBAL_CONFIG = load_config(path, GLOBAL_CONFIG)
+    return GLOBAL_CONFIG
+
+
+def set_global_config(cfg: ChipmunkConfig) -> None:
+    global GLOBAL_CONFIG
+    GLOBAL_CONFIG = cfg
+
+
 # ---------------------------------------------------------------- YAML
 
 _INT = re.compile(r'^[-+]?[0-9]+$')

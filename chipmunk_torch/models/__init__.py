@@ -14,7 +14,12 @@ from .loaders import (load_ae_decoder_safetensors, load_flux_params,
                       load_wan_safetensors)
 from .sampling import FluxSampler, get_schedule, unpack
 from .streamed import StreamedFluxRunner, StreamedFluxState
-from .video_encoders import (UMT5Config, init_umt5_params, load_umt5_torch,
+from .llama import (LlamaConfig, init_llama_params, llama_hidden_states,
+                    llama_params_from_flax, load_llama_safetensors,
+                    read_llama_config)
+from .video_encoders import (PROMPT_TEMPLATE_ENCODE_VIDEO, VIDEO_CROP_START,
+                             HunyuanTextEncoders, UMT5Config, WanTextEncoder,
+                             init_umt5_params, load_umt5_torch,
                              select_skip_layer_hidden, umt5_encode)
 from .video_vae import (HyVaeConfig, WanVaeConfig, hunyuan_vae_decode,
                         hunyuan_vae_params_from_jax, init_hunyuan_vae_decoder,
@@ -35,6 +40,11 @@ __all__ = ['FluxModelConfig', 'init_flux_params', 'params_from_jax',
            'WanModel', 'WanState', 'init_wan_params', 'wan_denoise',
            'wan_denoise_compiled', 'UMT5Config', 'init_umt5_params',
            'umt5_encode', 'load_umt5_torch', 'select_skip_layer_hidden',
+           'WanTextEncoder', 'HunyuanTextEncoders',
+           'PROMPT_TEMPLATE_ENCODE_VIDEO', 'VIDEO_CROP_START', 'LlamaConfig',
+           'init_llama_params', 'llama_hidden_states',
+           'load_llama_safetensors', 'read_llama_config',
+           'llama_params_from_flax',
            'T5Config', 'init_t5_params', 't5_encode', 'load_t5_safetensors',
            'ClipTextConfig', 'init_clip_params', 'clip_text_encode',
            'load_clip_safetensors', 'TextEncoders', 'AutoEncoderParams',

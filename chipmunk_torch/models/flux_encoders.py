@@ -12,7 +12,9 @@ embeddings, a causal mask of float32's lowest value, quick-GELU
 (x * sigmoid(1.702 x)), scaled attention and a final layer norm; the
 pooled output is the hidden state at each row's argmax token id (the EOT
 token has the largest id; ``torch.argmax`` takes the first of equal
-maxima, so padding with the EOT id pools the first EOT).
+maxima, so padding with the EOT id pools the first EOT), or, where the
+config names another ``eos_token_id`` than the legacy 2, at its first
+occurrence.
 
 Both are plain torch: their attention has head dim 64 and an additive
 bias, which the port's attention kernels (head dim 128) do not take.
@@ -116,6 +118,10 @@ class ClipTextConfig:
     num_layers: int = 12
     ctx_len: int = 77
     ln_eps: float = 1e-5
+    # 2 (the legacy value in that model's config.json) pools at each
+    # row's largest id; any other id pools at its first occurrence, as
+    # transformers' CLIP text model does
+    eos_token_id: int = 2
     dtype: torch.dtype = torch.float32
 
 
@@ -187,7 +193,9 @@ def clip_text_encode(params: Dict, ids: torch.Tensor, cfg: ClipTextConfig
         y = y * torch.sigmoid(1.702 * y)                   # quick-GELU
         x = x + (y @ p['fc2'] + p['fc2_b'])
     x = _ln(x, params['lnf_w'], params['lnf_b'], cfg.ln_eps)
-    pooled = x[torch.arange(B, device=dev), ids.argmax(-1)]
+    at = (ids.argmax(-1) if cfg.eos_token_id == 2
+          else (ids == cfg.eos_token_id).int().argmax(-1))
+    pooled = x[torch.arange(B, device=dev), at]
     return x, pooled
 
 

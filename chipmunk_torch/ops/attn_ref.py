@@ -82,6 +82,26 @@ def gather_mask_from_indices(inds: torch.Tensor, counts: torch.Tensor,
     return mask[..., :n_cols]
 
 
+def csp_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 inds: torch.Tensor, counts: torch.Tensor, qg: int
+                 ) -> torch.Tensor:
+    """Column-sparse attention with token-granular indices: query group
+    g (qg rows) attends only to the keys ``inds[..., g, :counts[..., g]]``
+    and the softmax runs over that subset (an empty group gives zeros).
+    inds int [B,H,G,K] (entries past the count arbitrary), counts int
+    [B,H,G].  Returns o [B,H,Sq,D]."""
+    mask = gather_mask_from_indices(inds, counts, k.shape[-2])
+    mask = mask.repeat_interleave(qg, 2)                     # [B,H,Sq,Sk]
+    s2 = _scores2(q, k).masked_fill(~mask, float('-inf'))
+    m = s2.amax(-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+    p = torch.where(mask, torch.exp2(s2 - m), torch.zeros_like(s2))
+    l = p.sum(-1, keepdim=True)
+    l = torch.where(l == 0, torch.ones_like(l), l)
+    o = torch.einsum('bhij,bhjd->bhid', p / l, v.float())
+    return o.to(q.dtype)
+
+
 def csp_block_attn_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        block_inds: torch.Tensor, block_counts: torch.Tensor,
                        qg: int, kv_block: int,

@@ -1,11 +1,11 @@
-"""Bool-mask <-> uint8 bitfield packing along the last axis (torch), the
-counterpart of ``bitpack_rows``/``bitunpack_rows`` in
+"""Bool-mask <-> uint8 bitfield packing (torch), the counterpart of
 ``chipmunk_tpu/ops/bitpack.py``: little-endian bit order within a byte,
-byte for byte the reference's.  Compressed attention states keep their
-selection mask in this form (8x smaller than int32 indices)."""
+byte for byte the reference's, of a whole mask (``bitpack``) or along the
+last axis (``bitpack_rows``).  Compressed attention states keep their
+selection mask in the row form (8x smaller than int32 indices)."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Sequence, Tuple
 
 import torch
 
@@ -39,3 +39,17 @@ def bitunpack_rows(packed: torch.Tensor, n: int) -> torch.Tensor:
     """Inverse of bitpack_rows: uint8 [..., ceil(n/8)] -> bool [..., n]."""
     bits = (packed[..., None] & _weights(packed.device)) != 0
     return bits.reshape(*packed.shape[:-1], -1)[..., :n]
+
+
+def bitpack(mask: torch.Tensor) -> Tuple[torch.Tensor, Tuple[int, ...]]:
+    """A bool array as a flat bitfield: (uint8 [ceil(size/8)], its
+    shape)."""
+    return bitpack_rows(mask.reshape(-1)), tuple(mask.shape)
+
+
+def bitunpack(packed: torch.Tensor, shape: Sequence[int]) -> torch.Tensor:
+    """Inverse of bitpack."""
+    size = 1
+    for s in shape:
+        size *= s
+    return bitunpack_rows(packed, size).reshape(tuple(shape))

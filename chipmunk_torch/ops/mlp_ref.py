@@ -2,6 +2,7 @@
 ``chipmunk_tpu/ops/mlp_ref.py``.  Caches are token-major [T, N]."""
 from __future__ import annotations
 
+import math
 from typing import Callable, Tuple
 
 import torch
@@ -9,11 +10,30 @@ import torch
 from .attn_ref import gather_mask_from_indices
 
 
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """GELU's tanh form (jax.nn.gelu's default), in its operation
+    order."""
+    c = math.sqrt(2.0 / math.pi)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + 0.044715 * (x * x * x)))))
+
+
 def block_mean(x: torch.Tensor, mbm: int) -> torch.Tensor:
     """[B, T, C] -> [B, T//mbm, C] mean over mbm-token groups."""
     B, T, C = x.shape
     assert T % mbm == 0
     return x.reshape(B, T // mbm, mbm, C).mean(2)
+
+
+def dense_mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                  w2: torch.Tensor, b2: torch.Tensor,
+                  act: Callable = gelu_tanh
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The dense full-step MLP in float32, returning (out, mid, post_act)
+    in x's dtype for the cache refresh.  w1: [C, N], w2: [N, C]."""
+    mid = x.float() @ w1.float() + b1.float()
+    pa = act(mid)
+    out = pa @ w2.float() + b2.float()
+    return out.to(x.dtype), mid.to(x.dtype), pa.to(x.dtype)
 
 
 def csp_mlp_ref(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

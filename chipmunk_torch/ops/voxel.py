@@ -1,7 +1,8 @@
 """3-D voxel token reordering and static local-attention masks for video,
-the port's own copy of the numpy half of ``chipmunk_tpu/ops/voxel.py``
-(array for array the same).  Everything here depends on shapes only and
-runs once per model at build time.
+the port's own copy of ``chipmunk_tpu/ops/voxel.py``: the permutations
+and masks in numpy (array for array the same; they depend on shapes only
+and are made once per model at build time), and the reorder of torch
+tensors.
 
 The reorder flattens a (t, h, w) token grid so each voxel's tokens (4x4x8 =
 128 by default, one query group) are contiguous, with the t-, h- and
@@ -14,6 +15,7 @@ from functools import lru_cache
 from typing import Optional, Tuple
 
 import numpy as np
+import torch
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -45,6 +47,42 @@ def inverse_voxel_order(t: int, h: int, w: int,
     inv = np.empty_like(p)
     inv[p] = np.arange(p.shape[0], dtype=np.int32)
     return inv
+
+
+def _take(x: torch.Tensor, perm: np.ndarray, axis: int) -> torch.Tensor:
+    return torch.index_select(x, axis, torch.from_numpy(perm).long()
+                              .to(x.device))
+
+
+def voxel_chunk_no_padding(x: torch.Tensor,
+                           voxel_shape: Tuple[int, int, int] = (4, 4, 8)
+                           ) -> torch.Tensor:
+    """[b, ah, t, h, w, d] -> [b, ah, t*h*w, d] in voxel order."""
+    b, ah, t, h, w, d = x.shape
+    return _take(x.reshape(b, ah, t * h * w, d),
+                 voxel_order(t, h, w, voxel_shape), 2)
+
+
+def reverse_voxel_chunk_no_padding(x_flat: torch.Tensor, original_shape,
+                                   voxel_shape: Tuple[int, int, int]
+                                   = (4, 4, 8)) -> torch.Tensor:
+    """Inverse of voxel_chunk_no_padding, back to ``original_shape``."""
+    b, ah, t, h, w, d = original_shape
+    return _take(x_flat, inverse_voxel_order(t, h, w, voxel_shape), 2
+                 ).reshape(b, ah, t, h, w, d)
+
+
+def voxel_tokens(x: torch.Tensor, grid: Tuple[int, int, int], axis: int,
+                 voxel_shape: Tuple[int, int, int] = (4, 4, 8)
+                 ) -> torch.Tensor:
+    """The voxel permutation along ``axis`` of any token-major tensor."""
+    return _take(x, voxel_order(*grid, voxel_shape), axis)
+
+
+def unvoxel_tokens(x: torch.Tensor, grid: Tuple[int, int, int], axis: int,
+                   voxel_shape: Tuple[int, int, int] = (4, 4, 8)
+                   ) -> torch.Tensor:
+    return _take(x, inverse_voxel_order(*grid, voxel_shape), axis)
 
 
 def _window_starts(n: int, span: int) -> np.ndarray:

@@ -9,7 +9,7 @@ Builds the kernels, then runs ``flux_from_checkpoint`` (FLUX.1-dev at full
 width and depth from a state dict drawn on the card, loaded with
 configs/flux-chipmunk.yml and ``mlp.is_fp8``, the CPU check of its first
 blocks, the 50-step loop with exact launches), ``f8_input_matmul_phase``
-and ``run_twins`` (the three CLIs as subprocesses), each with its
+and ``run_twins`` (the CLI twins as subprocesses), each with its
 seconds.
 """
 import importlib

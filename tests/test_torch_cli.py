@@ -4,8 +4,13 @@ subprocess with ``--tiny --device cpu --ckpt <file>`` (a .safetensors
 file in the reference's key layout, written by the port's writer), its
 latents finite, of their shape and equal to a direct call of its
 ``generate`` with the same seed; the HunyuanVideo twin takes the streamed
-runner when the config offloads; every flag that waits for an unported
-part exits non-zero naming its ROADMAP item; and one FLUX pipeline, from
+runner when the config offloads; the HunyuanVideo and Wan twins encode
+their prompts with tiny local encoders (config.json, safetensors and a
+tokenizer saved with transformers, nothing downloaded) and equal a direct
+``generate`` on the holders' output; ``--profile`` and ``should_profile``
+write a trace where the reference's gate says; every flag that waits for
+an unported part exits non-zero naming its ROADMAP item; and one FLUX
+pipeline, from
 the checkpoint file to the latent under ``mlp.is_fp8``, against the
 reference's loader and loop fed the same numpy noise (jax.random cannot
 be reproduced), float32, TOL."""
@@ -48,15 +53,29 @@ def threads(n):
         torch.set_num_threads(old)
 
 
-def run_twin(name, args, check=True):
+def run_twin(name, args, check=True, cwd=REPO, stdin=None):
     env = dict(os.environ, OMP_NUM_THREADS=str(THREADS),
-               MKL_NUM_THREADS=str(THREADS))
+               MKL_NUM_THREADS=str(THREADS), PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, '-m', f'chipmunk_torch.cli.{name}',
                         *args], capture_output=True, text=True, timeout=600,
-                       env=env, cwd=REPO)
+                       env=env, cwd=cwd, input=stdin)
     if check:
         assert r.returncode == 0, (r.stdout[-2000:], r.stderr[-2000:])
     return r
+
+
+FLUX_TINY = ['--tiny', '--depth', '1', '--depth-single', '1', '--steps', '2',
+             '--width', '256', '--height', '256', '--out', 'lat.npy']
+HY_TINY = ['--tiny', '--depth', '1', '--depth-single', '2', '--steps', '2',
+           '--video-size', '128', '128', '--video-length', '5',
+           '--out', 'lat.npy']
+WAN_TINY = ['--tiny', '--layers', '2', '--steps', '2', '--size', '128',
+            '128', '--frames', '5', '--out', 'lat.npy']
+
+
+def trace_files(d):
+    d = os.path.join(d, 'profiles')
+    return sorted(os.listdir(d)) if os.path.isdir(d) else []
 
 
 def write_ckpt(sd, path):
@@ -147,21 +166,13 @@ def test_wan_twin_from_checkpoint_matches_generate(tmp_path):
 
 
 REFUSED = [
-    ('flux_generate', ['--profile'], 'Queue 1 item 6'),
     ('flux_generate', ['--prompt', 'a cat'], '--t5 and --clip'),
     ('hunyuan_generate', ['--mesh', 'sp=2'], 'Queue 1 item 5'),
     ('hunyuan_generate', ['--multihost'], 'Queue 1 item 5'),
     ('hunyuan_generate', ['--coordinator', 'localhost:1'], 'Queue 1 item 5'),
     ('hunyuan_generate', ['--num-processes', '2'], 'Queue 1 item 5'),
     ('hunyuan_generate', ['--process-id', '0'], 'Queue 1 item 5'),
-    ('hunyuan_generate', ['--llm', 'llm'], 'Queue 1 item 3'),
-    ('hunyuan_generate', ['--clip', 'clip'], 'Queue 1 item 3'),
-    ('hunyuan_generate', ['--prompt', 'a cat'], 'Queue 1 item 3'),
     ('wan_generate', ['--mesh', 'sp=2'], 'Queue 1 item 5'),
-    ('wan_generate', ['--umt5', 'umt5.pth'], 'Queue 1 item 3'),
-    ('wan_generate', ['--tokenizer', 'tok'], 'Queue 1 item 3'),
-    ('wan_generate', ['--prompt', 'a cat'], 'Queue 1 item 3'),
-    ('wan_generate', ['--neg-prompt', 'blurry'], 'Queue 1 item 3'),
 ]
 
 
@@ -182,11 +193,14 @@ def test_refusal_exits_non_zero_and_a_gpu_is_needed(tmp_path, monkeypatch):
                  check=False)
     assert r.returncode != 0 and 'Queue 1 item 5' in r.stderr
     assert not os.path.exists(os.path.join(REPO, 'wan_latents.npy'))
+    # a config asking for a trace is taken: the trace goes to ./profiles
     yml = tmp_path / 'prof.yml'
     yml.write_text('should_profile: true\ngeneration_index: 3\n')
-    with pytest.raises(SystemExit, match='Queue 1 item 6'):
+    monkeypatch.chdir(tmp_path)
+    with threads(2):
         flux_generate.main(['--device', 'cpu', '--chipmunk-config',
-                            str(yml)])
+                            str(yml)] + FLUX_TINY)
+    assert trace_files(tmp_path) and os.path.exists('lat.npy')
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     for mod in (flux_generate, hunyuan_generate, wan_generate):
         with pytest.raises(RuntimeError, match='CUDA'):
@@ -243,3 +257,118 @@ def test_flux_pipeline_from_checkpoint_matches_reference(tmp_path):
         img=torch.from_numpy(img), device='cpu')
     assert out_t.shape == img.shape and torch.isfinite(out_t).all()
     np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), **TOL)
+
+
+# the flags whose refusals went with the text encoders and the profiler:
+# each is taken now (a prompt without its encoders warns and runs on
+# zeros, as the reference's CLIs do)
+TAKEN = [
+    ('flux_generate', ['--profile'], None),
+    ('hunyuan_generate', ['--prompt', 'a cat'], 'without --llm/--clip'),
+    ('hunyuan_generate', ['--llm', 'llm', '--prompt', 'a cat'],
+     'without --llm/--clip'),
+    ('hunyuan_generate', ['--clip', 'clip'], None),
+    ('wan_generate', ['--prompt', 'a cat'], 'without --umt5/--tokenizer'),
+    ('wan_generate', ['--umt5', 'umt5.pth'], None),
+    ('wan_generate', ['--tokenizer', 'tok', '--prompt', 'a cat'],
+     'without --umt5/--tokenizer'),
+    ('wan_generate', ['--neg-prompt', 'blurry'], None),
+]
+
+
+@pytest.mark.parametrize('name,flags,warns', TAKEN)
+def test_twins_take_the_text_and_profile_flags(name, flags, warns, tmp_path,
+                                               monkeypatch, capsys):
+    mod, tiny = {'flux_generate': (flux_generate, FLUX_TINY),
+                 'hunyuan_generate': (hunyuan_generate, HY_TINY),
+                 'wan_generate': (wan_generate, WAN_TINY)}[name]
+    monkeypatch.chdir(tmp_path)
+    with threads(2):
+        assert mod.main(['--device', 'cpu', *tiny, *flags]) == 0
+    err = capsys.readouterr().err
+    assert (warns in err) if warns else 'zero embeddings' not in err
+    assert np.isfinite(np.load(tmp_path / 'lat.npy')).all()
+    assert bool(trace_files(tmp_path)) == ('--profile' in flags)
+
+
+def test_hunyuan_twin_encodes_prompts_with_local_encoders(tmp_path):
+    """--llm/--clip (LLaMA at the model's text width 4096, 3 layers, so
+    the skip-2 selection runs one; CLIP at width 768) with --prompt and
+    one --interactive prompt: each generation equals generate() on the
+    holder's (txt, txt_mask, y) with the next seed; should_profile at
+    generation_index 2 traces the second generation only."""
+    from chipmunk_torch.models import HunyuanTextEncoders, VIDEO_CROP_START
+    from test_torch_text_wrappers import write_clip_dir, write_llm_dir
+    write_llm_dir(tmp_path / 'llm', hidden=4096, layers=3, heads=32, kv=1,
+                  ffn=64, dtype=torch.bfloat16)
+    write_clip_dir(tmp_path / 'clip', width=768, layers=1, heads=12)
+    cfg, ckpt, args = hunyuan_case(tmp_path)
+    yml = tmp_path / 'prof.yml'
+    yml.write_text('should_profile: true\ngeneration_index: 2\n')
+    r = run_twin('hunyuan_generate', args + [
+        '--llm', str(tmp_path / 'llm'), '--clip', str(tmp_path / 'clip'),
+        '--prompt', 'a red fox runs', '--interactive', '--chipmunk-config',
+        str(yml), '--out', str(tmp_path / 'lat.npy')], cwd=tmp_path,
+        stdin='the quick brown dog\n')
+    assert 'zero embeddings' not in r.stderr
+    assert len(trace_files(tmp_path)) == 1
+    ck = load_config(str(yml)).replace(steps=2)
+    with threads(THREADS):
+        model = HunyuanModel(cfg=cfg, ck=ck, device='cpu')
+        params = load_hunyuan_safetensors(ckpt, cfg, device='cpu')
+        enc = HunyuanTextEncoders(str(tmp_path / 'llm'),
+                                  str(tmp_path / 'clip'),
+                                  max_length=cfg.txt_len + VIDEO_CROP_START,
+                                  dtype=torch.float32, device='cpu')
+        streamed = model.make_streamed()
+        for i, (prompt, out) in enumerate((('a red fox runs', 'lat.npy'),
+                                           ('the quick brown dog',
+                                            'lat_1.npy'))):
+            txt, mask, y = enc.embed([prompt])
+            assert txt.shape == (1, 32, 4096) and y.shape == (1, 768)
+            assert 0 < int(mask.sum()) < 32
+            want = hunyuan_generate.generate(model, params, seed=i, txt=txt,
+                                             y=y, txt_mask=mask,
+                                             streamed=streamed)
+            got = check_latents(tmp_path / out, (1, 16, 2, 16, 16))
+            np.testing.assert_array_equal(got, want.numpy())
+        zero = hunyuan_generate.generate(model, params, seed=0,
+                                         streamed=model.make_streamed())
+    assert not np.array_equal(zero.numpy(), np.load(tmp_path / 'lat.npy'))
+
+
+def test_wan_twin_encodes_prompts_with_a_local_encoder(tmp_path):
+    """--umt5 (a .safetensors at the model's text width 4096) and
+    --tokenizer with --prompt and --neg-prompt: equal to generate() on
+    WanTextEncoder's cond and uncond rows; should_profile at
+    generation_index 3 writes a trace."""
+    from chipmunk_torch.models import WanTextEncoder
+    from test_torch_text_wrappers import write_umt5
+    write_umt5(tmp_path / 'umt5.safetensors', tmp_path / 'tok', dim=4096)
+    cfg = wan_generate.model_config((128, 128), 5, 2, tiny=True,
+                                    device='cpu')
+    ckpt = write_ckpt(synth_wan_state_dict(cfg, np.random.default_rng(4)),
+                      tmp_path / 'wan.safetensors')
+    yml = tmp_path / 'prof.yml'
+    yml.write_text('should_profile: true\ngeneration_index: 3\n'
+                   'num_model_invocations_per_inference_step: 2\n')
+    run_twin('wan_generate', [
+        '--device', 'cpu', '--ckpt', ckpt, *WAN_TINY[:-2], '--seed', '2',
+        '--umt5', str(tmp_path / 'umt5.safetensors'), '--tokenizer',
+        str(tmp_path / 'tok'), '--prompt', 'a red fox', '--neg-prompt',
+        'blurry dog', '--chipmunk-config', str(yml), '--out',
+        str(tmp_path / 'lat.npy')], cwd=tmp_path)
+    assert len(trace_files(tmp_path)) == 1
+    ck = load_config(str(yml)).replace(steps=2)
+    with threads(THREADS):
+        enc = WanTextEncoder(str(tmp_path / 'umt5.safetensors'),
+                             str(tmp_path / 'tok'), text_len=cfg.txt_len,
+                             dtype=torch.float32, device='cpu')
+        ctx = enc.embed(['a red fox', 'blurry dog'])
+        assert ctx[0, :4].abs().sum(-1).all() and not ctx[0, 4:].any()
+        model = WanModel(cfg=cfg, ck=ck, device='cpu')
+        want = wan_generate.generate(
+            model, load_wan_safetensors(ckpt, cfg, device='cpu'), seed=2,
+            ctx_cond=ctx[:1], ctx_uncond=ctx[1:])
+    got = check_latents(tmp_path / 'lat.npy', (1, 16, 2, 16, 16))
+    np.testing.assert_array_equal(got, want.numpy())

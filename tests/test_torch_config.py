@@ -73,3 +73,18 @@ def test_patch_order_matches_reference(h, w, c1, c2):
                                   j_patch_order(h, w, c1, c2))
     np.testing.assert_array_equal(inverse_patch_order(h, w, c1, c2),
                                   j_inverse(h, w, c1, c2))
+
+
+@pytest.mark.parametrize('path', CONFIGS)
+def test_global_config_matches_reference(path, monkeypatch):
+    """load_from_file merges a file onto GLOBAL_CONFIG as the reference's
+    does (twice: the second merge is onto the first's result), and
+    set_global_config replaces it."""
+    monkeypatch.setattr(config, 'GLOBAL_CONFIG', config.ChipmunkConfig())
+    monkeypatch.setattr(jconfig, 'GLOBAL_CONFIG', jconfig.ChipmunkConfig())
+    for _ in range(2):
+        got, ref = config.load_from_file(path), jconfig.load_from_file(path)
+        assert got is config.GLOBAL_CONFIG
+        assert dataclasses.asdict(got) == dataclasses.asdict(ref)
+    config.set_global_config(config.ChipmunkConfig())
+    assert config.GLOBAL_CONFIG == config.ChipmunkConfig()

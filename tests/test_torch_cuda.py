@@ -12,6 +12,8 @@ kernel, NaN in unselected MLP weight blocks, int8 weights holding all
 keys and query rows passed as sliced views); and the plain versions of
 the FLUX prompt encoders and the three VAE decoders on the card against
 the CPU, with a causal conv and a group norm beyond int32 indexing; the
+LLaMA-3 trunk and the video prompt wrappers (stand-in tokenizers) on
+the card against the CPU; the
 checkpoint loaders on the card against the CPU, ``f8_input_matmul``
 (``torch._scaled_mm``) against its plain version and ``load_file`` to
 the card.  The
@@ -34,7 +36,7 @@ import os
 import pytest
 import torch
 
-from chip_smoke import perturbed
+from chip_smoke import StandInTokenizer, llm_tokenizer, perturbed
 from chipmunk_torch.ops import fp8
 from chipmunk_torch.ops.attn_ref import PAD_LSE
 
@@ -1551,6 +1553,81 @@ def test_cuda_flux_encoders_match_cpu(gen):
     got = tm.clip_text_encode(_to_cuda(cp), cids.cuda(), clip)
     for a, b in zip(got, ref):
         torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_cuda_llama_trunk_matches_cpu(gen):
+    """A 2-layer LLaMA-3 trunk (hidden 1024, 8 heads over 2 key/value
+    heads, SwiGLU 2816, theta 500,000, a right-padded batch), perturbed
+    weights: float32 on the card against the CPU to 1e-4; bf16 on the
+    card against float32 on the CPU within a mean relative difference of
+    2e-2 and a largest difference of 2e-2 of the largest magnitude."""
+    import dataclasses
+    import chipmunk_torch.models as tm
+    g = torch.Generator().manual_seed(2)
+    cfg = tm.LlamaConfig(vocab_size=1000, hidden_size=1024,
+                         num_hidden_layers=2, num_attention_heads=8,
+                         num_key_value_heads=2, intermediate_size=2816)
+    p = perturbed(torch, tm.init_llama_params(g, cfg, 'cpu'), g)
+    ids = torch.randint(0, 1000, (2, 96), generator=g)
+    mask = (torch.arange(96)[None] < torch.tensor([[96], [41]])).int()
+    ref = tm.llama_hidden_states(p, ids, mask, cfg)
+    got = tm.llama_hidden_states(_to_cuda(p), ids.cuda(), mask.cuda(), cfg)
+    assert len(got) == 3
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    b16 = dataclasses.replace(cfg, dtype=torch.bfloat16)
+    pb = {'embed': p['embed'].to('cuda', torch.bfloat16),
+          'layers': [{k: v.to('cuda', torch.bfloat16) for k, v in l.items()}
+                     for l in p['layers']],
+          'norm': p['norm'].to('cuda', torch.bfloat16)}
+    got = tm.llama_hidden_states(pb, ids.cuda(), mask.cuda(), b16)
+    for a, b in zip(got, ref):
+        d = (a.float().cpu() - b).abs()
+        assert d.mean() <= 2e-2 * b.abs().mean()
+        assert d.max() <= 2e-2 * b.abs().max()
+
+
+@pytest.mark.cuda
+def test_cuda_prompt_wrappers_match_cpu(gen):
+    """HunyuanTextEncoders.embed (a 3-layer LLaMA of width 256 under the
+    video template, a 2-layer CLIP of width 256) and WanTextEncoder.embed
+    (a 2-layer UMT5 of width 256), float32, the same weights and stand-in
+    tokenizers: the card against the CPU to 1e-4, the mask equal, the
+    pooled row the first EOT's."""
+    import dataclasses
+    import chipmunk_torch.models as tm
+    g = torch.Generator().manual_seed(3)
+    lcfg = tm.LlamaConfig(vocab_size=500, hidden_size=256,
+                          num_hidden_layers=3, num_attention_heads=2,
+                          num_key_value_heads=1, intermediate_size=512)
+    ccfg = tm.ClipTextConfig(vocab_size=500, width=256, num_heads=4,
+                             num_layers=2, eos_token_id=499)
+    lp = perturbed(torch, tm.init_llama_params(g, lcfg, 'cpu'), g)
+    cp = perturbed(torch, tm.init_clip_params(g, ccfg, 'cpu'), g)
+    outs = []
+    for dev, conv in (('cpu', lambda t: t), ('cuda', _to_cuda)):
+        h = tm.HunyuanTextEncoders(max_length=95 + 64, dtype=torch.float32,
+                                   device=dev)
+        h._llm, h._clip = (conv(lp), lcfg), (conv(cp), ccfg)
+        h._llm_tok = llm_tokenizer(500)
+        h._clip_tok = StandInTokenizer(500, 499, eot=499)
+        outs.append(h.embed(['a cat on the grass', 'a red fox']))
+    for a, b in zip(outs[1], outs[0]):
+        assert a.device.type == 'cuda'
+        torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+    assert outs[1][1].sum(1).tolist() == [28, 19]
+    ucfg = tm.UMT5Config(vocab_size=500, dim=256, dim_attn=256, dim_ffn=512,
+                         num_heads=4, num_layers=2)
+    up = perturbed(torch, tm.init_umt5_params(g, ucfg, 'cpu'), g)
+    ctx = []
+    for dev, conv in (('cpu', lambda t: t), ('cuda', _to_cuda)):
+        w = tm.WanTextEncoder(text_len=48, dtype=torch.float32, device=dev)
+        w._params, w._cfg = conv(up), dataclasses.replace(ucfg)
+        w._tok = StandInTokenizer(500, 0, eot=1)
+        ctx.append(w.embed(['a cat', 'a much longer prompt than that']))
+    torch.testing.assert_close(ctx[1].cpu(), ctx[0], atol=1e-4, rtol=1e-4)
+    assert not ctx[1][0, 6:].any() and ctx[1][0, :6].abs().sum(-1).all()
 
 
 @pytest.mark.cuda

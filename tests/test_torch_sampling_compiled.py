@@ -8,6 +8,7 @@ at the reference's compiled-vs-host tolerance (2e-4,
 tests/test_flux_model.py), with skipped steps folded; the kind-pure
 windows against the reference's; and the constants a CUDA graph capture
 needs on the device (no copy from the host in a step)."""
+import importlib
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -37,7 +38,9 @@ from chipmunk_torch.models import (FluxSampler, FluxSparse, HunyuanModel,
                                    wan_denoise, wan_denoise_compiled)
 from chipmunk_torch.models.step_graphs import GRAPH_STATS, _kind_pure_windows
 from chipmunk_torch.modules import SparseDiffAttn
-from chipmunk_torch.ops import bitpack
+
+# the module (chipmunk_torch.ops re-exports a function of the same name)
+bitpack = importlib.import_module('chipmunk_torch.ops.bitpack')
 
 # the reference's compiled loop against its host loop
 # (tests/test_flux_model.py:151-162): only the folded Euler sums differ

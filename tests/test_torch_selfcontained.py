@@ -1,6 +1,7 @@
-"""chipmunk_torch stands alone: it imports neither jax nor chipmunk_tpu,
-and its entry points refuse to run without a GPU unless asked for the
-CPU."""
+"""chipmunk_torch stands alone: it imports neither jax nor chipmunk_tpu
+(nor safetensors, nor, at import, transformers or tokenizers: the card's
+machine has none of them), and its entry points refuse to run without a
+GPU unless asked for the CPU."""
 import os
 import pkgutil
 import re
@@ -23,7 +24,8 @@ def test_every_module_imports_with_jax_and_reference_blocked():
     code = textwrap.dedent(f'''
         import importlib, importlib.abc, sys
 
-        BLOCKED = ('jax', 'jaxlib', 'chipmunk_tpu', 'safetensors')
+        BLOCKED = ('jax', 'jaxlib', 'chipmunk_tpu', 'safetensors',
+                   'transformers', 'tokenizers')
 
         class Block(importlib.abc.MetaPathFinder):
             def find_spec(self, name, path=None, target=None):
@@ -57,7 +59,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         assert f'chipmunk_torch.models.{m}' in MODULES
     for m in ('modules.mlp_fp8', 'utils.safetensors_io', 'cli',
               'cli.flux_generate', 'cli.hunyuan_generate',
-              'cli.wan_generate'):
+              'cli.wan_generate', 'models.llama', 'utils.profiling'):
         assert f'chipmunk_torch.{m}' in MODULES
 
 

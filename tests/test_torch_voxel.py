@@ -56,3 +56,30 @@ def test_local_1d_window_matches_reference(frac):
     np.testing.assert_array_equal(
         voxel.local_1d_window_mask(1000, 1384, frac),
         jvox.local_1d_window_mask(1000, 1384, frac))
+
+
+@pytest.mark.parametrize('grid,vs', [((8, 4, 8), (4, 4, 8)),
+                                     ((5, 6, 9), (4, 4, 8)),
+                                     ((3, 6, 10), (2, 2, 4))])
+def test_voxel_reorders_of_tensors_match_reference(grid, vs):
+    """voxel_chunk_no_padding and voxel_tokens (and their inverses) on
+    torch tensors against the reference's on the same arrays."""
+    import jax.numpy as jnp
+    import torch
+    rng = np.random.default_rng(sum(grid))
+    x = rng.standard_normal((2, 3, *grid, 4)).astype(np.float32)
+    got = voxel.voxel_chunk_no_padding(torch.from_numpy(x), vs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jvox.voxel_chunk_no_padding(jnp.asarray(x), vs)))
+    np.testing.assert_array_equal(
+        voxel.reverse_voxel_chunk_no_padding(got, x.shape, vs).numpy(), x)
+    tok = rng.standard_normal((2, int(np.prod(grid)), 5)).astype(np.float32)
+    got = voxel.voxel_tokens(torch.from_numpy(tok), grid, 1, vs)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(
+        jvox.voxel_tokens(jnp.asarray(tok), grid, 1, vs)))
+    np.testing.assert_array_equal(
+        voxel.unvoxel_tokens(got, grid, 1, vs).numpy(),
+        np.asarray(jvox.unvoxel_tokens(jnp.asarray(np.asarray(got)), grid,
+                                       1, vs)))
+    np.testing.assert_array_equal(
+        voxel.unvoxel_tokens(got, grid, 1, vs).numpy(), tok)

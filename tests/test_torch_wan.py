@@ -284,8 +284,9 @@ def test_umt5_encode_matches_reference():
 def test_load_umt5_torch_reads_a_pth(tmp_path):
     """A .pth state dict in the checkpoint's key layout, written with
     torch.save, loads into the same tree in both packages (Linear weights
-    transposed), and the two encodings agree; a .safetensors path
-    raises."""
+    transposed), and the two encodings agree; the same state dict as a
+    .safetensors file loads tensor for tensor equal to the .pth and to
+    the reference's load of that file."""
     cfg = UMT5Config(**TINY_T5)
     g = torch.Generator().manual_seed(5)
 
@@ -325,8 +326,20 @@ def test_load_umt5_torch_reads_a_pth(tmp_path):
                     cfg).numpy(),
         np.asarray(jve.umt5_encode(jp, jnp.asarray(ids), jnp.asarray(mask),
                                    jve.UMT5Config(**TINY_T5))), **TOL)
-    with pytest.raises(ValueError, match='safetensors'):
-        load_umt5_torch(str(tmp_path / 'x.safetensors'), cfg, 'cpu')
+    from chipmunk_torch.utils.safetensors_io import save_file
+    st = str(tmp_path / 'umt5_tiny.safetensors')
+    save_file(sd, st)
+    ts = load_umt5_torch(st, cfg, device='cpu')
+    js = params_from_jax(jax.tree_util.tree_map(
+        np.asarray, jve.load_umt5_torch(st, jve.UMT5Config(**TINY_T5))),
+        device='cpu')
+    for got, want in ((ts, tp), (ts, js)):
+        assert torch.equal(got['token_embedding'], want['token_embedding'])
+        assert torch.equal(got['norm'], want['norm'])
+        for a, b in zip(got['blocks'], want['blocks'], strict=True):
+            assert a.keys() == b.keys()
+            for k in b:
+                assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.parametrize('model', ['wan 480x832x81', 'hunyuan 540p'])
