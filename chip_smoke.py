@@ -149,7 +149,24 @@
    must exit 0 with finite latents of their shape, the prompt's latents
    must differ from the zero-text run's and the trace must name the
    port's attention kernel.
-8. Prints the card line, one JSON line with the kernels' numbers, and as
+8. Multi-card sampling (``parallel/``) on a world of one NCCL rank
+   (``initialize_multihost`` on 127.0.0.1; the card's machine has one
+   card and NCCL takes one rank a card): FLUX.1-dev at full width and
+   depth, 1280x768, configs/flux-chipmunk.yml for 4 steps (first,
+   colsum, two sparse) through ``FluxSampler.sharded(make_mesh({'sp':
+   1}))``, with and without FSDP, each step's prediction torch.equal to
+   the unsharded sampler's and the launches equal to its
+   (``flux_launches``); HunyuanVideo at 540p, depth 1+2, the host and
+   compiled loops of ``model.sharded(make_mesh({'dp': 1, 'sp': 1}))``
+   for 4 steps torch.equal to the unsharded loops, launches the plan's
+   (the compiled loop's collectives captured in its CUDA graphs); the
+   ring's hop merge (``ring_hops``) over 4 key chunks of a FLUX-shaped
+   q, k, v through ``dense_attn`` within its tolerance of
+   ``dense_attn_plain`` over the whole keys, and ``ring_attention`` and
+   ``usp_attention`` at world 1 equal to ``dense_attn``.  Seconds of
+   each sharded run beside the unsharded one, the merge's ms beside one
+   ``dense_attn`` call, the peak GiB allocated.
+9. Prints the card line, one JSON line with the kernels' numbers, and as
    the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
@@ -3947,6 +3964,169 @@ def run_twins(torch, tm):
           f'(run at once)', flush=True)
 
 
+@contextlib.contextmanager
+def recorded_predictions(preds):
+    """Within: every ``flux_forward`` call of the FLUX sampler appends a
+    copy of its prediction to ``preds``."""
+    smod = importlib.import_module('chipmunk_torch.models.sampling')
+    forward = smod.flux_forward
+
+    def recording(*args, **kwargs):
+        pred, state = forward(*args, **kwargs)
+        preds.append(pred.clone())
+        return pred, state
+
+    smod.flux_forward = recording
+    try:
+        yield preds
+    finally:
+        smod.flux_forward = forward
+
+
+def timed(torch, fn):
+    """(fn(), seconds), synchronised on both sides."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def parallel_phase(torch, tm, kern, ck, vck, smi):
+    """Multi-card sampling on a world of one NCCL rank (point 8 of the
+    module docstring).  The sharded runs must equal the unsharded ones
+    bit for bit, launch for launch."""
+    import torch.distributed as dist
+    from chipmunk_torch import parallel
+    from chipmunk_torch.kernels.flash_attention import dense_attn_plain
+    from chipmunk_torch.models.step_graphs import GRAPH_STATS
+    from chipmunk_torch.parallel.ring import ring_hops
+    torch.cuda.reset_peak_memory_stats()
+    parallel.initialize_multihost(device='cuda')
+    if dist.get_backend() != 'nccl' or dist.get_world_size() != 1:
+        fail(f'parallel: a world of {dist.get_world_size()} '
+             f'{dist.get_backend()} ranks, not one NCCL rank')
+
+    # FLUX.1-dev, full width and depth, 4 steps of the shipped config
+    ck4 = ck.replace(steps=4)
+    model = tm.FluxModelConfig()
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED)
+    params = tm.init_flux_params(gen, model, 'cuda')
+    img, txt, y = (torch.randn(shape, generator=gen, device='cuda')
+                   for shape in ((1, H_IMG * W_IMG, model.in_channels),
+                                 (1, model.txt_len, model.context_in_dim),
+                                 (1, model.vec_in_dim)))
+    ts = tm.get_schedule(4, H_IMG * W_IMG)
+    base = tm.FluxSampler(cfg=model, ck=ck4, sp=tm.FluxSparse.build(
+        ck4, model, model.txt_len + H_IMG * W_IMG), h_img=H_IMG,
+        w_img=W_IMG)
+    want_launches = flux_launches(ck4, model, ('csp_mlp_mm1', 'csp_mlp_mm2'))
+    runs = {}
+    for tag, sampler in (
+            ('resident', base),
+            ('sharded', base.sharded(parallel.make_mesh({'sp': 1}))),
+            ('sharded fsdp', base.sharded(parallel.make_mesh({'sp': 1}),
+                                          fsdp=True))):
+        loop_gen = torch.Generator('cuda')
+        loop_gen.manual_seed(SEED)
+        kern.reset_launches()
+        with recorded_predictions([]) as preds:
+            out, secs = timed(torch, lambda: sampler.denoise(
+                params, img, txt, y, ts, generator=loop_gen))
+        launches = dict(kern.LAUNCHES)
+        check_launches(f'parallel FLUX {tag}', launches, want_launches)
+        runs[tag] = (preds, out, secs)
+        if tag != 'resident':
+            ref_preds, ref_out, ref_s = runs['resident']
+            same = [bool(torch.equal(a, b))
+                    for a, b in zip(preds, ref_preds)]
+            if len(preds) != 4 or not all(same) \
+                    or not torch.equal(out, ref_out):
+                fail(f'parallel FLUX {tag}: predictions equal to the '
+                     f'unsharded sampler\'s step by step: {same}')
+            print(f'parallel FLUX {tag} (sp=1, 1280x768, depth '
+                  f'{model.depth}+{model.depth_single_blocks}, 4 steps): '
+                  f'{secs:.3f} s, unsharded {ref_s:.3f} s; 4 predictions '
+                  f'and the latent torch.equal, launches equal '
+                  f'({ {k: n for k, n in launches.items() if n} })',
+                  flush=True)
+    del params, runs, preds, out
+    torch.cuda.empty_cache()
+
+    # HunyuanVideo 540p, depth 1+2, host and compiled loops, 4 steps
+    cfg = tm.HunyuanModelConfig(**V540, **V_DEPTH)
+    gen.manual_seed(SEED)
+    vparams = tm.init_hunyuan_params(gen, cfg, 'cuda')
+    inputs = video_inputs(torch, cfg, 'cuda')
+    vmodel = tm.HunyuanModel(cfg=cfg, ck=vck)
+    vsharded = vmodel.sharded(parallel.make_mesh({'dp': 1, 'sp': 1}),
+                              dp='dp')
+    want = plan_launches(vmodel, steps=4)
+    for compiled in (False, True):
+        outs = {}
+        for tag, m in (('resident', vmodel), ('sharded', vsharded)):
+            torch.cuda.empty_cache()     # a graph pool takes no cached
+            kern.reset_launches()       # block of the default pool
+            outs[tag] = run_video(torch, tm, m, vparams, inputs, steps=4,
+                                  compiled=compiled)
+            check_launches(f'parallel video {tag}', dict(kern.LAUNCHES),
+                           want)
+        loop = 'compiled' if compiled else 'host'
+        if not torch.equal(outs['sharded'][0], outs['resident'][0]):
+            fail(f'parallel video {loop} loop: the sharded latent differs '
+                 f'from the unsharded one')
+        graphs = ''
+        if compiled:
+            st = dict(GRAPH_STATS)     # the sharded loop's, the last run
+            if not st['replays']:
+                fail('parallel video compiled loop: no graph replayed, so '
+                     'no collective was captured')
+            graphs = (f'; {st["graphs"]} graph(s) captured with their '
+                      f'collectives, {st["replays"]} replay(s)')
+        print(f'parallel video {loop} loop (dp=1 x sp=1, 540p, depth '
+              f'{cfg.depth_double}+{cfg.depth_single}, 4 steps): '
+              f'{outs["sharded"][1]:.3f} s, unsharded '
+              f'{outs["resident"][1]:.3f} s; latent torch.equal, launches '
+              f'the plan\'s ({ {k: n for k, n in want.items() if n} })'
+              f'{graphs}', flush=True)
+    del vparams, outs, inputs
+    torch.cuda.empty_cache()
+
+    # the ring's merge through dense_attn, in one process over key chunks
+    gen.manual_seed(SEED + 9)
+    q, k, v = (torch.randn((1, 24, 4352, D), generator=gen, device='cuda'
+                           ).to(torch.bfloat16) for _ in range(3))
+    chunks = [(k[:, :, i * 1088:(i + 1) * 1088],
+               v[:, :, i * 1088:(i + 1) * 1088]) for i in range(4)]
+    o, lse = ring_hops(q, chunks)
+    o_p, lse_p = dense_attn_plain(q, k, v)
+    err = check_close('ring merge o', o, o_p, 4e-3, 2 ** -6)
+    check_close('ring merge lse', lse, lse_p, 1e-3, 0.0)
+    o1 = kern.dense_attn(q, k, v)[0]
+    for tag, got in (
+            ('ring_attention', parallel.ring_attention(
+                parallel.make_mesh({'sp': 1}), 'sp', q, k, v)),
+            ('usp_attention', parallel.usp_attention(
+                parallel.make_mesh({'sp': 1, 'ring': 1}), 'sp', 'ring', q,
+                k, v))):
+        if not torch.equal(got, o1):
+            fail(f'parallel: {tag} at world 1 differs from dense_attn')
+    merge_ms = time_ms(torch, lambda: ring_hops(q, chunks), 10)
+    one_ms = time_ms(torch, lambda: kern.dense_attn(q, k, v), 10)
+    print(f'parallel ring merge (4 key chunks of 1088, [1, 24, 4352, 128] '
+          f'bf16): max abs err {err:.3e} against dense_attn_plain; '
+          f'{merge_ms:.3f} ms, one dense_attn over all keys {one_ms:.3f} '
+          f'ms; ring_attention and usp_attention at world 1 equal to '
+          f'dense_attn', flush=True)
+    print(f'parallel phase: peak '
+          f'{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB '
+          f'allocated; {smi}', flush=True)
+    dist.destroy_process_group()
+    del q, k, v, o, o_p, o1, chunks
+    torch.cuda.empty_cache()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4122,6 +4302,10 @@ def main():
     stamp('Wan agreement')
     agree_small_decoders(torch, tm)
     stamp('encoder and decoder agreement')
+
+    # ---- multi-card sampling on a world of one NCCL rank
+    parallel_phase(torch, tm, kern, ck, vck, smi)
+    stamp('parallel')
 
     # ---- agreement on small inputs, each path
     small_ck = cfgmod.config_from_dict(

@@ -1,35 +1,87 @@
 """Command-line twins of ``examples/{flux,hunyuan,wan}_generate.py`` that
 drive the port: ``python -m chipmunk_torch.cli.<name>``.  Each has
 ``main(argv=None)`` and a ``generate(...)`` to call from Python; each
-runs on the card unless given ``--device cpu``."""
+runs on the card unless given ``--device cpu``.  The video twins run
+sharded over ranks with ``--mesh`` (``setup_parallel``), rank 0 alone
+printing and writing the outputs."""
 from __future__ import annotations
 
+import os
 import sys
-from typing import Optional
+from typing import Dict, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..config import ChipmunkConfig, load_config
 
-# the ROADMAP items that flags of the JAX CLIs wait for
-WAITS = {
-    'parallel': 'ROADMAP Queue 1 item 5 (parallel/ on torch.distributed)',
-}
+
+def parse_mesh(spec: str) -> Dict[str, int]:
+    """'dp=2,sp=4' -> {'dp': 2, 'sp': 4}; exits non-zero on another axis
+    name or a malformed spec."""
+    axes = {}
+    for part in spec.split(','):
+        name, _, size = part.partition('=')
+        name = name.strip()
+        if name not in ('dp', 'sp') or not size.strip().isdigit() \
+                or int(size) < 1:
+            raise SystemExit(f'--mesh {spec!r}: give dp=<n>,sp=<n> (axes dp '
+                             f'and sp, sizes >= 1)')
+        axes[name] = int(size)
+    return axes
 
 
-def refuse(flag: str, wait: str, why: str = 'is not ported yet') -> None:
-    """Exit non-zero naming the flag and the ROADMAP item it waits for."""
-    raise SystemExit(f'{flag} {why}: it waits for {WAITS[wait]}')
+def setup_parallel(args, device: torch.device, num_heads: int):
+    """The multi-host flags and ``--mesh`` of a twin.  ``--multihost``
+    joins the process group (``parallel.initialize_multihost``: with
+    ``--coordinator`` a world of ``--num-processes`` ranks, this one
+    ``--process-id``; without it torchrun's world, else a world of one).
+    ``--mesh dp=a,sp=b`` needs ``sp`` dividing the heads and a world of
+    a*b ranks (torchrun or the multi-host flags), else it exits non-zero
+    naming the numbers, before any process group is made.  Returns the
+    mesh, or None without ``--mesh``."""
+    from ..parallel import initialize_multihost, make_mesh
+    coordinator = args.coordinator if args.multihost else None
+    if coordinator and (args.num_processes is None
+                        or args.process_id is None):
+        raise SystemExit('--coordinator needs --num-processes and '
+                         '--process-id')
+    if args.mesh:
+        axes = parse_mesh(args.mesh)
+        if num_heads % axes.get('sp', 1):
+            raise SystemExit(f'num_heads={num_heads} not divisible by '
+                             f'sp={axes["sp"]}')
+        need = int(np.prod(list(axes.values())))
+        have = args.num_processes if coordinator else int(
+            os.environ.get('WORLD_SIZE', 1))
+        if need != have:
+            raise SystemExit(
+                f'--mesh {args.mesh} needs {need} ranks, the world has '
+                f'{have}: launch {need} processes (torchrun '
+                f'--nproc-per-node {need}, or --multihost)')
+    if args.multihost or args.mesh:
+        initialize_multihost(coordinator, args.num_processes,
+                             args.process_id, device)
+    return make_mesh(axes) if args.mesh else None
 
 
-def refuse_unported(args, parallel=()) -> None:
-    """Refuse every given flag of ``parallel`` (attribute names of
-    ``args``)."""
-    for name in parallel:
-        value = getattr(args, name, None)
-        if value is not None and value is not False:
-            refuse('--' + name.replace('_', '-'), 'parallel')
+def is_main() -> bool:
+    """Whether this process prints and writes the outputs: rank 0, or a
+    run without a process group."""
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
+def say(msg: str) -> None:
+    """Print on rank 0 alone."""
+    if is_main():
+        print(msg)
+
+
+def finish() -> None:
+    """Leave the process group, if this run joined one."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
 
 
 def read_config(path: Optional[str], steps: int,

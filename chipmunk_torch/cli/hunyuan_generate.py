@@ -18,13 +18,24 @@ with its tokenizer) ``--prompt`` and every ``--interactive`` prompt are
 encoded (``HunyuanTextEncoders``, kept across prompts); a prompt without
 them warns and the text is zeros.  A config with ``should_profile``
 traces each generation from the fourth (its ``generation_index`` counts
-up per generation) into ``./profiles``.  The multi-host and mesh flags
-wait for the port's ``parallel/`` and exit non-zero naming its ROADMAP
-item.
+up per generation) into ``./profiles``.
+
+``--mesh dp=a,sp=b`` runs the model sharded (``HunyuanModel.sharded``:
+Ulysses attention over ``sp``, the batch over ``dp``) on a world of a*b
+ranks, one process a card, started by torchrun or by the multi-host
+flags (``--multihost --coordinator host:port --num-processes N
+--process-id i``); rank 0 alone prints and writes.  The streamed runner
+has no mesh path: ``--mesh`` with a config that offloads exits non-zero,
+and without ``--chipmunk-config`` the default config's offloading is
+dropped.
+
+    torchrun --nproc-per-node 2 -m chipmunk_torch.cli.hunyuan_generate \
+        --mesh sp=2
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 from typing import Dict, Optional
 
@@ -35,10 +46,11 @@ from ..models import (VIDEO_CROP_START, HunyuanModel, HunyuanModelConfig,
                       HunyuanTextEncoders, get_schedule, hunyuan_denoise,
                       hunyuan_denoise_compiled, init_hunyuan_params,
                       load_hunyuan_safetensors)
+from ..models.sampling import STREAMED_NO_MESH
 from ..utils.offload import OffloadPolicy
 from ..utils.profiling import profile_region
-from . import (PROFILE_DIR, model_dtype, noise, read_config, refuse_unported,
-               save_frames, save_latents, warn)
+from . import (PROFILE_DIR, finish, is_main, model_dtype, noise, read_config,
+               save_frames, save_latents, say, setup_parallel, warn)
 
 OFFLOADED = ('attn_out_cache', 'attn_indices', 'mlp_out_cache',
              'mlp_act_cache')
@@ -72,11 +84,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument('--tiny', action='store_true',
                     help='hidden 256, 2 heads, 32 text tokens (pipeline '
                          'demo; head_dim 128)')
-    ap.add_argument('--multihost', action='store_true')
-    ap.add_argument('--coordinator', default=None)
-    ap.add_argument('--num-processes', type=int, default=None)
-    ap.add_argument('--process-id', type=int, default=None)
-    ap.add_argument('--mesh', default=None)
+    add_parallel_flags(ap)
     ap.add_argument('--interactive', action='store_true',
                     help='after the first generation, read prompts from '
                          'stdin (each needs the text encoders)')
@@ -86,6 +94,21 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument('--device', default='cuda',
                     help="'cuda' (default) or 'cpu' for the plain versions")
     return ap
+
+
+def add_parallel_flags(ap: argparse.ArgumentParser) -> None:
+    """The multi-host flags and ``--mesh``, as the JAX twins take them."""
+    ap.add_argument('--multihost', action='store_true',
+                    help='join a process group of --num-processes ranks '
+                         'meeting at --coordinator (host:port of rank 0)')
+    ap.add_argument('--coordinator', default=None)
+    ap.add_argument('--num-processes', type=int, default=None)
+    ap.add_argument('--process-id', type=int, default=None)
+    ap.add_argument('--mesh', default=None,
+                    help='"sp=N" or "dp=M,sp=N": Ulysses head-parallel '
+                         'attention over sp (which must divide the '
+                         'heads), the batch over dp; needs a world of '
+                         'M*N ranks (torchrun or --multihost)')
 
 
 def model_config(video_size=(720, 1280), video_length: int = 129,
@@ -142,17 +165,32 @@ def generate(model: HunyuanModel, params: Dict, *, seed: int = 0,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args, parallel=('multihost', 'coordinator',
-                                    'num_processes', 'process_id', 'mesh'))
     ck = read_config(args.chipmunk_config, args.steps)
+    if args.mesh:
+        if not args.chipmunk_config:
+            # the implicit default offloads the attention caches; with a
+            # mesh the caches shard over sp instead
+            ck = ck.replace(offloading=dataclasses.replace(
+                ck.offloading, global_disable_offloading=True))
+        elif wants_streamed(ck):
+            raise SystemExit(f'--mesh: {STREAMED_NO_MESH}')
     dev = resolve_device(args.device)
     cfg = model_config(args.video_size, args.video_length, args.depth,
                        args.depth_single, args.tiny, dev)
+    mesh = setup_parallel(args, dev, cfg.num_heads)
+    if args.interactive and mesh is not None and mesh.size() > 1:
+        raise SystemExit('--interactive reads its prompts in one process: '
+                         'run it on a mesh of one rank')
     model = HunyuanModel(cfg=cfg, ck=ck, device=dev)
+    if mesh is not None:
+        model = model.sharded(mesh, sp='sp', dp='dp'
+                              if 'dp' in mesh.mesh_dim_names else None)
+        say(f'mesh {args.mesh}: Ulysses head-parallel attention over sp, '
+            f'rank {mesh.get_rank()} of {mesh.size()}')
     if args.ckpt:
         params = load_hunyuan_safetensors(args.ckpt, cfg, device=dev)
     else:
-        print('no --ckpt given: using random weights (pipeline demo mode)')
+        say('no --ckpt given: using random weights (pipeline demo mode)')
         params = init_hunyuan_params(torch.Generator(dev).manual_seed(1),
                                      cfg, dev)
     # the text encoders stay loaded across --interactive prompts
@@ -174,7 +212,7 @@ def main(argv=None) -> int:
 
     streamed = None
     if wants_streamed(ck):
-        print('offloading config active -> streamed (host-offload) runner')
+        say('offloading config active -> streamed (host-offload) runner')
         streamed = model.make_streamed()
     vp = vcfg = None
     if args.vae:
@@ -200,7 +238,9 @@ def main(argv=None) -> int:
             if dev.type == 'cuda':
                 torch.cuda.synchronize(dev)
         gen_index[0] += 1
-        print(f'done in {time.perf_counter() - t0:.1f}s')
+        say(f'done in {time.perf_counter() - t0:.1f}s')
+        if not is_main():
+            return
         if vp is not None:
             from ..models import hunyuan_vae_decode
             save_frames(hunyuan_vae_decode(vp, out, vcfg), out_path)
@@ -221,6 +261,7 @@ def main(argv=None) -> int:
                 break
             run(prompt, args.seed + gen_i, f'{stem}_{gen_i}.npy')
             gen_i += 1
+    finish()
     return 0
 
 

@@ -16,8 +16,13 @@ in the config are reported and ignored, as the JAX CLI does.  With
 ``--neg-prompt`` are encoded (``WanTextEncoder``) and the encoder is
 released before the loop; a prompt without them warns and the text is
 zeros.  A config with ``should_profile`` and ``generation_index >= 3``
-traces the loop into ``./profiles``.  ``--mesh`` waits for the port's
-``parallel/`` and exits non-zero naming its ROADMAP item.
+traces the loop into ``./profiles``.  ``--mesh dp=a,sp=b`` runs the
+model sharded (``WanModel.sharded``) on a world of a*b ranks started by
+torchrun or the multi-host flags, as the HunyuanVideo twin does; rank 0
+alone prints and writes:
+
+    torchrun --nproc-per-node 2 -m chipmunk_torch.cli.wan_generate \
+        --mesh sp=2
 """
 from __future__ import annotations
 
@@ -34,8 +39,9 @@ from ..models import (WanModel, WanModelConfig, WanTextEncoder,
                       wan_denoise, wan_denoise_compiled)
 from ..utils.offload import OffloadPolicy
 from ..utils.profiling import profile_region
-from . import (PROFILE_DIR, model_dtype, noise, read_config, refuse_unported,
-               save_frames, save_latents, warn)
+from . import (PROFILE_DIR, finish, is_main, model_dtype, noise, read_config,
+               save_frames, save_latents, say, setup_parallel, warn)
+from .hunyuan_generate import add_parallel_flags
 
 OFFLOAD_KEYS = ('attn_out_cache', 'attn_indices', 'attn_counts',
                 'mlp_out_cache', 'mlp_act_cache')
@@ -68,7 +74,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help='dim 256, 2 heads, ffn 1024, 32 text tokens '
                          '(pipeline demo; head_dim 128)')
     ap.add_argument('--out', default='wan_latents.npy')
-    ap.add_argument('--mesh', default=None)
+    add_parallel_flags(ap)
     ap.add_argument('--loop', default='host', choices=['host', 'compiled'],
                     help='host = one eager step at a time; compiled = '
                          'skipped steps folded, each computed step a CUDA '
@@ -123,7 +129,6 @@ def generate(model: WanModel, params: Dict, *, seed: int = 0,
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    refuse_unported(args, parallel=('mesh',))
     ck = read_config(args.chipmunk_config, args.steps, config_from_dict(
         {'num_model_invocations_per_inference_step': 2}))
     policy = OffloadPolicy.from_config(ck.offloading)
@@ -133,11 +138,17 @@ def main(argv=None) -> int:
              f'runner; see the configs/wan-chipmunk.yml note)')
     dev = resolve_device(args.device)
     cfg = model_config(args.size, args.frames, args.layers, args.tiny, dev)
+    mesh = setup_parallel(args, dev, cfg.num_heads)
     model = WanModel(cfg=cfg, ck=ck, device=dev)
+    if mesh is not None:
+        model = model.sharded(mesh, sp='sp', dp='dp'
+                              if 'dp' in mesh.mesh_dim_names else None)
+        say(f'mesh {args.mesh}: Ulysses head-parallel self-attention over '
+            f'sp, rank {mesh.get_rank()} of {mesh.size()}')
     if args.ckpt:
         params = load_wan_safetensors(args.ckpt, cfg, device=dev)
     else:
-        print('no --ckpt given: using random weights (pipeline demo mode)')
+        say('no --ckpt given: using random weights (pipeline demo mode)')
         params = init_wan_params(torch.Generator(dev).manual_seed(1), cfg,
                                  dev)
     ctx_c = ctx_u = None
@@ -160,7 +171,10 @@ def main(argv=None) -> int:
                        loop=args.loop, chunk=args.chunk)
         if dev.type == 'cuda':
             torch.cuda.synchronize(dev)
-    print(f'done in {time.perf_counter() - t0:.1f}s')
+    say(f'done in {time.perf_counter() - t0:.1f}s')
+    if not is_main():
+        finish()
+        return 0
     if args.vae:
         from ..models import (WanVaeConfig, init_wan_vae_decoder,
                               load_wan_vae, wan_vae_decode)
@@ -172,6 +186,7 @@ def main(argv=None) -> int:
     else:
         save_latents(out, args.out)
         print(f'latents -> {args.out}')
+    finish()
     return 0
 
 

@@ -13,6 +13,7 @@ compressed indices, and MLP).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
 
@@ -212,15 +213,45 @@ class FluxState(NamedTuple):
 
 @dataclass(frozen=True)
 class FluxSparse:
-    """Static sparsity context: the module configs + per-layer dense flags."""
+    """Static sparsity context: the module configs + per-layer dense flags,
+    and with ``with_ulysses`` the token shards of this rank."""
     attn_d: SparseDiffAttn      # double-block attention (joint sequence)
-    mlp_d: SparseDiffMlp        # double-block image MLP
+    mlp_d: Optional[SparseDiffMlp]  # double-block image MLP (None: a
+    #                                 rank that holds no image tokens)
     attn_s: SparseDiffAttn      # single-block attention
     mlp_s: SparseDiffMlp        # single-block full-sequence MLP
     n_dense_attn_double: int
     n_dense_attn_single: int
     n_dense_mlp_double: int
     n_dense_mlp_single: int
+    txt_len: int = 0            # text tokens of the joint sequence
+    txt_first: bool = True
+    batch: int = 1              # the batch the MLP caches fold in
+    # head-parallel attention over token shards (parallel.TokenShards)
+    ulysses: Optional[object] = None
+
+    def with_ulysses(self, mesh, axis: str,
+                     batch_axis: Optional[str] = None) -> "FluxSparse":
+        """This rank's context for Ulysses attention over ``axis`` of
+        ``mesh`` (the batch sharded over ``batch_axis`` where it
+        divides): the joint sequence split in whole MLP token groups
+        (``parallel.TokenShards``; ValueError where no such split
+        exists) and the MLP modules built for this rank's tokens."""
+        from ..parallel.sharding import TokenShards
+        S, T, cfg = self.attn_d.seq_len, self.txt_len, self.mlp_s.cfg
+        img = (T, S - T) if self.txt_first else (0, S - T)
+        shards = TokenShards.plan(
+            mesh, axis, batch_axis, S, cfg,
+            (('the joint sequence', 0, S), ('the image', *img)), self.batch)
+        rows, n_img = shards.rows(self.batch), shards.stream(*img)
+
+        def mlp(n_tok):
+            return SparseDiffMlp.build(cfg, rows * n_tok, self.mlp_s.d_model,
+                                       self.mlp_s.d_hidden)
+
+        return dataclasses.replace(
+            self, mlp_d=mlp(n_img) if n_img else None,
+            mlp_s=mlp(shards.sizes[shards.rank]), ulysses=shards)
 
     @staticmethod
     def build(ck: ChipmunkConfig, model: FluxModelConfig, seq_len: int,
@@ -246,15 +277,22 @@ class FluxSparse:
             n_dense_attn_double=min(nd_a, model.depth),
             n_dense_attn_single=max(0, nd_a - model.depth),
             n_dense_mlp_double=min(nd_m, model.depth),
-            n_dense_mlp_single=max(0, nd_m - model.depth))
+            n_dense_mlp_single=max(0, nd_m - model.depth),
+            txt_len=model.txt_len, txt_first=model.txt_first, batch=batch)
 
     def init_state(self, model: FluxModelConfig, B: int,
                    device: DeviceLike = 'cuda') -> FluxState:
+        """The caches of a batch of B; with ``ulysses`` this rank's: its
+        heads of its batch rows, the MLP caches of its tokens."""
         H, D, dt = model.num_heads, model.head_dim, model.dtype
+        u = self.ulysses
+        if u is not None:
+            B, H = u.rows(B), H // u.n
         return FluxState(
             double_attn=[self.attn_d.init_state(B, H, D, dt, device)
                          for _ in range(model.depth)],
             double_mlp=[self.mlp_d.init_state(dt, device)
+                        if self.mlp_d is not None else None
                         for _ in range(model.depth)],
             single_attn=[self.attn_s.init_state(B, H, D, dt, device)
                          for _ in range(model.depth_single_blocks)],
@@ -281,8 +319,8 @@ class FluxStep:
 # ----------------------------------------------------------------- forward
 
 def _split_heads(x, H):
-    B, S, _ = x.shape
-    return x.reshape(B, S, H, -1).transpose(1, 2)
+    B, S, C = x.shape
+    return x.reshape(B, S, H, C // H).transpose(1, 2)
 
 
 def _merge_heads(x):
@@ -291,11 +329,23 @@ def _merge_heads(x):
 
 
 def _attn_call(mod: SparseDiffAttn, q, k, v, st, step: FluxStep,
-               is_dense: bool, generator):
-    return mod(q.contiguous(), k.contiguous(), v.contiguous(), st,
-               step_index=step.index, is_full=step.full_attn,
-               is_colsum=step.colsum, layer_is_dense=is_dense,
-               generator=generator)
+               is_dense: bool, generator, ulysses=None):
+    """One attention; with ``ulysses`` (parallel.TokenShards) q, k, v are
+    this rank's token shard and the attention runs head-parallel
+    (``parallel.ulysses_attention``), ``generator`` being this rank's
+    (``parallel.rank_generator``)."""
+    def run(q, k, v, st):
+        return mod(q.contiguous(), k.contiguous(), v.contiguous(), st,
+                   step_index=step.index, is_full=step.full_attn,
+                   is_colsum=step.colsum, layer_is_dense=is_dense,
+                   generator=generator)
+
+    if ulysses is None:
+        return run(q, k, v, st)
+    from ..parallel.comm import ulysses_attention
+    return ulysses_attention(ulysses.mesh, ulysses.axis, run, q, k, v, st,
+                             batch_axis=ulysses.batch_axis,
+                             sizes=ulysses.sizes)
 
 
 def _mlp_call(mod: SparseDiffMlp, x2d, w1t, b1, w2, b2, st, step: FluxStep,
@@ -329,21 +379,26 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
     q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
     o, ast = _attn_call(sp.attn_d, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_double, generator)
+                        idx < sp.n_dense_attn_double, generator, sp.ulysses)
     o = _merge_heads(o)
+    # the streams' token counts (a rank's shard may hold few or none)
+    nt, ni = txt.shape[1], img.shape[1]
     if cfg.txt_first:
-        txt_o, img_o = o[:, :cfg.txt_len], o[:, cfg.txt_len:]
+        txt_o, img_o = o[:, :nt], o[:, nt:]
     else:
-        img_o, txt_o = o[:, :-cfg.txt_len], o[:, -cfg.txt_len:]
+        img_o, txt_o = o[:, :ni], o[:, ni:]
     img = img + im1[2] * linear(p['img_proj'], img_o)
     txt = txt + tm1[2] * linear(p['txt_proj'], txt_o)
 
     # image MLP (sparse), text MLP (dense, small)
-    img_mod2 = (1 + it1[1]) * layernorm(img) + it1[0]
-    mo, mst = _mlp_call(sp.mlp_d, img_mod2.reshape(-1, img_mod2.shape[-1]),
-                        p['img_w1t'], p['img_b1'], p['img_w2'], p['img_b2'],
-                        mst, step, idx < sp.n_dense_mlp_double, generator)
-    img = img + it1[2] * mo.reshape(img.shape)
+    if ni:
+        img_mod2 = (1 + it1[1]) * layernorm(img) + it1[0]
+        mo, mst = _mlp_call(sp.mlp_d,
+                            img_mod2.reshape(-1, img_mod2.shape[-1]),
+                            p['img_w1t'], p['img_b1'], p['img_w2'],
+                            p['img_b2'], mst, step,
+                            idx < sp.n_dense_mlp_double, generator)
+        img = img + it1[2] * mo.reshape(img.shape)
 
     txt_mod2 = (1 + tt1[1]) * layernorm(txt) + tt1[0]
     dt = txt.dtype
@@ -368,7 +423,7 @@ def single_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
     k = apply_rope(rmsnorm(k, p['knorm']), cos, sin)
 
     o, ast = _attn_call(sp.attn_s, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_single, generator)
+                        idx < sp.n_dense_attn_single, generator, sp.ulysses)
     attn_out = linear(p['o_proj'], _merge_heads(o))
     mo, mst = _mlp_call(sp.mlp_s, x_mod.reshape(-1, x_mod.shape[-1]),
                         p['w1t'], p['b1'], p['w2'],
@@ -394,9 +449,12 @@ def flux_embed(params: Dict, cfg: FluxModelConfig, img, txt, timesteps, y,
             linear(params['txt_in'], txt.to(dt)), vec)
 
 
-def flux_final(params: Dict, cfg: FluxModelConfig, x, vec):
-    """Final adaLN + projection."""
-    img = x[:, cfg.txt_len:] if cfg.txt_first else x[:, :-cfg.txt_len]
+def flux_final(params: Dict, cfg: FluxModelConfig, x, vec,
+               n_txt: Optional[int] = None):
+    """Final adaLN + projection of the image tokens of x (which holds
+    ``n_txt`` text tokens, cfg.txt_len if None)."""
+    n_txt = cfg.txt_len if n_txt is None else n_txt
+    img = x[:, n_txt:] if cfg.txt_first else x[:, :x.shape[1] - n_txt]
     shift, scale = linear(params['final_mod'], F.silu(vec))[:, None, :] \
         .chunk(2, -1)
     return linear(params['final_proj'], (1 + scale) * layernorm(img) + shift)
@@ -414,22 +472,38 @@ def flux_forward(params: Dict, cfg: FluxModelConfig, sp: FluxSparse,
     txt: [B, txt_len, ctx_dim], y: [B, vec_in], pe: (cos, sin) for the
     joint sequence.  ``generator`` draws the random keeps (attention with
     compressed indices, MLP).
+    With ``sp.ulysses`` the inputs are this rank's batch rows (whole
+    sequences) and its state; the blocks run on its token shard, the
+    attention head-parallel, the weights gathered layer by layer where
+    they are FSDP-sharded, and the prediction is all-gathered over the
+    shards.
     Returns (prediction [B, S_img, in_ch], new state)."""
+    u = sp.ulysses
+    if u is not None:
+        from ..parallel.sharding import gathered, gathered_top
+        params = gathered_top(params)
+        off_img = cfg.txt_len if cfg.txt_first else 0
+        off_txt = 0 if cfg.txt_first else img.shape[1]
+        img, txt = u.local(img, off_img), u.local(txt, off_txt)
+        pe = tuple(u.local(t, dim=2) for t in pe)
     img, txt, vec = flux_embed(params, cfg, img, txt, timesteps, y, guidance)
     cos, sin = pe
     d_attn, d_mlp = list(state.double_attn), list(state.double_mlp)
     for i, p in enumerate(params['double']):
         img, txt, d_attn[i], d_mlp[i] = double_block(
-            cfg, sp, p, img, txt, vec, cos, sin, d_attn[i], d_mlp[i], i,
-            step, generator)
+            cfg, sp, p if u is None else gathered(p), img, txt, vec, cos,
+            sin, d_attn[i], d_mlp[i], i, step, generator)
+    n_txt = txt.shape[1]
     x = torch.cat([txt, img] if cfg.txt_first else [img, txt], 1)
     s_attn, s_mlp = list(state.single_attn), list(state.single_mlp)
     for i, p in enumerate(params['single']):
         x, s_attn[i], s_mlp[i] = single_block(
-            cfg, sp, p, x, vec, cos, sin, s_attn[i], s_mlp[i], i, step,
-            generator)
-    return flux_final(params, cfg, x, vec), FluxState(d_attn, d_mlp,
-                                                      s_attn, s_mlp)
+            cfg, sp, p if u is None else gathered(p), x, vec, cos, sin,
+            s_attn[i], s_mlp[i], i, step, generator)
+    out = flux_final(params, cfg, x, vec, n_txt)
+    if u is not None:
+        out = u.gather(out, off_img, sp.attn_d.seq_len - cfg.txt_len)
+    return out, FluxState(d_attn, d_mlp, s_attn, s_mlp)
 
 
 def flux_rope_ids(B: int, h_img: int, w_img: int, txt_len: int,

@@ -10,12 +10,13 @@ mask with its text tail, the text token refiner, and the pad that makes
 the joint sequence a multiple of 128 (pad keys are excluded through
 ``SparseDiffAttn.valid_len``), and the streamed forward over host-
 offloaded caches (``make_streamed``, ``forward_streamed``) that the
-config's ``offloading`` block selects.
-
-Not ported yet: ``sharded`` (Ulysses).
+config's ``offloading`` block selects, and ``sharded`` / ``place``: the
+model of one rank of a ``torch.distributed`` mesh (Ulysses attention
+over token shards, the batch over ``dp``, optionally FSDP weights).
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import math
 from dataclasses import dataclass, field
@@ -34,6 +35,7 @@ from .flux import (FluxModelConfig, FluxSparse, FluxState, FluxStep,
                    flux_forward, init_flux_params)
 from .layers import (build_rope, layernorm, linear, mlp_embedder,
                      timestep_embedding)
+from .sampling import STREAMED_NO_MESH
 from .streamed import StreamedFluxRunner, StreamedFluxState
 
 
@@ -170,6 +172,31 @@ def text_refiner(p: Dict, txt: torch.Tensor, t_emb: torch.Tensor,
     return x
 
 
+def sharded_model(model, mesh, axis: str, batch_axis: Optional[str],
+                  fsdp: bool, num_heads: int, **attrs):
+    """A shallow copy of a video model with ``attrs`` set and its
+    ``mesh_info``; raises unless the size of ``axis`` divides the
+    heads."""
+    n = mesh[axis].size()
+    if num_heads % n:
+        raise ValueError(f'num_heads={num_heads} not divisible by '
+                         f'{axis}={n}')
+    m = copy.copy(model)
+    m.__dict__.update(attrs, mesh_info=(mesh, axis, batch_axis, fsdp))
+    return m
+
+
+def place(model, params, arrays, state):
+    """A video model's denoise inputs for its rank (as given when the
+    model is not sharded)."""
+    if model.mesh_info is None:
+        return params, tuple(arrays), state
+    from ..parallel.sharding import place_video_inputs
+    mesh, sp, dp, fsdp = model.mesh_info
+    return place_video_inputs(mesh, params, arrays, state, sp=sp, dp=dp,
+                              fsdp=fsdp)
+
+
 class VideoTokens:
     """The video token layout shared by the video models: patches of the
     (t, h, w) latent grid in voxel order (each 128-token query group one
@@ -235,6 +262,8 @@ class HunyuanModel(VideoTokens):
     csp_mode: str = 'auto'
     device: DeviceLike = 'cuda'
     _perm: Dict = field(default_factory=dict, repr=False)
+    # set by sharded(): (mesh, sp axis, dp axis, fsdp)
+    mesh_info: Optional[tuple] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -268,6 +297,24 @@ class HunyuanModel(VideoTokens):
             static_mask_tokens=mask, valid_len=seq if pad else None,
             csp_mode=self.csp_mode)
 
+    # -------------------------------------------------------- multi-card
+    def sharded(self, mesh, sp: str = 'sp', dp: Optional[str] = None,
+                fsdp: bool = False) -> "HunyuanModel":
+        """A new model for this rank of ``mesh`` (``parallel.make_mesh``):
+        Ulysses head-parallel attention over the token shards of axis
+        ``sp`` (the reference's multi-GPU path for this model,
+        ``head_parallel.py``), the batch over ``dp`` where it divides, the
+        weights FSDP-sharded over ``sp`` with ``fsdp``.  Its state holds
+        the rank's heads and tokens; the denoise loops place their inputs
+        with ``place`` and return the whole result on every rank."""
+        return sharded_model(self, mesh, sp, dp, fsdp, self.cfg.num_heads,
+                             sp=self.sp.with_ulysses(mesh, sp, dp))
+
+    def place(self, params, arrays, state):
+        """(params, arrays, state) for this rank (as given when the model
+        is not sharded): ``parallel.sharding.place_video_inputs``."""
+        return place(self, params, arrays, state)
+
     # ----------------------------------------------------------- forward
     def forward(self, params: Dict, latents: torch.Tensor, txt: torch.Tensor,
                 t_vec: torch.Tensor, y: torch.Tensor, state: FluxState,
@@ -281,6 +328,9 @@ class HunyuanModel(VideoTokens):
         prediction [B, C, T, H, W], new state)."""
         cfg = self.cfg
         B = latents.shape[0]
+        if self.mesh_info is not None:
+            from ..parallel.sharding import gathered_top
+            params = gathered_top(params)
         img, txt_ref = self.prep_tokens(params, latents, txt, t_vec, txt_mask)
         pe = pe if pe is not None else self.rope(B)
         pred, state = flux_forward(params, cfg.core(), self.sp, img, txt_ref,
@@ -314,7 +364,11 @@ class HunyuanModel(VideoTokens):
         ``offloading`` block asks (the shipped config: attention out_cache
         and indices in host memory), for ``hunyuan_denoise(...,
         streamed=...)``.  Each chunk count is cut to the largest divisor
-        of its depth that is at most the count asked for."""
+        of its depth that is at most the count asked for.  A sharded
+        model raises: the streamed runner has no mesh path."""
+        if self.mesh_info is not None:
+            raise ValueError(STREAMED_NO_MESH)
+
         def fit(n, depth):
             n = max(1, min(n, depth))
             while depth % n:

@@ -8,10 +8,13 @@ invoked and the previous prediction is reused.  The compiled loop folds
 the skipped steps into the computed ones and replays one CUDA graph per
 step kind (``step_graphs``); the streamed loop keeps the caches in host
 memory between steps and runs the layers chunk by chunk
-(``models/streamed.py``).
+(``models/streamed.py``).  ``FluxSampler.sharded`` runs the loops on one
+rank of a ``torch.distributed`` mesh (Ulysses attention over token
+shards, the batch over ``dp``, optionally FSDP weights).
 """
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass, field
 from typing import Callable, Dict, Optional, Sequence, Union
@@ -29,6 +32,15 @@ from .flux import (FluxModelConfig, FluxSparse, FluxStep, flux_forward,
 from .layers import build_rope
 from .step_graphs import carry_state, compiled_euler, draws_keeps
 from .streamed import StreamedFluxRunner, StreamedFluxState
+
+
+# why a sharded model or sampler has no streamed runner (the JAX twin's
+# reason, examples/hunyuan_generate.py)
+STREAMED_NO_MESH = (
+    'a mesh and offloading are mutually exclusive: the streamed runner '
+    'has no mesh path (sharding the caches over sp removes the memory '
+    'pressure that offloading works around; drop the offloading: block '
+    'instead)')
 
 
 def flux_time_shift(mu: float, sigma: float, t: torch.Tensor) -> torch.Tensor:
@@ -70,9 +82,46 @@ class FluxSampler:
     use_patchify: bool = True
     device: DeviceLike = 'cuda'
     _perm: Dict = field(default_factory=dict, repr=False)
+    # set by sharded(): (mesh, sp axis, dp axis, fsdp)
+    mesh_info: Optional[tuple] = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
+
+    def sharded(self, mesh, sp: str = 'sp', dp: Optional[str] = None,
+                fsdp: bool = False) -> "FluxSampler":
+        """The sampler of this rank of ``mesh`` (``parallel.make_mesh``):
+        Ulysses head-parallel attention over the token shards of axis
+        ``sp``, the batch over ``dp`` where it divides, the weights
+        FSDP-sharded over ``sp`` with ``fsdp``.  ``denoise`` and
+        ``denoise_compiled`` then place their inputs themselves and
+        return the whole result on every rank."""
+        n = mesh[sp].size()
+        if self.cfg.num_heads % n:
+            raise ValueError(f'num_heads={self.cfg.num_heads} not '
+                             f'divisible by {sp}={n}')
+        return dataclasses.replace(
+            self, sp=self.sp.with_ulysses(mesh, sp, batch_axis=dp),
+            mesh_info=(mesh, sp, dp, fsdp), _perm={})
+
+    def _place(self, params, img, txt, y, state):
+        """(params, img, txt, y, state) for this rank (as given when the
+        sampler is not sharded)."""
+        if self.mesh_info is None:
+            return params, img, txt, y, state
+        from ..parallel.sharding import place_flux_inputs
+        mesh, sp_ax, dp_ax, fsdp = self.mesh_info
+        return place_flux_inputs(mesh, params, img, txt, y, state,
+                                 sp=sp_ax, dp=dp_ax, fsdp=fsdp)
+
+    def _whole(self, img: torch.Tensor, B: int) -> torch.Tensor:
+        """The whole batch of a sharded loop's result (this rank's rows
+        gathered over dp)."""
+        if self.mesh_info is None:
+            return img
+        from ..parallel.sharding import gather_batch
+        mesh, _, dp_ax, _ = self.mesh_info
+        return gather_batch(img, mesh, dp_ax, B)
 
     def _order(self, inverse: bool) -> torch.Tensor:
         if inverse not in self._perm:
@@ -99,18 +148,29 @@ class FluxSampler:
     def unpatchify_img(self, img: torch.Tensor) -> torch.Tensor:
         return img[:, self._order(True)] if self.use_patchify else img
 
-    def _inputs(self, img, txt, y, guidance, generator):
-        """The loops' common inputs on the sampler's device: the latent
-        patch-reordered in float32, txt, y, RoPE, the guidance vector and
-        the generator (seed 0 if None)."""
+    def _inputs(self, params, img, txt, y, guidance, generator,
+                with_state: bool = True):
+        """The loops' common inputs on the sampler's device, placed for
+        this rank when sharded: the params, the latent patch-reordered in
+        float32, txt, y, RoPE, the guidance vector, the generator (seed 0
+        if None; this rank's when sharded) and the state (None unless
+        ``with_state``)."""
         dev = self.device
+        if generator is None:
+            generator = torch.Generator(dev).manual_seed(0)
+        img = self.patchify_img(img.to(dev)).float()
+        # the state takes the whole batch; a sharded one keeps its rows
+        state = self.sp.init_state(self.cfg, img.shape[0], self.device) \
+            if with_state else None
+        params, img, txt, y, state = self._place(params, img, txt.to(dev),
+                                                 y.to(dev), state)
         B = img.shape[0]
         g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
             if self.cfg.guidance_embed else None
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
-        return (self.patchify_img(img.to(dev)).float(), txt.to(dev),
-                y.to(dev), self.rope(B), g, generator)
+        if self.mesh_info is not None:
+            from ..parallel.comm import rank_generator
+            generator = rank_generator(generator, self.mesh_info[0])
+        return params, img, txt, y, self.rope(B), g, generator, state
 
     def _euler(self, img, timesteps, callback, predict) -> torch.Tensor:
         """Euler over the step plan: ``predict(img, t_vec, step)`` on each
@@ -146,9 +206,9 @@ class FluxSampler:
         device; seed 0 if None) draws the random keeps.  The latent is
         carried in float32.  Returns the denoised latent [B, S_img, C_in]
         (float32)."""
-        img, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
-                                                     generator)
-        state = self.sp.init_state(self.cfg, img.shape[0], self.device)
+        B = img.shape[0]
+        params, img, txt, y, pe, g, generator, state = self._inputs(
+            params, img, txt, y, guidance, generator)
 
         def predict(lat, t_vec, step):
             nonlocal state
@@ -157,7 +217,7 @@ class FluxSampler:
                                        generator=generator)
             return pred
 
-        return self._euler(img, timesteps, callback, predict)
+        return self._whole(self._euler(img, timesteps, callback, predict), B)
 
     def make_streamed(self, n_chunks_double: int = 1,
                       n_chunks_single: int = 2, B: int = 1,
@@ -166,7 +226,10 @@ class FluxSampler:
         for ``denoise_streamed``: the caches that ``policy`` names (the
         config's ``offloading`` block if None) live in host memory between
         steps; with a policy that offloads nothing the step still runs
-        chunk by chunk."""
+        chunk by chunk.  A sharded sampler raises: the streamed runner
+        has no mesh path."""
+        if self.mesh_info is not None:
+            raise ValueError(STREAMED_NO_MESH)
         if policy is None:
             policy = OffloadPolicy.from_config(self.ck.offloading)
         runner = StreamedFluxRunner(cfg=self.cfg, sp=self.sp)
@@ -186,8 +249,10 @@ class FluxSampler:
         (``streamed`` = (runner, state) from ``make_streamed``).  Arguments
         and result as ``denoise``; equal to it bit for bit."""
         runner, sst = streamed
-        img, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
-                                                     generator)
+        if self.mesh_info is not None:
+            raise ValueError(STREAMED_NO_MESH)
+        params, img, txt, y, pe, g, generator, _ = self._inputs(
+            params, img, txt, y, guidance, generator, with_state=False)
 
         def predict(lat, t_vec, step):
             return runner.forward(params, sst, lat, txt, t_vec, y, pe, step,
@@ -206,10 +271,11 @@ class FluxSampler:
         into the preceding computed step's Euler increment, and on the
         card each computed step a replay of the CUDA graph of its step
         kind (``step_graphs.compiled_euler``).  Arguments and result as
-        ``denoise``; the keeps are drawn in the host loop's order."""
-        lat, txt, y, pe, g, generator = self._inputs(img, txt, y, guidance,
-                                                     generator)
-        state = self.sp.init_state(self.cfg, lat.shape[0], self.device)
+        ``denoise``; the keeps are drawn in the host loop's order.
+        Sharded, the steps' collectives are captured in the graphs."""
+        B = img.shape[0]
+        params, lat, txt, y, pe, g, generator, state = self._inputs(
+            params, img, txt, y, guidance, generator)
 
         def predict(lat, t_vec, step):
             pred, new = flux_forward(params, self.cfg, self.sp, lat, txt,
@@ -220,4 +286,4 @@ class FluxSampler:
 
         lat = compiled_euler(step_plan(self.ck), timesteps, lat, predict,
                              generator, draws_keeps(self.ck))
-        return self.unpatchify_img(lat)
+        return self._whole(self.unpatchify_img(lat), B)

@@ -11,7 +11,10 @@ is reused.  The compiled loops fold the skipped steps into the computed
 ones and replay one CUDA graph per step kind (``step_graphs``).
 ``hunyuan_denoise(..., streamed=model.make_streamed())`` keeps the
 caches in host memory between steps and streams them chunk by chunk
-(``models/streamed.py``).
+(``models/streamed.py``).  A sharded model (``model.sharded(mesh)``) has
+every loop place its inputs and state for the rank (``model.place``),
+draw from the rank's generator (``parallel.rank_generator``) and return
+the whole batch on every rank.
 """
 from __future__ import annotations
 
@@ -21,8 +24,32 @@ import torch
 
 from ..schedule import step_plan
 from .flux import FluxStep
+from .sampling import STREAMED_NO_MESH
 from .step_graphs import (carry_state, check_chunk, compiled_euler,
                           draws_keeps)
+
+
+def _placed(model, params, latents, arrays, states, generator):
+    """A loop's inputs for the model's rank: (params, latents, arrays,
+    states, generator), the generator this rank's; as given when the
+    model is not sharded."""
+    if model.mesh_info is None:
+        return params, latents, arrays, list(states), generator
+    from ..parallel.comm import rank_generator
+    params, (latents, *arrays), states = model.place(
+        params, (latents, *arrays), list(states))
+    return (params, latents, tuple(arrays), states,
+            rank_generator(generator, model.mesh_info[0]))
+
+
+def _whole(model, lat: torch.Tensor, B: int) -> torch.Tensor:
+    """The whole batch of B rows of a loop's result (gathered over dp when
+    the model is sharded)."""
+    if model.mesh_info is None:
+        return lat
+    from ..parallel.sharding import gather_batch
+    mesh, _, dp, _ = model.mesh_info
+    return gather_batch(lat, mesh, dp, B)
 
 
 def _euler(model, latents: torch.Tensor, timesteps, callback, predict
@@ -65,13 +92,18 @@ def hunyuan_denoise(model, params: Dict, latents: torch.Tensor,
     asks, and stream chunk by chunk (equal to the resident loop bit for
     bit).  Returns the denoised latent (float32)."""
     dev = model.device
-    B = latents.shape[0]
+    B0 = latents.shape[0]
     txt, y = txt.to(dev), y.to(dev)
     if txt_mask is not None:
         txt_mask = txt_mask.to(dev)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    state = model.init_state(B) if streamed is None else None
+    if streamed is not None and model.mesh_info is not None:
+        raise ValueError(STREAMED_NO_MESH)
+    state = model.init_state(B0) if streamed is None else None
+    params, latents, (txt, y, txt_mask), (state,), generator = _placed(
+        model, params, latents, (txt, y, txt_mask), (state,), generator)
+    B = latents.shape[0]
     pe = model.rope(B)
     g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
         if model.cfg.guidance_embed else None
@@ -88,7 +120,8 @@ def hunyuan_denoise(model, params: Dict, latents: torch.Tensor,
                                     txt_mask=txt_mask)
         return pred
 
-    return _euler(model, latents, timesteps, callback, predict)
+    return _whole(model, _euler(model, latents, timesteps, callback,
+                                predict), B0)
 
 
 def wan_denoise(model, params: Dict, latents: torch.Tensor,
@@ -106,12 +139,13 @@ def wan_denoise(model, params: Dict, latents: torch.Tensor,
     both invocations' random keeps.  ``callback(i, skipped=...)`` is
     called after every step.  Returns the denoised latent (float32)."""
     dev = model.device
-    B = latents.shape[0]
-    ctx = (ctx_cond.to(dev), ctx_uncond.to(dev))
+    B0 = latents.shape[0]
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    states = list(model.init_cfg_states(B))
-    pe = model.rope(B)
+    params, latents, ctx, states, generator = _placed(
+        model, params, latents, (ctx_cond.to(dev), ctx_uncond.to(dev)),
+        model.init_cfg_states(B0), generator)
+    pe = model.rope(latents.shape[0])
 
     def predict(lat, t_vec, step):
         p = []
@@ -122,7 +156,8 @@ def wan_denoise(model, params: Dict, latents: torch.Tensor,
             p.append(o.float())
         return p[1] + guide_scale * (p[0] - p[1])
 
-    return _euler(model, latents, timesteps, callback, predict)
+    return _whole(model, _euler(model, latents, timesteps, callback,
+                                predict), B0)
 
 
 def hunyuan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
@@ -143,13 +178,16 @@ def hunyuan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
     ``hunyuan_denoise``."""
     check_chunk(chunk)
     dev = model.device
-    B = latents.shape[0]
+    B0 = latents.shape[0]
     txt, y = txt.to(dev), y.to(dev)
     if txt_mask is not None:
         txt_mask = txt_mask.to(dev)
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    state = model.init_state(B)
+    params, latents, (txt, y, txt_mask), (state,), generator = _placed(
+        model, params, latents, (txt, y, txt_mask), (model.init_state(B0),),
+        generator)
+    B = latents.shape[0]
     pe = model.rope(B)
     g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
         if model.cfg.guidance_embed else None
@@ -161,9 +199,10 @@ def hunyuan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
         carry_state(state, new)
         return pred
 
-    return compiled_euler(step_plan(model.ck), timesteps,
-                          latents.to(dev).float(), predict, generator,
-                          draws_keeps(model.ck), chunk)
+    return _whole(model, compiled_euler(
+        step_plan(model.ck), timesteps,
+        latents.to(dev, torch.float32, copy=True), predict,
+        generator, draws_keeps(model.ck), chunk), B0)
 
 
 def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
@@ -180,12 +219,13 @@ def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
     arguments and the result as ``wan_denoise``."""
     check_chunk(chunk)
     dev = model.device
-    B = latents.shape[0]
-    ctx = (ctx_cond.to(dev), ctx_uncond.to(dev))
+    B0 = latents.shape[0]
     if generator is None:
         generator = torch.Generator(dev).manual_seed(0)
-    states = model.init_cfg_states(B)
-    pe = model.rope(B)
+    params, latents, ctx, states, generator = _placed(
+        model, params, latents, (ctx_cond.to(dev), ctx_uncond.to(dev)),
+        model.init_cfg_states(B0), generator)
+    pe = model.rope(latents.shape[0])
 
     def predict(lat, t_vec, step):
         p = []
@@ -196,6 +236,7 @@ def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
             p.append(o.float())
         return p[1] + guide_scale * (p[0] - p[1])
 
-    return compiled_euler(step_plan(model.ck), timesteps,
-                          latents.to(dev).float(), predict, generator,
-                          draws_keeps(model.ck), chunk)
+    return _whole(model, compiled_euler(
+        step_plan(model.ck), timesteps,
+        latents.to(dev, torch.float32, copy=True), predict,
+        generator, draws_keeps(model.ck), chunk), B0)

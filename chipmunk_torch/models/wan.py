@@ -14,8 +14,11 @@ invocations a step, each with its own state (``init_cfg_states``,
 ``video_sampling.wan_denoise``).
 
 Params are the reference's tree with ``blocks`` as a list of per-layer
-dicts.  Not ported yet: ``sharded`` and ``place`` (Ulysses head
-parallelism) and the compiled loop ``wan_denoise_compiled``.
+dicts.  ``sharded`` / ``place`` give the model of one rank of a
+``torch.distributed`` mesh: the self-attention head-parallel over token
+shards (Ulysses), the cross-attention local (its queries are the rank's
+tokens, the text context is replicated), the batch over ``dp`` where it
+divides, optionally FSDP weights.
 """
 from __future__ import annotations
 
@@ -33,7 +36,7 @@ from ..kernels.csp_mlp import gelu_tanh
 from ..modules import AttnState, MlpState, SparseDiffAttn, SparseDiffMlp
 from ..ops.voxel import get_local_indices_with_text
 from .flux import FluxStep, _attn_call, _merge_heads, _mlp_call, _split_heads
-from .hunyuan import VideoTokens
+from .hunyuan import VideoTokens, place, sharded_model
 from .layers import apply_rope, layernorm, linear, rmsnorm, timestep_embedding
 
 
@@ -136,14 +139,17 @@ class WanModel(VideoTokens):
     """Model config + sparsity context; builds the static voxel mask.
 
     csp_mode: the csp_attn mode of every sparse layer ('auto' takes the
-    reference's rule).  The reference's ``sharded`` / ``place`` (Ulysses
-    head parallelism over a mesh) are not ported."""
+    reference's rule)."""
     cfg: WanModelConfig
     ck: ChipmunkConfig
     batch: int = 1           # MLP caches fold batch into the token axis
     csp_mode: str = 'auto'
     device: DeviceLike = 'cuda'
     _perm: Dict = field(default_factory=dict, repr=False)
+    # set by sharded(): this rank's token shards (parallel.TokenShards)
+    # and (mesh, sp axis, dp axis, fsdp)
+    ulysses: Optional[object] = field(default=None, repr=False)
+    mesh_info: Optional[tuple] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -170,6 +176,32 @@ class WanModel(VideoTokens):
             self.ck.mlp, self.batch * self.seq_padded, self.cfg.dim,
             self.cfg.ffn_dim)
 
+    # -------------------------------------------------------- multi-card
+    def sharded(self, mesh, sp: str = 'sp', dp: Optional[str] = None,
+                fsdp: bool = False) -> "WanModel":
+        """A new model for this rank of ``mesh`` (``parallel.make_mesh``):
+        the self-attention head-parallel over the token shards of axis
+        ``sp`` (the reference's own Wan multi-GPU path is dense xDiT USP,
+        which bypasses chipmunk; here the sparse path itself runs
+        head-parallel), the batch over ``dp`` where it divides, the
+        weights FSDP-sharded over ``sp`` with ``fsdp``.  The padded
+        sequence splits in whole MLP token groups (ValueError where it
+        cannot); the state holds the rank's heads and tokens."""
+        from ..parallel.sharding import TokenShards
+        S = self.seq_padded
+        shards = TokenShards.plan(mesh, sp, dp, S, self.ck.mlp,
+                                  (('the video', 0, S),), self.batch)
+        mlp = SparseDiffMlp.build(
+            self.ck.mlp, shards.rows(self.batch) * shards.sizes[shards.rank],
+            self.cfg.dim, self.cfg.ffn_dim)
+        return sharded_model(self, mesh, sp, dp, fsdp, self.cfg.num_heads,
+                             ulysses=shards, mlp_mod=mlp)
+
+    def place(self, params, arrays, state):
+        """(params, arrays, state) for this rank (as given when the model
+        is not sharded): ``parallel.sharding.place_video_inputs``."""
+        return place(self, params, arrays, state)
+
     # ----------------------------------------------------------- forward
     def forward(self, params: Dict, latents: torch.Tensor, txt: torch.Tensor,
                 t_vec: torch.Tensor, state: WanState, step: FluxStep,
@@ -178,12 +210,21 @@ class WanModel(VideoTokens):
         """One model invocation (once per CFG branch, each with its own
         state).  latents [B, C, T, H, W]; txt [B, txt_len, text_dim], the
         text encoder's context with pad rows zeroed; t_vec [B].
-        ``generator`` draws the attention random keeps.  Returns (velocity
-        prediction [B, C, T, H, W], new state)."""
-        cfg = self.cfg
+        ``generator`` draws the attention random keeps.  Sharded, the
+        inputs are the rank's batch rows and state, the blocks run on its
+        token shard (the weights gathered layer by layer where they are
+        FSDP-sharded) and the prediction is all-gathered.  Returns
+        (velocity prediction [B, C, T, H, W], new state)."""
+        cfg, u = self.cfg, self.ulysses
         B, dt, H = latents.shape[0], cfg.dtype, cfg.num_heads
-        x = linear(params['patch_in'], self.patchify_video(latents).to(dt))
-        pad = self.seq_padded - cfg.seq_len
+        tokens = self.patchify_video(latents).to(dt)
+        n_tok = self.seq_padded
+        if u is not None:
+            from ..parallel.sharding import gathered, gathered_top
+            params = gathered_top(params)
+            tokens, n_tok = u.local(tokens), u.sizes[u.rank]
+        x = linear(params['patch_in'], tokens)
+        pad = n_tok - x.shape[1]       # the pad tokens of this shard
         if pad:
             x = torch.cat([x, x.new_zeros((B, pad, cfg.dim))], 1)
         ti = params['text_in']
@@ -194,9 +235,13 @@ class WanModel(VideoTokens):
                    F.silu(linear(params['time_in']['fc1'], temb)))
         e6 = linear(params['time_proj'], F.silu(e)).reshape(B, 6, cfg.dim)
         cos, sin = pe if pe is not None else self.rope(B)
+        if u is not None:
+            cos, sin = u.local(cos, dim=2), u.local(sin, dim=2)
 
         s_attn, s_mlp = list(state.attn), list(state.mlp)
         for idx, p in enumerate(params['blocks']):
+            if u is not None:
+                p = gathered(p)
             mod = (e6 + p['mod_bias'][None])[:, :, None, :]   # [B,6,1,d]
             # self attention
             xn = (1 + mod[:, 1]) * layernorm(x) + mod[:, 0]
@@ -206,7 +251,7 @@ class WanModel(VideoTokens):
             q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
             o, s_attn[idx] = _attn_call(
                 self.attn_mod, q, k, v, s_attn[idx], step,
-                idx < self.ck.attn.first_n_dense_layers, generator)
+                idx < self.ck.attn.first_n_dense_layers, generator, u)
             x = x + mod[:, 2] * linear(p['o'], _merge_heads(o))
 
             # cross attention over the text context (dense)
@@ -227,14 +272,21 @@ class WanModel(VideoTokens):
 
         hm = params['head_mod']
         x = (1 + hm[1]) * layernorm(x) + hm[0]
-        out = linear(params['head'], x)[:, :cfg.seq_len]
+        out = linear(params['head'], x)
+        if u is not None:
+            out = u.gather(out, 0, self.seq_padded)
+        out = out[:, :cfg.seq_len]
         return self.unpatchify_video(out, B), WanState(s_attn, s_mlp)
 
     def init_state(self, B: int) -> WanState:
+        """The caches of a batch of B; sharded, this rank's: its heads of
+        its batch rows, the MLP caches of its tokens."""
         L, dt, dev = self.cfg.num_layers, self.cfg.dtype, self.device
+        H, u = self.cfg.num_heads, self.ulysses
+        if u is not None:
+            B, H = u.rows(B), H // u.n
         return WanState(
-            attn=[self.attn_mod.init_state(B, self.cfg.num_heads,
-                                           self.cfg.head_dim, dt, dev)
+            attn=[self.attn_mod.init_state(B, H, self.cfg.head_dim, dt, dev)
                   for _ in range(L)],
             mlp=[self.mlp_mod.init_state(dt, dev) for _ in range(L)])
 

@@ -16,7 +16,9 @@ LLaMA-3 trunk and the video prompt wrappers (stand-in tokenizers) on
 the card against the CPU; the
 checkpoint loaders on the card against the CPU, ``f8_input_matmul``
 (``torch._scaled_mm``) against its plain version and ``load_file`` to
-the card.  The
+the card; the collectives, the sharded FLUX sampler (with and without
+FSDP) and HunyuanVideo loops on a world of one NCCL rank against the
+unsharded ones, and the ring's hop merge through ``dense_attn``.  The
 kernels have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -1944,3 +1946,124 @@ def test_cuda_load_file_to_the_card(gen, tmp_path):
         assert torch.equal(got[k].view(torch.uint8) if v.dtype == fp8.FP8
                            else got[k], v.view(torch.uint8)
                            if v.dtype == fp8.FP8 else v)
+
+
+# ------------------------------------- multi-card sampling at world one
+
+@pytest.fixture(scope='module')
+def nccl_mesh():
+    """A world of one NCCL rank (the card's machine has one card, and NCCL
+    takes one rank a card); left at the module's end."""
+    if not torch.cuda.is_available():
+        pytest.skip('needs an NVIDIA GPU: the CUDA kernels have no CPU mode')
+    import torch.distributed as dist
+    from chipmunk_torch import parallel
+    parallel.initialize_multihost(device='cuda')
+    assert dist.get_backend() == 'nccl' and dist.get_world_size() == 1
+    yield parallel.make_mesh
+    dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_cuda_collectives_round_trip_at_world_one(gen, nccl_mesh):
+    """collect_tokens / collect_heads (with and without token sizes) and
+    the token gather over NCCL give back what they were given."""
+    from chipmunk_torch import parallel
+    from chipmunk_torch.parallel.comm import gather_tokens
+    mesh = nccl_mesh({'dp': 1, 'sp': 1})
+    x = randn(gen, 2, 4, 320, 128)
+    for sizes in (None, (320,)):
+        ct = parallel.collect_tokens(x, mesh, 'sp', sizes)
+        assert torch.equal(ct, x)
+        assert torch.equal(parallel.collect_heads(ct, mesh, 'sp', sizes), x)
+    assert torch.equal(gather_tokens(x, mesh, 'sp', (320,), dim=2), x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('fsdp', [False, True])
+def test_cuda_sharded_flux_sampler_equals_resident(gen, nccl_mesh, fsdp):
+    """The small FLUX (8 steps, random keeps, a skipped step) through
+    FluxSampler.sharded on sp=1, with and without FSDP: the latent equal
+    bit for bit to the unsharded sampler's, the same launches, host and
+    compiled loops."""
+    import chipmunk_torch.models as tm
+    cfg, ck, params, img, txt, y = _small_flux()
+    base = tm.FluxSampler(cfg=cfg, ck=ck, sp=tm.FluxSparse.build(ck, cfg, 512),
+                          h_img=16, w_img=24)
+    shd = base.sharded(nccl_mesh({'sp': 1}), fsdp=fsdp)
+    args = (_to_cuda(params), img.cuda(), txt.cuda(), y.cuda(),
+            tm.get_schedule(8, 384))
+    for loop in ('denoise', 'denoise_compiled'):
+        outs, launches = [], []
+        for s in (base, shd):
+            FA._build.reset_launches()
+            outs.append(getattr(s, loop)(*args, generator=torch.Generator(
+                'cuda').manual_seed(3)))
+            launches.append(dict(FA._build.LAUNCHES))
+        assert launches[0] == launches[1] and launches[0]['csp_mlp_mm1']
+        assert torch.equal(outs[0], outs[1]), loop
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('loop', ['host', 'compiled'])
+def test_cuda_sharded_video_loops_equal_resident(gen, nccl_mesh, loop):
+    """A small full-width HunyuanVideo (latent (5, 16, 30), depth 1+1,
+    the shipped config without offloading, random keeps) sharded on
+    dp=1 x sp=1: equal bit for bit to the unsharded loop, the same
+    launches; the compiled loop replays graphs that hold its
+    collectives."""
+    import dataclasses
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.config import config_from_dict, load_config
+    from chipmunk_torch.models.step_graphs import GRAPH_STATS
+    ck = load_config(os.path.join(os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))), 'configs', 'hunyuan-chipmunk.yml'))
+    ck = config_from_dict({
+        'steps': 6,
+        'attn': {'full_step_schedule': [0, 1, 4], 'first_n_dense_layers': 1,
+                 'top_keys': 0.3, 'random_keys': 0.05,
+                 'dense_fallback_frac': 1.0},
+        'step_caching': {'is_enabled': False}}, ck)
+    ck = ck.replace(offloading=dataclasses.replace(
+        ck.offloading, global_disable_offloading=True))
+    cfg = tm.HunyuanModelConfig(latent_t=5, latent_h=16, latent_w=30,
+                                depth_double=1, depth_single=1)
+    g0 = torch.Generator().manual_seed(0)
+    params = _to_cuda(tm.init_hunyuan_params(g0, cfg, 'cpu'))
+    inputs = tuple(torch.randn(s, generator=g0).to(torch.bfloat16).cuda()
+                   for s in ((1, 16, 5, 16, 30), (1, 256, 4096), (1, 768)))
+    base = tm.HunyuanModel(cfg=cfg, ck=ck)
+    fn = tm.hunyuan_denoise if loop == 'host' \
+        else tm.hunyuan_denoise_compiled
+    outs, launches = [], []
+    for m in (base, base.sharded(nccl_mesh({'dp': 1, 'sp': 1}), dp='dp')):
+        FA._build.reset_launches()
+        outs.append(fn(m, params, *inputs,
+                       tm.get_schedule(6, cfg.img_len, shift=False),
+                       generator=torch.Generator('cuda').manual_seed(3)))
+        launches.append(dict(FA._build.LAUNCHES))
+    assert launches[0] == launches[1] and launches[0]['dense_colsum_attn']
+    assert torch.isfinite(outs[0]).all() and torch.equal(outs[0], outs[1])
+    if loop == 'compiled':
+        assert GRAPH_STATS['replays'] > 0
+
+
+@pytest.mark.cuda
+def test_cuda_ring_merge_matches_dense(gen, nccl_mesh):
+    """ring_hops over 4 key chunks through dense_attn within its
+    tolerance of dense_attn_plain over all keys (lse to 1e-3); the ring
+    and USP at world 1 equal to one dense_attn."""
+    from chipmunk_torch import kernels, parallel
+    from chipmunk_torch.parallel.ring import ring_hops
+    q, k, v = (randn(gen, 1, 4, 1024, 128) for _ in range(3))
+    o, lse = ring_hops(q, [(k[:, :, i:i + 256], v[:, :, i:i + 256])
+                           for i in range(0, 1024, 256)])
+    o_p, lse_p = FA.dense_attn_plain(q, k, v)
+    assert ((o.float() - o_p.float()).abs()
+            <= ATOL + RTOL * o_p.float().abs()).all()
+    assert ((lse - lse_p).abs() <= 1e-3).all()
+    o1 = kernels.dense_attn(q, k, v)[0]
+    assert torch.equal(parallel.ring_attention(nccl_mesh({'sp': 1}), 'sp',
+                                               q, k, v), o1)
+    assert torch.equal(parallel.usp_attention(
+        nccl_mesh({'sp': 1, 'ring': 1}), 'sp', 'ring', q, k, v), o1)

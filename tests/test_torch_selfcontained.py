@@ -39,6 +39,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         assert not bad, bad
         # importing compiled and loaded no kernel library
         assert not sys.modules['chipmunk_torch.kernels._build']._libs
+        # and made no process group
+        import torch.distributed as dist
+        assert not dist.is_initialized()
         print('ok', len({MODULES!r}))
         ''')
     r = subprocess.run([sys.executable, '-c', code], cwd=REPO,
@@ -59,7 +62,9 @@ def test_every_module_imports_with_jax_and_reference_blocked():
         assert f'chipmunk_torch.models.{m}' in MODULES
     for m in ('modules.mlp_fp8', 'utils.safetensors_io', 'cli',
               'cli.flux_generate', 'cli.hunyuan_generate',
-              'cli.wan_generate', 'models.llama', 'utils.profiling'):
+              'cli.wan_generate', 'models.llama', 'utils.profiling',
+              'parallel', 'parallel.comm', 'parallel.ring',
+              'parallel.sharding'):
         assert f'chipmunk_torch.{m}' in MODULES
 
 
