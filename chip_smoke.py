@@ -33,7 +33,9 @@
    MLP step takes the int8-activation kernels, (c) with the same
    quantized weights and ``mlp.int8_act`` off, so every sparse MLP step
    takes the int8-weight, bf16-activation pair (``wq``); (b) and (c) at
-   the first QUANT_DEPTH blocks.  Each checks that the output is finite
+   the first QUANT_DEPTH blocks, and (a) too (the FLUX generation of 6
+   runs the bf16 loop at full depth).  Each checks that
+   the output is finite
    and that each kernel ran exactly as often as ``flux_launches``
    counts, is traced over a window of sparse steps, and is timed against
    a dense loop (sparsity and step caching off) on the same weights ((c)
@@ -111,9 +113,11 @@
 6. Prompt to pixels.  After the FLUX loops, one FLUX.1-dev generation
    at 1280x768: T5-v1.1-XXL and CLIP-L at full size in bf16 (random
    weights from a seed) encode one prompt's ids and are released, then
-   ``FluxSampler.denoise`` over configs/flux-chipmunk.yml on loop (a)'s
-   weights, noise and keep seed with their txt / vec (launches equal to
-   loop (a)'s, kernel by kernel; the encoders launch none of the port's
+   ``FluxSampler.denoise`` over configs/flux-chipmunk.yml on the bf16
+   model at full depth (loop (a)'s seeds) with their txt / vec (launches
+   exactly ``flux_launches``' count, kernel by kernel, which give the
+   bf16 kernels' rows of the JSON their launches; the encoders launch
+   none of the port's
    kernels), then ``unpack`` and the FLUX autoencoder's ``decode`` at
    full size in float32 to a [1, 3, 768, 1280] image: one synchronised
    span from the ids on the card to the pixels, the encoders' release
@@ -166,8 +170,27 @@
    ``usp_attention`` at world 1 equal to ``dense_attn``.  Seconds of
    each sharded run beside the unsharded one, the merge's ms beside one
    ``dense_attn`` call, the peak GiB allocated.
-9. Prints the card line, one JSON line with the kernels' numbers, and as
-   the last line ``{"ok": true, "device": {...}}``.
+9. A mid-generation save and resume (``utils/checkpoint.py``), after
+   the checkpoint-to-latents phase: the FLUX bf16 loop at full width,
+   CKPT_DEPTH blocks, configs/flux-chipmunk.yml as read (random keeps
+   on), 50 steps straight through by hand (``resume_steps``, torch.equal
+   to ``FluxSampler.denoise``), then again with the loop's state (the
+   latent, the last prediction, the FluxState and the generator's state)
+   saved by ``save_pytree`` after a sparse step in mid-schedule into a
+   temporary directory, loaded by ``load_pytree`` into a fresh state and
+   generator and run to the end: the two latents torch.equal, the
+   launches of the two runs equal; the file's bytes and the save and load
+   seconds.  Then the host C++ library (``utils/native.py``): its g++
+   build time; ``quantize_rows_native`` on one FLUX fc1 weight ([12288,
+   3072] float32) in fp8, int8 and int4, bit-equal to the numpy path and
+   to ``quantize`` on the card, native and numpy ms beside ``nproc``;
+   ``bitpack_host`` / ``bitunpack_host`` on a 720p attention mask, equal
+   to ``ops.bitpack`` on the card, the round trip exact.  The quantized
+   kernel phase of 2 also times ``csp_mlp_mm1_a8``'s split mode (bn 512
+   at the FLUX shape: ``Mm1A8Part`` and ``a8_split_finish_kernel``)
+   beside its bound.
+10. Prints the card line, one JSON line with the kernels' numbers, and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 Any failed phase ends the script with a non-zero exit.  Without a CUDA
 device, or without the ``chipmunk_torch`` package beside it, it exits
@@ -217,10 +240,14 @@ QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
 WQ_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1_wq',
            'csp_mlp_mm2_wq')
 SPEC = ('int4', 'int4', 'int8', 'int4')    # QuantSpec of bench.py:62-67
-# the quantized loops (b) and (c) run the first 10 + 19 of the 19 + 38
-# blocks: the cut that made room for the checkpoint phase, whose is_fp8
-# loop runs the a8 pair of (b) at full depth
+# loops (a), (b) and (c) run the first 10 + 19 of the 19 + 38 blocks:
+# the cuts that made room for the checkpoint phases; the is_fp8 loop runs
+# the a8 pair of (b), and the FLUX generation the bf16 pair of (a), at
+# full depth
 QUANT_DEPTH = dict(depth=10, depth_single_blocks=19)
+# the checkpoint phase's FLUX loop: full width, 2 + 4 blocks (~0.5 GiB of
+# caches to save and load)
+CKPT_DEPTH = dict(depth=2, depth_single_blocks=4)
 GEMM_NAMES = ('nvjet', 'gemm', 'cutlass', 'xmma', 'gemv')
 
 B, H, S, D = 1, 24, 4352, 128          # FLUX.1-dev at 1280x768
@@ -387,10 +414,9 @@ def device_ms(torch, fn, n):
     return top.self_device_time_total / 1e3 / top.count, top.key
 
 
-def kernel_names(torch, fn, n=5):
-    """The set of names (without namespace and template arguments) of the
-    CUDA kernels that ``n`` calls of ``fn`` launch, from torch.profiler's
-    kernel records."""
+def kernels_ms(torch, fn, n):
+    """{kernel name: device ms per call} of every CUDA kernel that ``fn``
+    launches, from torch.profiler's kernel records over ``n`` calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -400,8 +426,16 @@ def kernel_names(torch, fn, n=5):
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    return {e.key.split('<')[0].split()[-1].split('::')[-1]
+    return {e.key: e.self_device_time_total / 1e3 / n
             for e in prof.key_averages() if e.device_type == DeviceType.CUDA}
+
+
+def kernel_names(torch, fn, n=5):
+    """The set of names (without namespace and template arguments) of the
+    CUDA kernels that ``n`` calls of ``fn`` launch, from torch.profiler's
+    kernel records."""
+    return {k.split('<')[0].split()[-1].split('::')[-1]
+            for k in kernels_ms(torch, fn, n)}
 
 
 def fp8_ulp(torch, x, dtype=None):
@@ -1096,6 +1130,8 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
             torch, 'csp_mlp_mm2_a8w4 (FLUX)', 'mm2a8w4<',
             lambda: cm.csp_mlp_mm2_a8(d8_p, sd_p, w2, out_t, inds, counts,
                                       bn=bn, bm=bm))
+    else:
+        a8_split_timing(torch, cm, ca, x8, sx, w1, b1, w2, act, c1t, gen)
     del d8, sd, d8_p, sd_p, act_k, act_p, out_k, out_p
 
     # ---- csp_mlp_mm1_wq, as the main path calls it (csp_mlp_fused): with
@@ -1175,6 +1211,76 @@ def quant_kernel_phases(torch, cm, ca, fp8, quant, kind):
         a8w4_bn128(torch, cm, ca, fp8, x8, sx, w1, b1, w2, gen)
     print_rows(rows)
     return rows
+
+
+def a8_split_timing(torch, cm, ca, x8, sx, w1, b1, w2, act, c1t, gen):
+    """``csp_mlp_mm1_a8`` in its split mode at the FLUX shape (T = 4608,
+    C = 3072, N = 12288, bm = 512, bn = 512: two 256-neuron Mm1A8Part
+    passes, then ``a8_split_finish_kernel`` forms sd and d8), the int8
+    weights and fp8 act cache of the a8 rows, jmax 11 and counts 6-9
+    with one at 1 and one at 11 (about the bn 256 row's selected share):
+    checked as ``a8_wide_blocks`` checks it (act cache within one ulp,
+    d8/sd bit-equal where the acts agree, zero past the count); timed
+    with the wrapper (CUDA events) and by kernel on the device, beside
+    its bound and torch._int_mm over the dense layer on the selected
+    share."""
+    dev, bm, bn, jm, T = 'cuda', 512, 512, 11, T_SINGLE
+    M, nbn = T // bm, N // bn
+    tag = 'csp_mlp_mm1_a8 split mode, bn 512 (FLUX)'
+    inds = torch.rand((M, nbn), generator=gen, device=dev).topk(jm, -1) \
+        .indices.sort(-1).values.to(torch.int32)
+    counts = torch.randint(6, 10, (M,), generator=gen, device=dev,
+                           dtype=torch.int32)
+    counts[0], counts[1] = 1, jm
+    pinds = ca.pad_block_indices(inds, counts)
+    d8, sd, act_k = cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act.clone(),
+                                      inds, counts, bn=bn, bm=bm)
+    torch.cuda.synchronize()
+    d8_p, sd_p, act_p = cm.csp_mlp_mm1_a8_plain(x8, sx, w1, b1, w2.scale,
+                                                act, pinds, counts, bn, bm)
+    err = check_fp8(torch, f'{tag} act_cache', act_k, act_p)
+    agree = mlp_agree(torch, act_k, act_p, pinds, bm, bn)
+    d8r = d8.reshape(T, jm, bn)
+    if not (torch.equal(sd[agree], sd_p[agree]) and torch.equal(
+            d8r[agree], d8_p.reshape(T, jm, bn)[agree])):
+        fail(f'{tag}: d8/sd differ where the acts agree')
+    live = (torch.arange(jm, device=dev)[None]
+            < counts.repeat_interleave(bm)[:, None])
+    if bool(sd[~live].any()) or bool(d8r[~live].any()):
+        fail(f'{tag}: d8/sd not zero past the count')
+    act_t = act.clone()
+
+    def call():
+        return cm.csp_mlp_mm1_a8(x8, sx, w1, b1, w2.scale, act_t, inds,
+                                 counts, bn=bn, bm=bm)
+
+    ms = time_ms(torch, call, 20)
+    by_kernel = kernels_ms(torch, call, 20)
+    finish = sum(v for k, v in by_kernel.items()
+                 if 'a8_split_finish' in k)
+    part = sum(v for k, v in by_kernel.items() if 'mm1a8part' in k.lower())
+    if not finish or not part:
+        fail(f'{tag}: the trace holds no Mm1A8Part or a8_split_finish_kernel '
+             f'record: {sorted(by_kernel)}')
+    nsel = int(counts.sum().item())
+    used = torch.zeros(nbn, dtype=torch.bool, device=dev)
+    used[pinds.long().flatten()] = True
+    sel_bytes = nsel * bm * bn
+    bnd, by = bound_ms(2.0 * bm * bn * C * nsel,
+                       T * C + int(used.sum().item()) * bn * C
+                       + 3 * sel_bytes + nsel * bm * 4 + N * 10 + T * 4,
+                       PEAK_INT8_OPS)
+    lib = dense_library_ms(torch, f'{tag} yardstick torch._int_mm [4608, '
+                           f'3072] x [3072, 12288]',
+                           lambda: torch._int_mm(x8, c1t),
+                           nsel * bm * bn / (T * N))
+    print(f'{tag}: act max abs err {err:.3e}, acts agree in '
+          f'{agree.float().mean().item():.4f} of (row, block) pairs; '
+          f'{ms:.4f} ms with the wrapper, on the device Mm1A8Part '
+          f'{part:.4f} + a8_split_finish_kernel {finish:.4f} = '
+          f'{part + finish:.4f} ms (all kernels {sum(by_kernel.values()):.4f}'
+          f'); bound {bnd:.4f} ms ({by}); library {lib:.4f} ms', flush=True)
+    del d8, sd, act_k, d8_p, sd_p, act_p, act_t
 
 
 def kernel_device_ms(torch, tag, label, fn):
@@ -3154,7 +3260,8 @@ def draw_flux_encoders(torch, tm):
 def flux_generation(torch, tm, kern, ck, model, want):
     """One FLUX.1-dev generation at 1280x768 from prompt ids on the card to
     pixels.  Before the span: the encoders (draw_flux_encoders), loop
-    (a)'s bf16 weights, latent noise and keep seed, and the FLUX
+    (a)'s seeds' bf16 weights at ``model``'s depth, latent noise and
+    keep seed, and the FLUX
     autoencoder at AutoEncoderParams() in float32 (random weights from a
     seed) drawn; each encoder and the decode called once (the decode on a
     random latent of the decode's shape, timed as its first call).  The
@@ -3163,12 +3270,13 @@ def flux_generation(torch, tm, kern, ck, model, want):
     FluxSampler.denoise over ``ck`` (the shipped config) with their txt /
     vec, ``unpack`` and the decode (DECODE_SETTING).  The launch counts
     are set to 0 just before T5 and just before the loop and read after
-    each: the encoders launch none of the port's kernels, the loop what
-    loop (a) did (``want``), kernel by kernel.  Checks after the span:
+    each: the encoders launch none of the port's kernels, the loop each
+    kernel as often as ``want`` says (``flux_launches``, or a loop's
+    counts), every other kernel never.  Checks after the span:
     txt [1, 512, 4096] and vec [1, 768] bf16, the pooled row the first EOT
     row, finite latent and image, image [1, 3, 768, 1280].  Prints the
     span's wall time, each stage's, the first decode call's, the peak and
-    the pixel range; returns the wall time."""
+    the pixel range; returns the loop's launches."""
     torch.cuda.reset_peak_memory_stats()
     t5_fn, clip_fn, enc = draw_flux_encoders(torch, tm)
     gen = torch.Generator('cuda')
@@ -3227,8 +3335,8 @@ def flux_generation(torch, tm, kern, ck, model, want):
     if enc_launches:
         fail(f'the prompt encoders launched the port\'s kernels: '
              f'{enc_launches}')
-    if launches != want:
-        fail(f'generation: launches differ from loop (a)\'s '
+    if launches != {k: want.get(k, 0) for k in launches}:
+        fail(f'generation: launches differ from '
              f'{ {k: n for k, n in want.items() if n} }')
     if not bool(torch.isfinite(lat).all()):
         fail('generation: non-finite values in the latent')
@@ -3250,7 +3358,7 @@ def flux_generation(torch, tm, kern, ck, model, want):
           f'[{pix.min().item():.4f}, {pix.max().item():.4f}]', flush=True)
     del params, sampler, ae, pix, lat, txt, vec, hid
     torch.cuda.empty_cache()
-    return wall
+    return launches
 
 
 def decode_run(torch, fn):
@@ -4127,6 +4235,212 @@ def parallel_phase(torch, tm, kern, ck, vck, smi):
     torch.cuda.empty_cache()
 
 
+def resume_steps(torch, tm, sampler, params, lat, txt, y, pe, g, gen,
+                 state, ts, start, stop, pred=None):
+    """Steps [start, stop) of ``sampler.denoise``'s Euler loop over the
+    config's plan, by hand from the public pieces (``flux_forward`` with
+    the sampler's model, sparsity context, rope and generator): a skipped
+    step reuses the last prediction.  ``lat`` is the patch-ordered float32
+    latent.  Returns (lat, state, pred)."""
+    from chipmunk_torch.schedule import step_plan
+    plan = step_plan(sampler.ck)
+    for i in range(start, min(stop, len(plan), len(ts) - 1)):
+        kind, dt = plan[i], ts[i + 1] - ts[i]
+        if kind.skip and pred is not None:
+            lat = lat + dt * pred
+            continue
+        t_vec = torch.full((lat.shape[0],), ts[i], dtype=torch.float32,
+                           device=lat.device)
+        pred, state = tm.flux_forward(params, sampler.cfg, sampler.sp, lat,
+                                      txt, t_vec, y, pe, state,
+                                      tm.FluxStep.of(kind, i), guidance=g,
+                                      generator=gen)
+        lat = lat + dt * pred.float()
+    return lat, state, pred
+
+
+def checkpoint_phase(torch, tm, kern, ck):
+    """A mid-generation save and resume on the FLUX bf16 loop at full
+    width (hidden 3072, 24 heads, 1280x768, 4352 tokens), depth cut to
+    CKPT_DEPTH, configs/flux-chipmunk.yml as read (random keeps on): the
+    50-step loop once straight through (``resume_steps``, torch.equal to
+    ``FluxSampler.denoise`` on the same seeds), then again with the
+    loop's state (latent, last prediction, FluxState, the generator's
+    state as a uint8 leaf) saved by ``utils.save_pytree`` after a sparse
+    step in mid-schedule into a temporary directory, loaded by
+    ``load_pytree`` into a fresh state and generator and run to the end.
+    Gates: the two final latents torch.equal, the launch counts of the
+    two runs equal (and ``flux_launches``' count).  Prints the file's
+    bytes and the save and load seconds."""
+    from chipmunk_torch.schedule import step_plan
+    from chipmunk_torch.utils import load_pytree, save_pytree
+    model = tm.FluxModelConfig(**CKPT_DEPTH)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 11)
+    params = tm.init_flux_params(gen, model, 'cuda')
+    img, txt, y = (torch.randn(shape, generator=gen, device='cuda')
+                   for shape in ((1, H_IMG * W_IMG, model.in_channels),
+                                 (1, model.txt_len, model.context_in_dim),
+                                 (1, model.vec_in_dim)))
+    sampler = tm.FluxSampler(cfg=model, ck=ck, sp=tm.FluxSparse.build(
+        ck, model, model.txt_len + H_IMG * W_IMG), h_img=H_IMG, w_img=W_IMG)
+    ts = tm.get_schedule(ck.steps, H_IMG * W_IMG)
+    tl = torch.as_tensor(ts, dtype=torch.float32).tolist()
+    pe = sampler.rope(1)
+    g = torch.full((1,), 4.0, device='cuda')
+    lat0 = sampler.patchify_img(img).float()
+    plan = step_plan(ck)
+    at = next(i for i in range(ck.steps // 5, ck.steps - 1)
+              if not (plan[i].full_attn or plan[i].full_mlp or plan[i].skip))
+
+    def loop_gen():
+        return torch.Generator('cuda').manual_seed(SEED + 12)
+
+    def fresh_state():
+        return sampler.sp.init_state(model, 1, 'cuda')
+
+    out_d = sampler.denoise(params, img, txt, y, ts, generator=loop_gen())
+    kern.reset_launches()
+    lat, _, _ = resume_steps(torch, tm, sampler, params, lat0, txt, y, pe, g,
+                             loop_gen(), fresh_state(), tl, 0,
+                             ck.steps)
+    straight_launches = dict(kern.LAUNCHES)
+    straight = sampler.unpatchify_img(lat)
+    if not torch.equal(straight, out_d):
+        fail('checkpoint: the loop by hand differs from FluxSampler.denoise')
+    kern.reset_launches()
+    lgen = loop_gen()
+    lat, state, pred = resume_steps(torch, tm, sampler, params, lat0, txt,
+                                    y, pe, g, lgen,
+                                    fresh_state(), tl, 0,
+                                    at + 1)
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, 'resume.npz')
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_pytree(path, {'img': lat, 'pred': pred, 'state': state,
+                           'generator': lgen.get_state()})
+        save_s = time.perf_counter() - t0
+        nbytes = os.path.getsize(path)
+        del lat, state, pred
+        fresh = torch.Generator('cuda').manual_seed(SEED + 99)
+        like = {'img': torch.zeros_like(lat0),
+                'pred': torch.zeros((1, H_IMG * W_IMG, model.in_channels),
+                                    dtype=model.dtype, device='cuda'),
+                'state': fresh_state(),
+                'generator': fresh.get_state()}
+        t0 = time.perf_counter()
+        snap = load_pytree(path, like)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    fresh.set_state(snap['generator'])
+    lat, _, _ = resume_steps(torch, tm, sampler, params, snap['img'], txt, y,
+                             pe, g, fresh, snap['state'], tl, at + 1,
+                             ck.steps, snap['pred'])
+    resumed_launches = dict(kern.LAUNCHES)
+    resumed = sampler.unpatchify_img(lat)
+    if not bool(torch.isfinite(resumed).all()):
+        fail('checkpoint: non-finite values in the resumed latent')
+    if not torch.equal(resumed, straight):
+        rel = ((resumed - straight).abs().mean()
+               / straight.abs().mean()).item()
+        fail(f'checkpoint: the resumed loop differs from the straight one '
+             f'(mean relative difference {rel:.3e})')
+    if resumed_launches != straight_launches:
+        fail(f'checkpoint: launches of the resumed run '
+             f'{ {k: n for k, n in resumed_launches.items() if n} } differ '
+             f'from the straight run\'s')
+    check_launches('checkpoint', straight_launches, flux_launches(
+        ck, model, ('csp_mlp_mm1', 'csp_mlp_mm2')))
+    print(f'checkpoint: FLUX bf16 1280x768, depth {model.depth}+'
+          f'{model.depth_single_blocks}, {ck.steps} steps; saved after '
+          f'step {at} (sparse), {nbytes} bytes ({nbytes / 2 ** 30:.3f} GiB) '
+          f'in {save_s:.3f} s, loaded in {load_s:.3f} s; the resumed '
+          f'latent torch.equal to the straight loop\'s (and to '
+          f'FluxSampler.denoise), launches equal '
+          f'({ {k: n for k, n in straight_launches.items() if n} })',
+          flush=True)
+    del params, snap, sampler
+    torch.cuda.empty_cache()
+
+
+def native_phase(torch, quant, fp8):
+    """The port's host C++ library (``utils/native.py``): its g++ build
+    time; ``quantize_rows_native`` on one full-width FLUX fc1 weight
+    ([12288, 3072] float32, seeded) in fp8, int8 and int4, bit-equal to
+    the numpy path of ``quantize_host`` (the same rows as a [1, rows,
+    cols] weight) and to ``quantize`` on the card, with native and numpy
+    milliseconds beside ``nproc``; and ``bitpack_host`` /
+    ``bitunpack_host`` on a 720p attention selection mask ([1, 24, 931,
+    931]: query groups by kv blocks of 128 at 119,168 tokens), the packed
+    bytes equal to ``ops.bitpack`` on the card and the round trip
+    exact."""
+    import numpy as np
+    from chipmunk_torch.ops import bitpack
+    from chipmunk_torch.utils import native
+    build = importlib.import_module('chipmunk_torch.kernels._build')
+    t0 = time.perf_counter()
+    so = build.compile_host()
+    built_s = time.perf_counter() - t0
+    native.get_lib()
+    print(f'native: host library {os.path.basename(str(so))} built by g++ '
+          f'in {built_s:.2f} s (flags {" ".join(build.GXX_FLAGS)}); nproc '
+          f'{os.cpu_count()}', flush=True)
+    gen = torch.Generator('cuda')
+    gen.manual_seed(SEED + 13)
+    w_dev = torch.randn((N, C), generator=gen, device='cuda') * C ** -0.5
+    w = w_dev.cpu().numpy()
+    for kind in ('fp8', 'int8', 'int4'):
+        pa = -1 if kind == 'int4' else None
+        t0 = time.perf_counter()
+        q, scale = native.quantize_rows_native(w, kind)
+        nat_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        plain = quant.quantize_host(w[None], kind, keep_axes=(0, 1),
+                                    pack_axis=2 if pa else None)
+        np_ms = (time.perf_counter() - t0) * 1e3
+        card = quant.quantize(w_dev, kind, keep_axes=0, pack_axis=pa)
+        host = quant.quantize_host(w, kind, keep_axes=0, pack_axis=pa)
+
+        def codes(t):
+            return (t.view(torch.uint8) if t.dtype == fp8.FP8 else t).cpu()
+
+        want_q, want_s = codes(card.q), card.scale.cpu()
+        got = ((torch.from_numpy(q), torch.from_numpy(scale)[:, None]),
+               (codes(plain.q)[0], plain.scale[0]),
+               (codes(host.q), host.scale))
+        for what, (gq, gs) in zip(('native', 'numpy path', 'quantize_host'),
+                                  got):
+            if not (torch.equal(gq, want_q) and torch.equal(gs, want_s)):
+                bad = int((gq != want_q).sum())
+                fail(f'native {kind}: the {what} codes or scales differ '
+                     f'from quantize on the card ({bad} codes)')
+        print(f'native quantize_rows_native {kind} [{N}, {C}] float32: '
+              f'{nat_ms:.1f} ms, the numpy path {np_ms:.1f} ms '
+              f'({np_ms / nat_ms:.1f}x) on {os.cpu_count()} CPUs; codes '
+              f'and scales bit-equal to the numpy path and to quantize on '
+              f'the card', flush=True)
+    shape = (1, 24, 931, 931)
+    mask = torch.rand(shape, generator=gen, device='cuda') < 0.1
+    host_mask = mask.cpu().numpy()
+    t0 = time.perf_counter()
+    packed = native.bitpack_host(host_mask)
+    pack_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    back = native.bitunpack_host(packed, shape)
+    unpack_ms = (time.perf_counter() - t0) * 1e3
+    dev_packed, _ = bitpack(mask)
+    if not np.array_equal(packed, dev_packed.cpu().numpy().reshape(-1)):
+        fail('native bitpack_host: bytes differ from ops.bitpack on the card')
+    if not np.array_equal(back, host_mask):
+        fail('native bitunpack_host: the round trip differs')
+    print(f'native bitpack_host {list(shape)} ({host_mask.size} entries, '
+          f'{packed.size} bytes): pack {pack_ms:.1f} ms, unpack '
+          f'{unpack_ms:.1f} ms; bytes equal to ops.bitpack on the card, '
+          f'round trip exact', flush=True)
+    del w_dev, mask
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -4200,15 +4514,19 @@ def main():
           f'{ck.attn.first_n_dense_layers}/{ck.mlp.first_n_dense_layers}',
           flush=True)
     model = tm.FluxModelConfig()          # full width and depth, bf16
-    launches = drive_path(torch, kern, tm, ck, model, 'bf16', BF16_PATH,
-                          trace_compiled=True)[0]
-    check_launches('bf16', launches, flux_launches(
-        ck, model, ('csp_mlp_mm1', 'csp_mlp_mm2')))
+    # (a) at the first QUANT_DEPTH blocks (the cut that made room for
+    # the checkpoint resume and native phases); the FLUX generation
+    # below runs the bf16 loop at full depth and gives its kernels' rows
+    # their launches
+    model_q = dataclasses.replace(model, **QUANT_DEPTH)
+    a_launches = drive_path(torch, kern, tm, ck, model_q, 'bf16', BF16_PATH,
+                            trace_compiled=True)[0]
+    check_launches('bf16', a_launches, flux_launches(
+        ck, model_q, ('csp_mlp_mm1', 'csp_mlp_mm2')))
 
     # (b) quantized weights as bench.py builds them, at the first
     # QUANT_DEPTH blocks; the bf16 model of (a) lives only inside its loops
     # and is freed by now
-    model_q = dataclasses.replace(model, **QUANT_DEPTH)
     t0 = time.perf_counter()
     qparams = quant.synth_quantized_flux_params(
         SEED, model_q, quant.QuantSpec(*SPEC), device='cuda')
@@ -4246,8 +4564,10 @@ def main():
     stamp('FLUX loops')
 
     # ---- prompt to pixels: one FLUX.1-dev generation at 1280x768 through
-    # the encoders, loop (a)'s weights and schedule, and the autoencoder
-    flux_generation(torch, tm, kern, ck, model, launches)
+    # the encoders, the bf16 model at full depth with loop (a)'s seeds and
+    # schedule, and the autoencoder
+    launches = flux_generation(torch, tm, kern, ck, model, flux_launches(
+        ck, model, ('csp_mlp_mm1', 'csp_mlp_mm2')))
     stamp('FLUX generation')
 
     # ---- checkpoint to latents: FLUX.1-dev from a BFL state dict through
@@ -4256,6 +4576,13 @@ def main():
     f8_input_matmul_phase(torch)
     run_twins(torch, tm)
     stamp('checkpoint to latents')
+
+    # ---- a mid-generation save and resume (utils/checkpoint.py), and the
+    # host C++ library (utils/native.py)
+    checkpoint_phase(torch, tm, kern, ck)
+    stamp('checkpoint resume')
+    native_phase(torch, quant, fp8)
+    stamp('native')
 
     # ---- the video path: HunyuanVideo 540p, configs/hunyuan-chipmunk.yml
     # unchanged (compressed indices, packed-only states as its offloading
@@ -4317,10 +4644,18 @@ def main():
          'step_caching': {'is_enabled': False}}, ck)
     small = dataclasses.replace(model, depth=1, depth_single_blocks=1,
                                 txt_len=128)
-    agree_small(torch, tm, kern, small_ck, small, 'bf16', BF16_PATH)
-    agree_compiled_small(torch, tm, kern, small_ck, small, 'bf16')
+    # each weight set drawn once on the CPU and shared by the runs that
+    # take it (a draw at full width costs seconds of CPU)
+    small_bf16 = tm.init_flux_params(torch.Generator('cpu').manual_seed(SEED),
+                                     small, 'cpu')
+    agree_small(torch, tm, kern, small_ck, small, 'bf16', BF16_PATH,
+                small_bf16)
+    agree_compiled_small(torch, tm, kern, small_ck, small, 'bf16',
+                         small_bf16)
     small_q = quant.synth_quantized_flux_params(
         SEED, small, quant.QuantSpec(*SPEC), device='cpu')
+    small_q4 = quant.synth_quantized_flux_params(
+        SEED, small, quant.QuantSpec(*(('int4',) * 4)), device='cpu')
     agree_compiled_small(torch, tm, kern, small_ck, small, 'quantized',
                          small_q)
     # the quantized path, then the other weight/activation variants
@@ -4337,15 +4672,13 @@ def main():
             ('int4 MLP int8_act off', no_a8, ('int4',) * 4,
              ('csp_mlp_mm1_w4', 'csp_mlp_mm2_w4'))):
         agree_small(torch, tm, kern, cfg, small, tag, kernels,
-                    small_q if spec == SPEC else
-                    quant.synth_quantized_flux_params(
-                        SEED, small, quant.QuantSpec(*spec), device='cpu'))
+                    small_q if spec == SPEC else small_q4)
     # the MLP with the cache dtypes unset: bf16 caches (the reference's
     # default), bf16 and quantized weights
     bf16_caches = small_ck.replace(mlp=dataclasses.replace(
         small_ck.mlp, act_cache_dtype=None, out_cache_dtype=None))
     agree_small(torch, tm, kern, bf16_caches, small, 'bf16 caches',
-                BF16_PATH)
+                BF16_PATH, small_bf16)
     agree_small(torch, tm, kern, bf16_caches, small, 'quantized bf16 caches',
                 QUANT_PATH, small_q)
 

@@ -7,6 +7,9 @@ Each ``csrc/<name>.cu`` is compiled on first use by ``nvcc`` for
 ``.cu`` and every shared ``.cuh``), so a library is rebuilt only when its
 sources change.  Nothing here runs at import time.
 
+The port's host C++ library (``csrc/host.cpp``, no CUDA) is built the
+same way by ``g++`` (``compile_host``), cached by the same hash rule.
+
 Each wrapper that launches a kernel adds one to ``LAUNCHES[name]``.
 """
 from __future__ import annotations
@@ -25,6 +28,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
 LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe')
+GXX_FLAGS = ['-O3', '-shared', '-fPIC', '-pthread', '-std=c++17']
 
 # kernel launches per wrapper since the last reset
 LAUNCHES: Dict[str, int] = {
@@ -130,6 +134,32 @@ def library(name: str) -> ctypes.CDLL:
                     getattr(lib, fn).restype = ctypes.c_int
             _libs[name] = lib
     return _libs[name]
+
+
+def compile_host(src: Path = CSRC / 'host.cpp', out_dir: Path = BUILD_DIR
+                 ) -> Path:
+    """The shared library of the host C++ source ``src``, compiled by
+    ``g++`` into ``out_dir`` unless a library of the same source and
+    flags is there; raises RuntimeError with the compiler's output when
+    it fails."""
+    h = hashlib.sha256(' '.join(GXX_FLAGS).encode())
+    h.update(src.read_bytes() if src.exists() else b'')
+    out = Path(out_dir) / f'{src.stem}-{h.hexdigest()[:16]}.so'
+    if out.exists():
+        return out
+    gxx = shutil.which('g++')
+    if gxx is None:
+        raise RuntimeError(f'g++ not found: {src.name} is built on first '
+                           f'use with the C++ compiler')
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
+    p = subprocess.run([gxx, *GXX_FLAGS, str(src), '-o', str(tmp)],
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                       text=True)
+    if p.returncode != 0:
+        raise RuntimeError(f'g++ failed for {src}:\n{p.stdout}')
+    os.replace(tmp, out)
+    return out
 
 
 def check(err: int, what: str) -> None:

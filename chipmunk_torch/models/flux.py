@@ -217,9 +217,9 @@ class FluxSparse:
     and with ``with_ulysses`` the token shards of this rank."""
     attn_d: SparseDiffAttn      # double-block attention (joint sequence)
     mlp_d: Optional[SparseDiffMlp]  # double-block image MLP (None: a
-    #                                 rank that holds no image tokens)
+    #                                 rank that holds none of its rows)
     attn_s: SparseDiffAttn      # single-block attention
-    mlp_s: SparseDiffMlp        # single-block full-sequence MLP
+    mlp_s: Optional[SparseDiffMlp]  # single-block full-sequence MLP
     n_dense_attn_double: int
     n_dense_attn_single: int
     n_dense_mlp_double: int
@@ -228,30 +228,34 @@ class FluxSparse:
     txt_first: bool = True
     batch: int = 1              # the batch the MLP caches fold in
     # head-parallel attention over token shards (parallel.TokenShards)
+    # and the MLP routes of the image and the joint stream (None: the
+    # MLP runs on the rank's own tokens)
     ulysses: Optional[object] = None
+    route_d: Optional[object] = None
+    route_s: Optional[object] = None
 
     def with_ulysses(self, mesh, axis: str,
                      batch_axis: Optional[str] = None) -> "FluxSparse":
         """This rank's context for Ulysses attention over ``axis`` of
         ``mesh`` (the batch sharded over ``batch_axis`` where it
-        divides): the joint sequence split in whole MLP token groups
-        (``parallel.TokenShards``; ValueError where no such split
-        exists) and the MLP modules built for this rank's tokens."""
+        divides): the joint sequence split over the ranks
+        (``parallel.TokenShards``: in whole MLP token groups where such a
+        split exists, else as evenly as tokens allow, each MLP stream
+        then routed to a whole-group split of its own) and the MLP
+        modules built for this rank's rows of each stream."""
         from ..parallel.sharding import TokenShards
-        S, T, cfg = self.attn_d.seq_len, self.txt_len, self.mlp_s.cfg
+        S, T, m = self.attn_d.seq_len, self.txt_len, self.mlp_s
         img = (T, S - T) if self.txt_first else (0, S - T)
-        shards = TokenShards.plan(
-            mesh, axis, batch_axis, S, cfg,
-            (('the joint sequence', 0, S), ('the image', *img)), self.batch)
-        rows, n_img = shards.rows(self.batch), shards.stream(*img)
+        shards = TokenShards.plan(mesh, axis, batch_axis, S, m.cfg,
+                                  ((0, S), img), self.batch)
 
-        def mlp(n_tok):
-            return SparseDiffMlp.build(cfg, rows * n_tok, self.mlp_s.d_model,
-                                       self.mlp_s.d_hidden)
+        def mlp(n_rows):
+            return SparseDiffMlp.build(m.cfg, n_rows, m.d_model,
+                                       m.d_hidden) if n_rows else None
 
-        return dataclasses.replace(
-            self, mlp_d=mlp(n_img) if n_img else None,
-            mlp_s=mlp(shards.sizes[shards.rank]), ulysses=shards)
+        (n_s, n_d), (r_s, r_d) = shards.mlp_rows, shards.routes
+        return dataclasses.replace(self, mlp_d=mlp(n_d), mlp_s=mlp(n_s),
+                                   ulysses=shards, route_d=r_d, route_s=r_s)
 
     @staticmethod
     def build(ck: ChipmunkConfig, model: FluxModelConfig, seq_len: int,
@@ -297,6 +301,7 @@ class FluxSparse:
             single_attn=[self.attn_s.init_state(B, H, D, dt, device)
                          for _ in range(model.depth_single_blocks)],
             single_mlp=[self.mlp_s.init_state(dt, device)
+                        if self.mlp_s is not None else None
                         for _ in range(model.depth_single_blocks)])
 
 
@@ -348,11 +353,21 @@ def _attn_call(mod: SparseDiffAttn, q, k, v, st, step: FluxStep,
                              sizes=ulysses.sizes)
 
 
-def _mlp_call(mod: SparseDiffMlp, x2d, w1t, b1, w2, b2, st, step: FluxStep,
-              is_dense: bool, generator):
-    return mod(x2d, w1t, b1, w2, b2, st, is_full=step.full_mlp,
-               recompute_mask=step.recompute_mlp_mask, layer_is_dense=is_dense,
-               generator=generator)
+def _mlp_call(mod: Optional[SparseDiffMlp], x2d, w1t, b1, w2, b2, st,
+              step: FluxStep, is_dense: bool, generator, route=None):
+    """One MLP on this rank's rows ``x2d``; with ``route``
+    (parallel.MlpRoute) the rows move to the MLP's whole-group split and
+    the output comes back.  A rank that holds none of the MLP's rows
+    (``mod`` None) keeps its state None."""
+    if route is not None:
+        x2d = route.to_mlp(x2d)
+    if mod is None:
+        out = x2d
+    else:
+        out, st = mod(x2d, w1t, b1, w2, b2, st, is_full=step.full_mlp,
+                      recompute_mask=step.recompute_mlp_mask,
+                      layer_is_dense=is_dense, generator=generator)
+    return (out if route is None else route.back(out)), st
 
 
 def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
@@ -391,13 +406,14 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
     txt = txt + tm1[2] * linear(p['txt_proj'], txt_o)
 
     # image MLP (sparse), text MLP (dense, small)
-    if ni:
+    if ni or sp.route_d is not None:
         img_mod2 = (1 + it1[1]) * layernorm(img) + it1[0]
         mo, mst = _mlp_call(sp.mlp_d,
                             img_mod2.reshape(-1, img_mod2.shape[-1]),
                             p['img_w1t'], p['img_b1'], p['img_w2'],
                             p['img_b2'], mst, step,
-                            idx < sp.n_dense_mlp_double, generator)
+                            idx < sp.n_dense_mlp_double, generator,
+                            sp.route_d)
         img = img + it1[2] * mo.reshape(img.shape)
 
     txt_mod2 = (1 + tt1[1]) * layernorm(txt) + tt1[0]
@@ -429,7 +445,8 @@ def single_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
                         p['w1t'], p['b1'], p['w2'],
                         torch.zeros(cfg.hidden_size, dtype=x.dtype,
                                     device=x.device),
-                        mst, step, idx < sp.n_dense_mlp_single, generator)
+                        mst, step, idx < sp.n_dense_mlp_single, generator,
+                        sp.route_s)
     x = x + gate * (attn_out + mo.reshape(x.shape))
     return x, ast, mst
 

@@ -150,6 +150,8 @@ class WanModel(VideoTokens):
     # and (mesh, sp axis, dp axis, fsdp)
     ulysses: Optional[object] = field(default=None, repr=False)
     mesh_info: Optional[tuple] = field(default=None, repr=False)
+    # set by sharded() where the MLP's rows move (parallel.MlpRoute)
+    mlp_route: Optional[object] = field(default=None, repr=False)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -185,17 +187,20 @@ class WanModel(VideoTokens):
         which bypasses chipmunk; here the sparse path itself runs
         head-parallel), the batch over ``dp`` where it divides, the
         weights FSDP-sharded over ``sp`` with ``fsdp``.  The padded
-        sequence splits in whole MLP token groups (ValueError where it
-        cannot); the state holds the rank's heads and tokens."""
+        sequence splits in whole MLP token groups where it can, else as
+        evenly as tokens allow with the MLP's rows routed to a
+        whole-group split of their own (``parallel.TokenShards``); the
+        state holds the rank's heads and its rows of the MLP."""
         from ..parallel.sharding import TokenShards
         S = self.seq_padded
-        shards = TokenShards.plan(mesh, sp, dp, S, self.ck.mlp,
-                                  (('the video', 0, S),), self.batch)
-        mlp = SparseDiffMlp.build(
-            self.ck.mlp, shards.rows(self.batch) * shards.sizes[shards.rank],
-            self.cfg.dim, self.cfg.ffn_dim)
+        shards = TokenShards.plan(mesh, sp, dp, S, self.ck.mlp, ((0, S),),
+                                  self.batch)
+        n_rows = shards.mlp_rows[0]
+        mlp = SparseDiffMlp.build(self.ck.mlp, n_rows, self.cfg.dim,
+                                  self.cfg.ffn_dim) if n_rows else None
         return sharded_model(self, mesh, sp, dp, fsdp, self.cfg.num_heads,
-                             ulysses=shards, mlp_mod=mlp)
+                             ulysses=shards, mlp_mod=mlp,
+                             mlp_route=shards.routes[0])
 
     def place(self, params, arrays, state):
         """(params, arrays, state) for this rank (as given when the model
@@ -267,7 +272,8 @@ class WanModel(VideoTokens):
             mo, s_mlp[idx] = _mlp_call(
                 self.mlp_mod, xn2.reshape(-1, xn2.shape[-1]), p['w1t'],
                 p['b1'], p['w2'], p['b2'], s_mlp[idx], step,
-                idx < self.ck.mlp.first_n_dense_layers, generator)
+                idx < self.ck.mlp.first_n_dense_layers, generator,
+                self.mlp_route)
             x = x + mod[:, 5] * mo.reshape(x.shape)
 
         hm = params['head_mod']
@@ -288,7 +294,8 @@ class WanModel(VideoTokens):
         return WanState(
             attn=[self.attn_mod.init_state(B, H, self.cfg.head_dim, dt, dev)
                   for _ in range(L)],
-            mlp=[self.mlp_mod.init_state(dt, dev) for _ in range(L)])
+            mlp=[self.mlp_mod.init_state(dt, dev)
+                 if self.mlp_mod is not None else None for _ in range(L)])
 
     def init_cfg_states(self, B: int) -> Tuple[WanState, WanState]:
         """Two invocation states, for the cond and the uncond branch."""

@@ -28,6 +28,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..device import DeviceLike, resolve_device
 from ..ops import fp8
 from ..utils.quant import QTensor, QuantSpec, true_div
 
@@ -56,10 +57,12 @@ def quantize_weight(w: torch.Tensor) -> F8Weight:
     return F8Weight(w8=fp8.to_fp8(wf / scale), scale=scale)
 
 
-def init_input_state(device='cpu') -> F8InputState:
-    return F8InputState(amax=torch.zeros((), device=device),
-                        count=torch.zeros((), dtype=torch.int32,
-                                          device=device))
+def init_input_state(device: DeviceLike = 'cuda') -> F8InputState:
+    """A fresh calibration state on ``device`` (the card unless the
+    caller asks for the CPU)."""
+    dev = resolve_device(device)
+    return F8InputState(amax=torch.zeros((), device=dev),
+                        count=torch.zeros((), dtype=torch.int32, device=dev))
 
 
 def _amax(st: F8InputState, cur: torch.Tensor) -> torch.Tensor:

@@ -11,8 +11,9 @@ share of the heads, and a second one returns the outputs to token shards
   * ``collect_heads``: the inverse, for the attention outputs.
 
 Token shards may be uneven (``sizes``: the tokens of every rank along the
-axis, in rank order), so that a shard boundary never cuts a sparse-MLP
-token group.  Sparsity state is per head and stays local to its rank.
+axis, in rank order), so that a shard boundary cuts no sparse-MLP token
+group where a split allows it (``sharding.TokenShards``).  Sparsity
+state is per head and stays local to its rank.
 
 Collectives run on the process group's backend: NCCL on the card, gloo
 for ``device='cpu'``.  Nothing here creates a process group at import;

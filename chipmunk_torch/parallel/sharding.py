@@ -10,11 +10,18 @@ counterparts of ``chipmunk_tpu/parallel/sharding.py``.
 * Tokens: ``TokenShards`` splits the joint sequence over the ``sp`` axis
   in whole sparse-MLP token groups (``mlp.bm`` rows share one neuron
   set, so a boundary inside a group would change the selection), uneven
-  where the group count asks for it, and refuses a geometry where a
-  boundary must cut a group of one of the MLP's token streams.
+  where the group count asks for it.  Where no such split keeps every
+  MLP token stream's groups whole, the tokens split as evenly as they
+  allow and each stream that split cuts gets an ``MlpRoute``: its rows
+  move to a whole-group split of their own (over ``sp``, or ``dp`` x
+  ``sp`` where a group crosses two ``dp`` ranks' batch rows) before the
+  MLP and back after it, each group computed once, on one rank, from the
+  rows the unsharded MLP sees (the JAX package runs the MLP on the
+  global token axis, so it runs every split).
 * State: created at the rank's size (``H/n`` heads of the rank's batch,
-  the MLP caches of the rank's token groups), which is what the
-  reference's ``chipmunk_state_shardings`` places on each device.
+  the MLP caches of the rank's rows of each MLP split; None where it
+  holds none), which is what the reference's ``chipmunk_state_shardings``
+  places on each device.
 * Inputs: ``place_flux_inputs`` / ``place_video_inputs`` give this
   rank's slice of a batch sharded over ``dp`` (the whole batch where it
   does not divide), its state and the weights, whole or FSDP-sharded.
@@ -129,46 +136,161 @@ def stream_counts(sizes: Sequence[int], offset: int, length: int
                  for s, z in zip(starts, sizes))
 
 
-def check_groups(sizes: Sequence[int], offset: int, length: int,
-                 batch: int, local_batch: int, bm: int, what: str) -> None:
-    """Raise ValueError unless the MLP token groups of every rank's part
-    of the stream [offset, offset + length) are whole groups of the
-    unsharded stream.  The MLP folds the batch into its token axis
-    (``[B*T]``, B = ``batch``) and groups ``bm`` consecutive rows; each
-    rank holds ``local_batch`` consecutive batch rows and its shard of
-    the tokens of each."""
-    starts = np.concatenate([[0], np.cumsum(sizes)[:-1]])
+def fold_rows(batch_rows: range, length: int, start: int, stop: int
+              ) -> np.ndarray:
+    """The rows of the batch-folded stream (``[B*T]``, row b * length +
+    t) that a rank holding ``batch_rows`` and the stream's tokens [start,
+    stop) holds, in its own fold order (batch row major)."""
+    return (np.asarray(batch_rows)[:, None] * length
+            + np.arange(start, stop)[None]).reshape(-1)
+
+
+def whole_groups(sizes: Sequence[int], offset: int, length: int,
+                 batch: int, local_batch: int, bm: int) -> bool:
+    """Whether the MLP token groups of every rank's part of the stream
+    [offset, offset + length) are whole groups of the unsharded stream.
+    The MLP folds the batch into its token axis (``[B*T]``, B =
+    ``batch``) and groups ``bm`` consecutive rows; each rank holds
+    ``local_batch`` consecutive batch rows and its shard of the tokens of
+    each."""
+    counts = stream_counts(sizes, offset, length)
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
     T = batch * length
     for b0 in range(0, batch, local_batch):
-        for r, (s, z) in enumerate(zip(starts, sizes)):
-            a = max(s, offset) - offset
-            b = min(s + z, offset + length) - offset
-            if b <= a:
-                continue
-            # the rank's rows of the global fold, in its local fold order
-            rows = ((b0 + np.arange(local_batch))[:, None] * length
-                    + np.arange(a, b)[None]).reshape(-1)
+        for a, z in zip(starts, counts):
+            rows = fold_rows(range(b0, b0 + local_batch), length, a, a + z)
             for g0 in range(0, rows.size, bm):
                 grp = rows[g0:g0 + bm]
                 if not (grp[0] % bm == 0
                         and (grp.size == bm or grp[-1] == T - 1)
                         and grp[-1] - grp[0] == grp.size - 1):
-                    raise ValueError(
-                        f'no whole-group split: {what} of {length} tokens '
-                        f'(batch {batch}, {local_batch} a rank) over '
-                        f'shards {tuple(sizes)} cuts an MLP token group of '
-                        f'bm {bm} on rank {r}')
+                    return False
+    return True
+
+
+_GROUPS: Dict[Tuple[int, Tuple[Tuple[int, ...], ...]], tuple] = {}
+
+
+def _joint_group(mesh, axes: Tuple[str, ...]):
+    """This rank's process group over the ranks of ``mesh`` that differ
+    only along ``axes``: one group per slice, every slice made on every
+    rank in the same order (``new_subgroups_by_enumeration``), once per
+    set of slices in each world.  The cache holds the world's default
+    group beside the groups, so a world started after
+    ``destroy_process_group`` (a new default group, never of the same
+    id while the old one is held) makes its own."""
+    names = list(mesh.mesh_dim_names)
+    dims = [names.index(a) for a in axes]
+    other = [d for d in range(len(names)) if d not in dims]
+    ranks = mesh.mesh.permute(*other, *dims).reshape(
+        -1, int(np.prod([mesh.mesh.shape[d] for d in dims])))
+    world = dist.group.WORLD
+    key = (id(world), tuple(tuple(sorted(r.tolist())) for r in ranks))
+    if key not in _GROUPS:
+        _GROUPS[key] = (world, dist.new_subgroups_by_enumeration(
+            [list(k) for k in key[1]])[0])
+    return _GROUPS[key][1]
+
+
+class MlpRoute:
+    """How one sparse-MLP token stream moves between this rank's token
+    shard (the attention's split) and the MLP's own whole-group split.
+
+    The MLP folds the batch into its token axis and groups ``bm``
+    consecutive rows, so a shard boundary inside a group would change
+    the group's neuron selection.  Where the attention's split cuts a
+    group, the stream's folded rows are dealt out again in whole groups
+    over the ranks that hold it (``sp``, or ``dp`` x ``sp`` where a group
+    crosses batch rows of different ``dp`` ranks): ``to_mlp`` moves this
+    rank's rows there by one ``all_to_all_single`` with uneven sizes
+    and puts them in fold order, ``back`` returns the MLP's output the
+    same way.  Each group is then computed once, on one rank, from the
+    rows the unsharded MLP sees.  ``n_rows`` is this rank's share (0: it
+    holds no group, but still takes part in both exchanges)."""
+
+    def __init__(self, group, send, recv, perm, n_rows, device):
+        self.group, self.send, self.recv = group, list(send), list(recv)
+        self.n_rows = int(n_rows)
+        self.perm = self.inv = None
+        if perm is not None:
+            self.perm = torch.as_tensor(perm, device=device)
+            self.inv = torch.as_tensor(np.argsort(perm), device=device)
+
+    @staticmethod
+    def plan(mesh, axis: str, batch_axis: Optional[str],
+             sizes: Sequence[int], offset: int, length: int, batch: int,
+             lb: int, bm: int) -> "MlpRoute":
+        """The route of the stream [offset, offset + length) of a batch
+        of ``batch`` whose tokens are split by ``sizes`` over ``axis``
+        and whose rows are split over ``batch_axis``, ``lb`` a rank
+        (``local_batch``), for this rank."""
+        # a group crosses the batch rows of two dp ranks
+        cross = lb < batch and (lb * length) % bm != 0
+        axes = (batch_axis, axis) if cross else (axis,)
+        group = _joint_group(mesh, axes) if cross else mesh.get_group(axis)
+        members = dist.get_process_group_ranks(group)
+        counts = stream_counts(sizes, offset, length)
+        starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+        names = list(mesh.mesh_dim_names)
+
+        def held(rank):
+            coord = (mesh.mesh == rank).nonzero()[0].tolist()
+            s = coord[names.index(axis)]
+            d = coord[names.index(batch_axis)] if lb < batch else 0
+            return fold_rows(range(d * lb, (d + 1) * lb), length,
+                             starts[s], starts[s] + counts[s])
+
+        rows = [held(r) for r in members]
+        # the stream's rows that these ranks hold, whole groups of it
+        lo = min(int(r.min()) for r in rows if r.size)
+        total = sum(r.size for r in rows)
+        bounds = lo + np.concatenate([[0], np.cumsum(
+            token_split(total, len(members), bm))])
+        me = members.index(dist.get_rank())
+        send = [int(((rows[me] >= a) & (rows[me] < b)).sum())
+                for a, b in zip(bounds, bounds[1:])]
+        a, b = bounds[me], bounds[me + 1]
+        got = [r[(r >= a) & (r < b)] for r in rows]
+        order = np.concatenate(got)
+        perm = np.argsort(order, kind='stable')
+        device = (torch.device('cuda', torch.cuda.current_device())
+                  if mesh.device_type == 'cuda' else torch.device('cpu'))
+        return MlpRoute(group, send, [g.size for g in got],
+                        None if (perm == np.arange(perm.size)).all()
+                        else perm, b - a, device)
+
+    def to_mlp(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows [n_local, C] (its fold order) -> its rows of
+        the MLP split [n_rows, C] (the stream's fold order)."""
+        out = x.new_empty((sum(self.recv),) + x.shape[1:])
+        dist.all_to_all_single(out, x.contiguous(), self.recv, self.send,
+                               group=self.group)
+        return out if self.perm is None else out[self.perm]
+
+    def back(self, y: torch.Tensor) -> torch.Tensor:
+        """The inverse of ``to_mlp``, for the MLP's output."""
+        if self.inv is not None:
+            y = y[self.inv]
+        out = y.new_empty((sum(self.send),) + y.shape[1:])
+        dist.all_to_all_single(out, y.contiguous(), self.send, self.recv,
+                               group=self.group)
+        return out
 
 
 @dataclass(frozen=True)
 class TokenShards:
     """How the joint sequence is split over ``axis`` of ``mesh``:
     ``sizes[r]`` tokens on rank r, in order; ``batch_axis`` is the axis
-    the batch is sharded over (or None)."""
+    the batch is sharded over (or None).  ``routes[i]`` is the
+    ``MlpRoute`` of the i-th MLP token stream given to ``plan`` (None
+    where its MLP runs on the rank's own tokens) and ``mlp_rows[i]`` the
+    rows of that stream's MLP on this rank."""
     mesh: object
     axis: str
     batch_axis: Optional[str]
     sizes: Tuple[int, ...]
+    routes: Tuple[Optional[MlpRoute], ...] = ()
+    mlp_rows: Tuple[int, ...] = ()
 
     @property
     def rank(self) -> int:
@@ -214,25 +336,38 @@ class TokenShards:
     @staticmethod
     def plan(mesh, axis: str, batch_axis: Optional[str], seq_len: int,
              mlp_cfg, streams=(), batch: int = 1) -> "TokenShards":
-        """The split of ``seq_len`` tokens over ``axis``: in whole groups
-        of ``mlp_cfg.bm`` tokens where the sparse MLP is on, checked
-        against each of its token streams (name, offset, length) in
-        ``streams`` with the batch of ``batch`` (``check_groups``), else
-        as even as tokens allow.  Raises ValueError naming the sizes where
-        no such split exists."""
+        """The split of ``seq_len`` tokens over ``axis`` and the MLP
+        routes of each of the sparse MLP's token streams (offset, length)
+        in ``streams``, for a batch of ``batch``.  Where the MLP is on
+        and a split in whole groups of ``mlp_cfg.bm`` tokens keeps every
+        stream's groups whole on their ranks (``whole_groups``), that
+        split, and every MLP runs on the rank's own tokens.  Else the
+        tokens split as evenly as they allow, and each stream whose
+        groups that split cuts gets an ``MlpRoute``."""
         n = axis_size(mesh, axis)
-        unit = mlp_cfg.bm if mlp_cfg.is_enabled else 1
-        if -(-seq_len // unit) < n:
-            raise ValueError(
-                f'no whole-group split: {seq_len} tokens in groups of '
-                f'{unit} are fewer groups than the {n} ranks of {axis}')
-        sizes = token_split(seq_len, n, unit)
-        if mlp_cfg.is_enabled:
-            sl = local_batch(mesh, batch_axis, batch)
-            for what, off, length in streams:
-                check_groups(sizes, off, length, batch, sl.stop - sl.start,
-                             unit, what)
-        return TokenShards(mesh, axis, batch_axis, sizes)
+        sl = local_batch(mesh, batch_axis, batch)
+        lb = sl.stop - sl.start
+        bm = mlp_cfg.bm if mlp_cfg.is_enabled else 1
+
+        def wholes(sizes):
+            return [bm == 1 or whole_groups(sizes, off, length, batch, lb,
+                                            bm) for off, length in streams]
+
+        sizes = token_split(seq_len, n, bm)
+        whole = wholes(sizes)
+        if not (-(-seq_len // bm) >= n and all(whole)):
+            sizes = token_split(seq_len, n, 1)
+            whole = wholes(sizes)
+        shards = TokenShards(mesh, axis, batch_axis, sizes)
+        routes, rows = [], []
+        for (off, length), w in zip(streams, whole):
+            route = None if w else MlpRoute.plan(
+                mesh, axis, batch_axis, sizes, off, length, batch, lb, bm)
+            routes.append(route)
+            rows.append(route.n_rows if route is not None
+                        else lb * shards.stream(off, length))
+        return TokenShards(mesh, axis, batch_axis, sizes, tuple(routes),
+                           tuple(rows))
 
 
 # -------------------------------------------------------------------- batch

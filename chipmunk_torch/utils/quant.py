@@ -208,10 +208,21 @@ def param_bytes(tree) -> int:
 def quantize_host(w, kind: str, keep_axes,
                   pack_axis: Optional[int] = None) -> QTensor:
     """numpy-side quantize (the same formats as :func:`quantize`) for
-    weights that arrive on the host; returns CPU tensors.  The fp8
-    rounding itself goes through ``ops/fp8.py``."""
+    weights that arrive on the host; returns CPU tensors.  A [rows, cols]
+    weight with per-row scales (int4 packed along the columns) goes
+    through the host library's multi-threaded quantizers
+    (``utils/native.py``), bit-equal to the numpy path below, where the
+    fp8 rounding goes through ``ops/fp8.py``."""
     wf = np.asarray(w, np.float32)
     keep = _keep(keep_axes, wf.ndim)
+    if (wf.ndim == 2 and keep == (0,) and kind in ('fp8', 'int8', 'int4')
+            and (kind != 'int4' or pack_axis in (1, -1))):
+        from .native import quantize_rows_native
+        q, scale = quantize_rows_native(wf, kind)
+        q = torch.from_numpy(q)
+        return QTensor(q.view(fp8.FP8) if kind == 'fp8' else q,
+                       torch.from_numpy(scale[:, None]),
+                       -1 if kind == 'int4' else None)
     red = tuple(i for i in range(wf.ndim) if i not in keep)
     amax = np.maximum(np.abs(wf).max(axis=red, keepdims=True), 1e-8)
     pa = None

@@ -18,7 +18,9 @@ checkpoint loaders on the card against the CPU, ``f8_input_matmul``
 (``torch._scaled_mm``) against its plain version and ``load_file`` to
 the card; the collectives, the sharded FLUX sampler (with and without
 FSDP) and HunyuanVideo loops on a world of one NCCL rank against the
-unsharded ones, and the ring's hop merge through ``dense_attn``.  The
+unsharded ones, and the ring's hop merge through ``dense_attn``; a
+checkpoint saved from the card and loaded to the card and the host, and
+the host library's row quantizers against ``quantize`` on the card.  The
 kernels have no CPU mode, so every test here skips without a GPU.  This file
 imports neither jax nor chipmunk_tpu, so it runs on a machine without
 them:
@@ -2067,3 +2069,47 @@ def test_cuda_ring_merge_matches_dense(gen, nccl_mesh):
                                                q, k, v), o1)
     assert torch.equal(parallel.usp_attention(
         nccl_mesh({'sp': 1, 'ring': 1}), 'sp', 'ring', q, k, v), o1)
+
+
+@pytest.mark.cuda
+def test_cuda_checkpoint_round_trip_from_and_to_the_card(gen, tmp_path):
+    """save_pytree takes tensors on the card (bf16, fp8, int); load_pytree
+    puts each leaf on its ``like``'s device, the card or the host, bit for
+    bit."""
+    from chipmunk_torch.utils import load_pytree, save_pytree
+    tree = {'bf16': randn(gen, 4, 8),
+            'fp8': (randn(gen, 16) * 8).to(torch.float8_e4m3fn),
+            'ints': [torch.arange(6, device='cuda', dtype=torch.int32), None]}
+    save_pytree(str(tmp_path / 'ck.npz'), tree)
+    for device in ('cuda', 'cpu'):
+        like = {'bf16': torch.zeros(4, 8, dtype=torch.bfloat16,
+                                    device=device),
+                'fp8': torch.zeros(16, dtype=torch.float8_e4m3fn,
+                                   device=device),
+                'ints': [torch.zeros(6, dtype=torch.int32, device=device),
+                         None]}
+        got = load_pytree(str(tmp_path / 'ck.npz'), like)
+        assert got['bf16'].device.type == device
+        assert torch.equal(got['bf16'].cpu(), tree['bf16'].cpu())
+        assert torch.equal(got['fp8'].view(torch.uint8).cpu(),
+                           tree['fp8'].view(torch.uint8).cpu())
+        assert torch.equal(got['ints'][0].cpu(), tree['ints'][0].cpu())
+        assert got['ints'][1] is None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('kind', ['fp8', 'int8', 'int4'])
+def test_cuda_quantize_host_native_equals_quantize_on_the_card(gen, kind):
+    """The host library's row quantizers (quantize_host's route for a 2-D
+    weight with per-row scales) code for code and scale for scale equal
+    to ``quantize`` on the card."""
+    from chipmunk_torch.utils import quant
+    w = torch.randn((512, 1024), generator=gen, device='cuda') * 0.05
+    pa = -1 if kind == 'int4' else None
+    host = quant.quantize_host(w.cpu().numpy(), kind, keep_axes=0,
+                               pack_axis=pa)
+    card = quant.quantize(w, kind, keep_axes=0, pack_axis=pa)
+    assert host.pack_axis == card.pack_axis
+    view = torch.uint8 if kind == 'fp8' else card.q.dtype
+    assert torch.equal(host.q.view(view), card.q.view(view).cpu())
+    assert torch.equal(host.scale, card.scale.cpu())

@@ -65,7 +65,7 @@ def test_calibration_freezes_after_twelve_calls_bit_equal():
     running max stops at call 12; a frozen scale then sends inputs past
     464 x scale to NaN, as the reference's e4m3 cast does."""
     rng = np.random.default_rng(1)
-    js, ts = jf8.init_input_state(), tf8.init_input_state()
+    js, ts = jf8.init_input_state(), tf8.init_input_state(device='cpu')
     assert ts.amax.dtype == torch.float32 and ts.count.dtype == torch.int32
     for i in range(tf8.CALIBRATION_STEPS + 2):
         x = draw(rng, (16, 32), 0.5 * (i + 1))
@@ -113,8 +113,8 @@ def test_f8_matmul_and_f8_linear_match(out_dtype):
                                np.asarray(yj, np.float32), **tol)
     yj, js = jf8.f8_linear(jnp.asarray(x), jw, jf8.init_input_state(),
                            jnp.asarray(b), out_dtype=jdt)
-    yt, ts = tf8.f8_linear(t(x), tw, tf8.init_input_state(), t(b),
-                           out_dtype=tdt)
+    yt, ts = tf8.f8_linear(t(x), tw, tf8.init_input_state(device='cpu'),
+                           t(b), out_dtype=tdt)
     np.testing.assert_allclose(yt.float().numpy(),
                                np.asarray(yj, np.float32), **tol)
     assert ts.count.item() == int(js.count) == 1

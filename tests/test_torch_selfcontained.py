@@ -64,7 +64,7 @@ def test_every_module_imports_with_jax_and_reference_blocked():
               'cli.flux_generate', 'cli.hunyuan_generate',
               'cli.wan_generate', 'models.llama', 'utils.profiling',
               'parallel', 'parallel.comm', 'parallel.ring',
-              'parallel.sharding'):
+              'parallel.sharding', 'utils.checkpoint', 'utils.native'):
         assert f'chipmunk_torch.{m}' in MODULES
 
 
@@ -94,6 +94,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
                                        FluxSparse, HunyuanModel,
                                        HunyuanModelConfig, init_flux_params,
                                        init_hunyuan_params, params_from_jax)
+    from chipmunk_torch.modules.mlp_fp8 import init_input_state
     from chipmunk_torch.utils.quant import synth_quantized_flux_params
     monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
     tiny = FluxModelConfig(hidden_size=128, num_heads=2, depth=1,
@@ -116,6 +117,7 @@ def test_entry_points_need_a_gpu_unless_asked_for_cpu(monkeypatch):
                  lambda: synth_quantized_flux_params(0, tiny),
                  lambda: init_hunyuan_params(gen, video),
                  lambda: HunyuanModel(cfg=video, ck=ck),
+                 lambda: init_input_state(),
                  lambda: resolve_device()):
         with pytest.raises(RuntimeError, match='CUDA'):
             call()
