@@ -37,7 +37,7 @@
    runs the bf16 loop at full depth).  Each checks that
    the output is finite
    and that each kernel ran exactly as often as ``flux_launches``
-   counts, is traced over a window of sparse steps, and is timed against
+   counts, and is timed against
    a dense loop (sparsity and step caching off) on the same weights ((c)
    against (b)'s: the dense path does not read ``int8_act``).  Each loop
    is then run compiled
@@ -45,8 +45,8 @@
    computed step after a kind's first a CUDA graph replay), the sparse
    loop against the host sparse loop, the dense loop (for (a) and (b))
    against the host dense loop: launches equal kernel by kernel, output
-   finite, its graphs, replays, capture time and graph pool printed, the
-   compiled sparse loops of (a) and (b) traced whole.  A small
+   finite, its graphs, replays, capture time and graph pool printed.  A
+   small
    full-width model is also run through each loop on the card and, with
    the plain versions, on the CPU, and the two must agree: each
    weight/activation variant, and the MLP with no cache dtype in the
@@ -72,8 +72,7 @@
    schedule of ``configs/hunyuan-chipmunk.yml`` (unchanged) at 540p with
    the full-width model cut to 1 double + 2 single blocks, random bf16
    weights from a seed, that prompt's (txt, txt_mask, vec), with its
-   launch counts, a trace of a window of
-   sparse steps, its dense loop and its compiled sparse loop
+   launch counts, its dense loop and its compiled sparse loop
    (``hunyuan_denoise_compiled``, launches VIDEO_LAUNCHES too) and its
    streamed loop (``hunyuan_denoise(..., streamed=model.make_streamed(1,
    2))``: the config's offloading, attention caches in pinned host
@@ -104,8 +103,8 @@
    ``configs/wan-chipmunk.yml`` (as read) at 480x832x81 frames with
    Wan2.1-T2V-1.3B at full width and depth (30 layers), random bf16
    weights from a seed, two invocations a step, with its exact launch
-   counts, a trace of a window of sparse steps, its dense loop and its
-   compiled sparse loop (``wan_denoise_compiled``, launches WAN_LAUNCHES
+   counts, its dense loop and its compiled sparse loop
+   (``wan_denoise_compiled``, launches WAN_LAUNCHES
    too); and a small full-width Wan on the card (csp mode 'auto' and
    'hbm') and a small UMT5 against the plain versions on the CPU, and the
    small Wan's compiled loop against its host loop with random keeps
@@ -216,23 +215,6 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
-# the port's kernels in a profiler trace: (label, part of the demangled
-# name), first match wins; each gemm_sm90_kernel instantiation by its Op,
-# so that the bf16 pair and the a8 pair are told apart
-OUR_KERNELS = (
-    ('attention (attn_sm90_kernel)', 'attn_sm90_kernel'),
-    ('bf16 MLP mm1 (gemm_sm90_kernel<Mm1Bf16>)', 'mm1bf16<'),
-    ('bf16 MLP mm2 (gemm_sm90_kernel<Mm2Bf16>)', 'mm2bf16<'),
-    ('a8 MLP mm1 (gemm_sm90_kernel<Mm1A8>)', 'mm1a8<'),
-    ('a8 MLP mm2 (gemm_sm90_kernel<Mm2A8>)', 'mm2a8<'),
-    ('w4 MLP mm1 (gemm_sm90_kernel<Mm1W4>)', 'mm1w4<'),
-    ('w4 MLP mm2 (gemm_sm90_kernel<Mm2W4>)', 'mm2w4<'),
-    ('a8w4 MLP mm1 (gemm_sm90_kernel<Mm1A8W4>)', 'mm1a8w4<'),
-    ('a8w4 MLP mm2 (gemm_sm90_kernel<Mm2A8W4>)', 'mm2a8w4<'),
-    ('wq MLP mm1 (gemm_sm90_kernel<Mm1Wq>)', 'mm1wq<'),
-    ('wq MLP mm2 (gemm_sm90_kernel<Mm2Wq>)', 'mm2wq<'),
-    ('quant_rows', 'quant_rows_kernel'),
-    ('int8/bf16 probe (gemm_sm90_kernel<ProbeS8|ProbeBf16>)', 'probe'))
 BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
              'csp_mlp_mm2')
 QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
@@ -248,7 +230,6 @@ QUANT_DEPTH = dict(depth=10, depth_single_blocks=19)
 # the checkpoint phase's FLUX loop: full width, 2 + 4 blocks (~0.5 GiB of
 # caches to save and load)
 CKPT_DEPTH = dict(depth=2, depth_single_blocks=4)
-GEMM_NAMES = ('nvjet', 'gemm', 'cutlass', 'xmma', 'gemv')
 
 B, H, S, D = 1, 24, 4352, 128          # FLUX.1-dev at 1280x768
 H_IMG, W_IMG = 48, 80                  # latent patch grid: 3840 img tokens
@@ -1285,7 +1266,7 @@ def a8_split_timing(torch, cm, ca, x8, sx, w1, b1, w2, act, c1t, gen):
 
 def kernel_device_ms(torch, tag, label, fn):
     """Device ms of the kernel that ``fn`` launches, which must be the
-    gemm_sm90_kernel instantiation whose trace label (OUR_KERNELS) matches
+    gemm_sm90_kernel instantiation whose lower-cased name holds
     ``label``."""
     ms, name = device_ms(torch, fn, 20)
     if label not in name.lower():
@@ -1922,104 +1903,19 @@ def prepare_loop(torch, tm, ck, model, h_img, w_img, device,
     return run
 
 
-def window_marks(torch, marks, then=None):
-    """A denoise callback that records the host clock, synchronised, at
-    the end of steps 1 and 9 (the window of trace_sparse_steps)."""
-    def step_done(i, skipped):
-        if i in (1, 9):
-            torch.cuda.synchronize()
-            marks[i] = time.perf_counter()
-        if then is not None:
-            then()
-    return step_done
-
-
-def trace_sparse_steps(torch, run, plain_window_ms, tag):
-    """torch.profiler over steps 2-9 of a sparse loop (seven computed
-    sparse steps, one skipped, on both schedules): device time by kernel
-    group, and the device-busy share of the same window timed without the
-    profiler (plain_window_ms).  ``run(callback)`` runs the loop (at least
-    its first ten steps).  Kernel records only, as trace_whole_loop."""
-    from torch.profiler import ProfilerActivity, profile, schedule
-    marks = {}
-
-    with profile(activities=[ProfilerActivity.CUDA],
-                 schedule=schedule(wait=1, warmup=1, active=8)) as prof:
-        run(window_marks(torch, marks, lambda: prof.step()))
-    report_trace(prof, plain_window_ms, (marks[9] - marks[1]) * 1e3,
-                 f'{tag} trace', 'steps 2-9 (7 computed sparse steps)')
-
-
-def trace_whole_loop(torch, run, plain_ms, tag):
-    """torch.profiler over a whole loop (``run()``, which runs the loop
-    and nothing else; a compiled loop takes no callback, and its
-    replays' kernels are recorded as the eager ones): device time by
-    kernel group, and the device-busy share of the loop's wall time
-    measured without the profiler (plain_ms)."""
-    from torch.profiler import ProfilerActivity, profile
-    # kernel records only: the host ops of a loop are 10^4-10^5 events,
-    # which cost the profiler up to a minute to fold and which no line
-    # reads
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    return report_trace(prof, plain_ms, wall_ms, f'{tag} trace',
-                        'whole loop')
-
-
-def report_trace(prof, plain_ms, wall_ms, tag, window):
-    """Print a trace's device time by kernel group, by chipmunk kernel and
-    the largest kernels, and the busy share of ``plain_ms`` (``window``
-    timed without the profiler).  Device time is the sum of CUDA kernel
-    durations; one stream, so kernels do not overlap.  Returns the busy
-    share in percent."""
-    from torch.autograd import DeviceType
-    groups, names, ours = {}, {}, {}
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA or e.key.startswith(
-                'ProfilerStep'):
-            continue
-        us = e.self_device_time_total
-        low = e.key.lower()
-        label = next((lb for lb, k in OUR_KERNELS if k in low), None)
-        g = ('chipmunk kernels' if label
-             else 'GEMM (cuBLAS)' if any(k in low for k in GEMM_NAMES)
-             else 'other (elementwise, reductions, copies, top-k)')
-        groups[g] = groups.get(g, 0.0) + us / 1e3
-        names[e.key] = names.get(e.key, 0.0) + us / 1e3
-        if label:
-            ours[label] = ours.get(label, 0.0) + us / 1e3
-    busy = sum(groups.values())
-    print(f'{tag}, {window}: window {plain_ms:.1f} ms unprofiled '
-          f'({wall_ms:.1f} ms under the profiler); device busy {busy:.1f} '
-          f'ms = {100 * busy / plain_ms:.1f}% of the unprofiled window',
-          flush=True)
-    for g, ms in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f'{tag} group {g}: {ms:.1f} ms '
-              f'({100 * ms / plain_ms:.1f}% of the unprofiled window)')
-    for lb, ms in sorted(ours.items(), key=lambda kv: -kv[1]):
-        print(f'{tag} chipmunk {lb}: {ms:.1f} ms', flush=True)
-    for n, ms in sorted(names.items(), key=lambda kv: -kv[1])[:12]:
-        print(f'{tag} kernel {ms:9.2f} ms  {n[:110]}')
-    return 100 * busy / plain_ms
-
-
 def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
-               dense=True, trace_compiled=False):
+               dense=True):
     """One main path at full size: the sparse loop with every launch count
     set to 0 just before it and read just after (each kernel of
-    ``expect`` must have launched, every other kernel not), the trace over
-    a window of its sparse steps, and (with ``dense``) the dense loop
+    ``expect`` must have launched, every other kernel not), and (with
+    ``dense``) the dense loop
     (sparsity and step caching off) on the same weights; then the same
     loops compiled (``compiled_loops``).  Returns (launches, sparse s,
     dense s or None, compiled sparse s, compiled dense s or None)."""
     loops = prepare_loop(torch, tm, ck, model, H_IMG, W_IMG, 'cuda',
                          params=params)
     kern.reset_launches()
-    marks = {}
-    out, sparse_s = loops(callback=window_marks(torch, marks))
+    out, sparse_s = loops()
     launches = dict(kern.LAUNCHES)
     print(f'{tag} sparse loop: {ck.steps} steps, depth {model.depth}+'
           f'{model.depth_single_blocks}, {sparse_s:.3f} s', flush=True)
@@ -2034,9 +1930,6 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
     extra = [k for k, n in launches.items() if n and k not in expect]
     if extra:
         fail(f'{tag}: kernels of another path launched: {extra}')
-    torch.cuda.empty_cache()
-    trace_sparse_steps(torch, lambda cb: loops(callback=cb),
-                       (marks[9] - marks[1]) * 1e3, tag)
     torch.cuda.empty_cache()
     dense_s = d_launches = None
     dense_ck = dense_config(ck)
@@ -2055,7 +1948,7 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
         torch, kern, tag, lambda: lambda: loops(compiled=True), out,
         launches, sparse_s,
         (lambda: lambda: loops(compiled=True, ck_=dense_ck)) if dense
-        else None, d_launches, dense_s, trace_compiled)
+        else None, d_launches, dense_s)
     del out, loops
     torch.cuda.empty_cache()
     return launches, sparse_s, dense_s, c_s, c_d
@@ -2063,7 +1956,7 @@ def drive_path(torch, kern, tm, ck, model, tag, expect, params=None,
 
 def compiled_loops(torch, kern, tag, prepare, host_out, host_launches,
                    host_s, prepare_dense=None, dense_launches=None,
-                   dense_s=None, trace=False):
+                   dense_s=None):
     """A path's compiled sparse loop (``prepare()`` returns ``run()`` ->
     (latent, s), which runs the loop and nothing else), the launch counts
     set to 0 just before it and read just after: output
@@ -2071,8 +1964,8 @@ def compiled_loops(torch, kern, tag, prepare, host_out, host_launches,
     loop's (``host_launches``) kernel by kernel; prints its time beside
     the host loop's (``host_s``), its graphs, replays, eager steps,
     capture time and graph pool, and the mean relative difference from
-    the host loop's latent (skipped steps folded).  With ``trace``, a
-    profiler trace of the whole compiled loop.  With ``prepare_dense``, the compiled dense loop likewise
+    the host loop's latent (skipped steps folded).  With
+    ``prepare_dense``, the compiled dense loop likewise
     against the host dense loop
     (``dense_launches``, ``dense_s``) and the speedup compiled dense /
     compiled sparse.  Returns (compiled sparse s, compiled dense s or
@@ -2117,9 +2010,6 @@ def compiled_loops(torch, kern, tag, prepare, host_out, host_launches,
         print(msg, flush=True)
         del out
         torch.cuda.empty_cache()
-        if kind == 'sparse' and trace:
-            trace_whole_loop(torch, loop, secs * 1e3, f'{tag} compiled')
-            torch.cuda.empty_cache()
         results.append(secs)
     if results[1] is not None:
         print(f'{tag} compiled dense loop / compiled sparse loop: sparse '
@@ -2368,8 +2258,8 @@ def drive_video_path(torch, kern, tm, ck, text):
     txt_mask, vec) of encode_hunyuan_text: launch counts set to 0 just
     before and read just after (each must equal the schedule's count,
     VIDEO_LAUNCHES, and no other kernel may run), output finite and of
-    the latent's shape; a trace of steps 2-9; the dense loop on the same
-    weights; the compiled sparse loop (``compiled_loops``: launches
+    the latent's shape; the dense loop on the same weights; the compiled
+    sparse loop (``compiled_loops``: launches
     VIDEO_LAUNCHES too).  Returns (launches, sparse s, dense s, compiled
     sparse s, the sparse host loop's latent)."""
     cfg = tm.HunyuanModelConfig(**V540, **V_DEPTH)
@@ -2391,9 +2281,7 @@ def drive_video_path(torch, kern, tm, ck, text):
           f'({int(txt_mask.sum())} of {txt_mask.shape[1]} rows valid)',
           flush=True)
     kern.reset_launches()
-    marks = {}
-    out, sparse_s = run_video(torch, tm, model, params, inputs,
-                              callback=window_marks(torch, marks))
+    out, sparse_s = run_video(torch, tm, model, params, inputs)
     launches = dict(kern.LAUNCHES)
     print(f'video sparse loop: {ck.steps} steps, {sparse_s:.3f} s',
           flush=True)
@@ -2413,11 +2301,6 @@ def drive_video_path(torch, kern, tm, ck, text):
     if wrong:
         fail(f'video: launches differ from the schedule\'s count '
              f'{VIDEO_LAUNCHES}: {wrong}')
-    torch.cuda.empty_cache()
-    trace_sparse_steps(
-        torch, lambda cb: run_video(torch, tm, model, params, inputs,
-                                    steps=10, callback=cb),
-        (marks[9] - marks[1]) * 1e3, 'video')
     torch.cuda.empty_cache()
     dmodel = tm.HunyuanModel(cfg=cfg, ck=dense_config(ck))
     kern.reset_launches()
@@ -3009,8 +2892,8 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
     (30 layers), random bf16 weights from a seed, the UMT5 contexts of
     encode_wan_text, configs/wan-chipmunk.yml as read: launch counts set
     to 0 just before and read just after (each must equal WAN_LAUNCHES,
-    no other kernel may run), output finite and of the latent's shape; a
-    trace of steps 2-9; the dense loop on the same weights (attention
+    no other kernel may run), output finite and of the latent's shape;
+    the dense loop on the same weights (attention
     sparsity and step caching off; launches WAN_DENSE_LAUNCHES); the
     compiled sparse loop (``compiled_loops``: launches WAN_LAUNCHES too).
     Returns (launches, sparse s, dense s, compiled sparse s, the sparse
@@ -3038,9 +2921,7 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
           f'{time.perf_counter() - t0:.1f} s', flush=True)
     torch.cuda.reset_peak_memory_stats()
     kern.reset_launches()
-    marks = {}
-    out, sparse_s = run_wan(torch, tm, model, params, lat, ctx,
-                            callback=window_marks(torch, marks))
+    out, sparse_s = run_wan(torch, tm, model, params, lat, ctx)
     launches = dict(kern.LAUNCHES)
     print(f'wan sparse loop: {ck.steps} steps, {sparse_s:.3f} s; peak '
           f'{torch.cuda.max_memory_allocated() / 1e9:.2f} GB allocated',
@@ -3058,11 +2939,6 @@ def drive_wan_path(torch, kern, tm, ck, ctx):
     if wrong:
         fail(f'wan: launches differ from the schedule\'s count '
              f'{WAN_LAUNCHES}: {wrong}')
-    torch.cuda.empty_cache()
-    trace_sparse_steps(
-        torch, lambda cb: run_wan(torch, tm, model, params, lat, ctx,
-                                  steps=10, callback=cb),
-        (marks[9] - marks[1]) * 1e3, 'wan')
     torch.cuda.empty_cache()
     dmodel = tm.WanModel(cfg=cfg, ck=dense_config(ck))
     kern.reset_launches()
@@ -4490,10 +4366,10 @@ def main():
         'chipmunk_torch.kernels.int8_probe'))
     torch.cuda.empty_cache()
     stamp('FLUX kernel phases')
-    # the Wan kernels before the video kernels: placed after the traced
-    # loops (scheduled torch.profiler sessions), device_ms's plain profile
-    # recorded no CUDA kernel on the H100; and the FLUX loops follow the
-    # video kernel phase, which runs no profiler, as before
+    # the Wan kernels before the video kernels: placed after scheduled
+    # torch.profiler sessions (traced loops), device_ms's plain profile
+    # once recorded no CUDA kernel on the H100; and the FLUX loops follow
+    # the video kernel phase, which runs no profiler, as before
     wck = cfgmod.load_config(os.path.join(ROOT, 'configs',
                                           'wan-chipmunk.yml'))
     wan_kernel_phases(torch, mods, tm, wck)
@@ -4519,8 +4395,8 @@ def main():
     # below runs the bf16 loop at full depth and gives its kernels' rows
     # their launches
     model_q = dataclasses.replace(model, **QUANT_DEPTH)
-    a_launches = drive_path(torch, kern, tm, ck, model_q, 'bf16', BF16_PATH,
-                            trace_compiled=True)[0]
+    a_launches = drive_path(torch, kern, tm, ck, model_q, 'bf16',
+                            BF16_PATH)[0]
     check_launches('bf16', a_launches, flux_launches(
         ck, model_q, ('csp_mlp_mm1', 'csp_mlp_mm2')))
 
@@ -4537,8 +4413,7 @@ def main():
           f'{model_q.depth}+{model_q.depth_single_blocks}, QuantSpec{SPEC}',
           flush=True)
     qlaunches, q_sparse_s, q_dense_s, _, _ = drive_path(
-        torch, kern, tm, ck, model_q, 'quantized', QUANT_PATH, qparams,
-        trace_compiled=True)
+        torch, kern, tm, ck, model_q, 'quantized', QUANT_PATH, qparams)
     check_launches('quantized', qlaunches, flux_launches(
         ck, model_q, ('quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')))
     print(f'quantized sparse loop {q_sparse_s:.3f} s: '

@@ -14,7 +14,8 @@ the text is zeros.  ``--prompt`` needs ``--t5`` and ``--clip`` (local
 checkpoint directories with their tokenizers; ``'|'`` separates the
 prompts of a batch).  ``--profile``, or a config with ``should_profile``
 and ``generation_index >= 3``, traces the denoise loop into
-``./profiles`` (``utils/profiling.py``).
+``./profiles`` with the program's spans on the host's row
+(``utils/profiling.py``); the ``denoise`` line reads the tracer's record.
 """
 from __future__ import annotations
 
@@ -28,7 +29,7 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..models import (FluxModelConfig, FluxSampler, FluxSparse,
                       get_schedule, init_flux_params, load_flux_safetensors)
-from ..utils.profiling import StepTimer, profile_region
+from ..utils.profiling import StepTimer, profile_region, span
 from . import PROFILE_DIR, model_dtype, noise, read_config, save_latents, warn
 
 
@@ -104,24 +105,32 @@ def generate(params: Dict, model: FluxModelConfig, ck, *,
     (float32, patch order undone) for a width x height image (multiples
     of 16).  ``img`` (else a normal draw from ``seed``) is the noise,
     ``txt``/``y`` the text (else zeros); the random keeps are drawn from
-    ``seed`` on the device."""
-    dev = resolve_device(device)
-    h_img, w_img = height // 16, width // 16
-    B = max(1, batch)
-    sp = FluxSparse.build(ck, model, model.txt_len + h_img * w_img, batch=B)
-    sampler = FluxSampler(cfg=model, ck=ck, sp=sp, h_img=h_img, w_img=w_img,
-                          use_patchify=ck.patchify.is_enabled, device=dev)
-    if img is None:
-        img = noise((B, h_img * w_img, 64), seed, model.dtype, dev)
-    if txt is None:
-        txt = torch.zeros((B, model.txt_len, model.context_in_dim),
-                          dtype=model.dtype, device=dev)
-    if y is None:
-        y = torch.zeros((B, model.vec_in_dim), dtype=model.dtype, device=dev)
-    ts = get_schedule(ck.steps, h_img * w_img)
-    den = sampler.denoise_compiled if loop == 'compiled' else sampler.denoise
-    return den(params, img, txt, y, ts, guidance=guidance,
-               generator=torch.Generator(dev).manual_seed(seed))
+    ``seed`` on the device.  The call is the span ``generate``, its
+    set-up before the loop (here and in the sampler) ``generate.setup``."""
+    with span('generate'):
+        dev = resolve_device(device)
+        with span('generate.setup'):
+            h_img, w_img = height // 16, width // 16
+            B = max(1, batch)
+            sp = FluxSparse.build(ck, model, model.txt_len + h_img * w_img,
+                                  batch=B)
+            sampler = FluxSampler(cfg=model, ck=ck, sp=sp, h_img=h_img,
+                                  w_img=w_img,
+                                  use_patchify=ck.patchify.is_enabled,
+                                  device=dev)
+            if img is None:
+                img = noise((B, h_img * w_img, 64), seed, model.dtype, dev)
+            if txt is None:
+                txt = torch.zeros((B, model.txt_len, model.context_in_dim),
+                                  dtype=model.dtype, device=dev)
+            if y is None:
+                y = torch.zeros((B, model.vec_in_dim), dtype=model.dtype,
+                                device=dev)
+            ts = get_schedule(ck.steps, h_img * w_img)
+            gen = torch.Generator(dev).manual_seed(seed)
+        den = sampler.denoise_compiled if loop == 'compiled' \
+            else sampler.denoise
+        return den(params, img, txt, y, ts, guidance=guidance, generator=gen)
 
 
 def encode_prompts(args, model: FluxModelConfig, B: int, dev):

@@ -20,6 +20,7 @@ import torch
 import torch.nn.functional as F
 
 from ..device import DeviceLike, resolve_device
+from ..utils.profiling import span
 
 SCALE_FACTOR = 0.3611
 SHIFT_FACTOR = 0.1159
@@ -78,20 +79,22 @@ def decode(params: Dict, z: torch.Tensor,
     """z [B, z_ch, h, w] (scaled latents) -> image [B, 3, 8h, 8w] in the
     params' dtype, on the params' device (the reference's
     Decoder.forward after ``z / scale + shift``)."""
-    d = params['decoder']
-    w0 = d['conv_in']['weight']
-    z = z.to(device=w0.device, dtype=w0.dtype) / SCALE_FACTOR + SHIFT_FACTOR
-    h = _conv(d['conv_in'], z)
-    h = _resnet(d['mid']['block_1'], h)
-    h = _attn(d['mid']['attn_1'], h)
-    h = _resnet(d['mid']['block_2'], h)
-    for i in reversed(range(len(cfg.ch_mult))):
-        up = d['up'][i]
-        for j in range(cfg.num_res_blocks + 1):
-            h = _resnet(up['block'][j], h)
-        if i > 0:
-            h = _upsample(up['upsample'], h)
-    return _conv(d['conv_out'], _swish(_group_norm(d['norm_out'], h)))
+    with span('decode'):
+        d = params['decoder']
+        w0 = d['conv_in']['weight']
+        z = z.to(device=w0.device, dtype=w0.dtype) / SCALE_FACTOR \
+            + SHIFT_FACTOR
+        h = _conv(d['conv_in'], z)
+        h = _resnet(d['mid']['block_1'], h)
+        h = _attn(d['mid']['attn_1'], h)
+        h = _resnet(d['mid']['block_2'], h)
+        for i in reversed(range(len(cfg.ch_mult))):
+            up = d['up'][i]
+            for j in range(cfg.num_res_blocks + 1):
+                h = _resnet(up['block'][j], h)
+            if i > 0:
+                h = _upsample(up['upsample'], h)
+        return _conv(d['conv_out'], _swish(_group_norm(d['norm_out'], h)))
 
 
 def init_decoder_params(generator: torch.Generator,

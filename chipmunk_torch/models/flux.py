@@ -26,6 +26,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.csp_mlp import gelu_tanh
 from ..modules import AttnState, MlpState, SparseDiffAttn, SparseDiffMlp
 from ..schedule import StepKind
+from ..utils.profiling import span
 from ..utils.quant import QTensor, materialize
 from .layers import (apply_rope, layernorm, linear, mlp_embedder, modulation,
                      rmsnorm, timestep_embedding)
@@ -374,107 +375,114 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
                  img, txt, vec, cos, sin, ast, mst, idx: int,
                  step: FluxStep, generator=None):
     """One double-stream (MMDiT) block."""
-    H = cfg.num_heads
-    (im1, it1) = modulation(p['img_mod'], vec, 2)
-    (tm1, tt1) = modulation(p['txt_mod'], vec, 2)
-    img_mod = (1 + im1[1]) * layernorm(img) + im1[0]
-    txt_mod = (1 + tm1[1]) * layernorm(txt) + tm1[0]
+    with span('block.double'):
+        H = cfg.num_heads
+        (im1, it1) = modulation(p['img_mod'], vec, 2)
+        (tm1, tt1) = modulation(p['txt_mod'], vec, 2)
+        img_mod = (1 + im1[1]) * layernorm(img) + im1[0]
+        txt_mod = (1 + tm1[1]) * layernorm(txt) + tm1[0]
 
-    iq, ik, iv = (_split_heads(z, H)
-                  for z in linear(p['img_qkv'], img_mod).chunk(3, -1))
-    tq, tk, tv = (_split_heads(z, H)
-                  for z in linear(p['txt_qkv'], txt_mod).chunk(3, -1))
-    iq = rmsnorm(iq, p['img_qnorm'])
-    ik = rmsnorm(ik, p['img_knorm'])
-    tq = rmsnorm(tq, p['txt_qnorm'])
-    tk = rmsnorm(tk, p['txt_knorm'])
-    first, second = ((tq, tk, tv), (iq, ik, iv)) if cfg.txt_first \
-        else ((iq, ik, iv), (tq, tk, tv))
-    q, k, v = (torch.cat([a, b], 2) for a, b in zip(first, second))
-    q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        iq, ik, iv = (_split_heads(z, H)
+                      for z in linear(p['img_qkv'], img_mod).chunk(3, -1))
+        tq, tk, tv = (_split_heads(z, H)
+                      for z in linear(p['txt_qkv'], txt_mod).chunk(3, -1))
+        iq = rmsnorm(iq, p['img_qnorm'])
+        ik = rmsnorm(ik, p['img_knorm'])
+        tq = rmsnorm(tq, p['txt_qnorm'])
+        tk = rmsnorm(tk, p['txt_knorm'])
+        first, second = ((tq, tk, tv), (iq, ik, iv)) if cfg.txt_first \
+            else ((iq, ik, iv), (tq, tk, tv))
+        q, k, v = (torch.cat([a, b], 2) for a, b in zip(first, second))
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
 
-    o, ast = _attn_call(sp.attn_d, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_double, generator, sp.ulysses)
-    o = _merge_heads(o)
-    # the streams' token counts (a rank's shard may hold few or none)
-    nt, ni = txt.shape[1], img.shape[1]
-    if cfg.txt_first:
-        txt_o, img_o = o[:, :nt], o[:, nt:]
-    else:
-        img_o, txt_o = o[:, :ni], o[:, ni:]
-    img = img + im1[2] * linear(p['img_proj'], img_o)
-    txt = txt + tm1[2] * linear(p['txt_proj'], txt_o)
+        o, ast = _attn_call(sp.attn_d, q, k, v, ast, step,
+                            idx < sp.n_dense_attn_double, generator,
+                            sp.ulysses)
+        o = _merge_heads(o)
+        # the streams' token counts (a rank's shard may hold few or none)
+        nt, ni = txt.shape[1], img.shape[1]
+        if cfg.txt_first:
+            txt_o, img_o = o[:, :nt], o[:, nt:]
+        else:
+            img_o, txt_o = o[:, :ni], o[:, ni:]
+        img = img + im1[2] * linear(p['img_proj'], img_o)
+        txt = txt + tm1[2] * linear(p['txt_proj'], txt_o)
 
-    # image MLP (sparse), text MLP (dense, small)
-    if ni or sp.route_d is not None:
-        img_mod2 = (1 + it1[1]) * layernorm(img) + it1[0]
-        mo, mst = _mlp_call(sp.mlp_d,
-                            img_mod2.reshape(-1, img_mod2.shape[-1]),
-                            p['img_w1t'], p['img_b1'], p['img_w2'],
-                            p['img_b2'], mst, step,
-                            idx < sp.n_dense_mlp_double, generator,
-                            sp.route_d)
-        img = img + it1[2] * mo.reshape(img.shape)
+        # image MLP (sparse), text MLP (dense, small)
+        if ni or sp.route_d is not None:
+            img_mod2 = (1 + it1[1]) * layernorm(img) + it1[0]
+            mo, mst = _mlp_call(sp.mlp_d,
+                                img_mod2.reshape(-1, img_mod2.shape[-1]),
+                                p['img_w1t'], p['img_b1'], p['img_w2'],
+                                p['img_b2'], mst, step,
+                                idx < sp.n_dense_mlp_double, generator,
+                                sp.route_d)
+            img = img + it1[2] * mo.reshape(img.shape)
 
-    txt_mod2 = (1 + tt1[1]) * layernorm(txt) + tt1[0]
-    dt = txt.dtype
-    tmid = (txt_mod2 @ materialize(p['txt_w1t'], dt).t()
-            + p['txt_b1'].to(dt))
-    tact = gelu_tanh(tmid.float()).to(dt)
-    txt = txt + tt1[2] * (tact @ materialize(p['txt_w2'], dt)
-                          + p['txt_b2'].to(dt))
-    return img, txt, ast, mst
+        txt_mod2 = (1 + tt1[1]) * layernorm(txt) + tt1[0]
+        dt = txt.dtype
+        tmid = (txt_mod2 @ materialize(p['txt_w1t'], dt).t()
+                + p['txt_b1'].to(dt))
+        tact = gelu_tanh(tmid.float()).to(dt)
+        txt = txt + tt1[2] * (tact @ materialize(p['txt_w2'], dt)
+                              + p['txt_b2'].to(dt))
+        return img, txt, ast, mst
 
 
 def single_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
                  x, vec, cos, sin, ast, mst, idx: int, step: FluxStep,
                  generator=None):
     """One single-stream block with linear1/linear2 pre-split."""
-    H = cfg.num_heads
-    ((sh, sc, gate),) = modulation(p['mod'], vec, 1)
-    x_mod = (1 + sc) * layernorm(x) + sh
-    q, k, v = (_split_heads(z, H)
-               for z in linear(p['qkv'], x_mod).chunk(3, -1))
-    q = apply_rope(rmsnorm(q, p['qnorm']), cos, sin)
-    k = apply_rope(rmsnorm(k, p['knorm']), cos, sin)
+    with span('block.single'):
+        H = cfg.num_heads
+        ((sh, sc, gate),) = modulation(p['mod'], vec, 1)
+        x_mod = (1 + sc) * layernorm(x) + sh
+        q, k, v = (_split_heads(z, H)
+                   for z in linear(p['qkv'], x_mod).chunk(3, -1))
+        q = apply_rope(rmsnorm(q, p['qnorm']), cos, sin)
+        k = apply_rope(rmsnorm(k, p['knorm']), cos, sin)
 
-    o, ast = _attn_call(sp.attn_s, q, k, v, ast, step,
-                        idx < sp.n_dense_attn_single, generator, sp.ulysses)
-    attn_out = linear(p['o_proj'], _merge_heads(o))
-    mo, mst = _mlp_call(sp.mlp_s, x_mod.reshape(-1, x_mod.shape[-1]),
-                        p['w1t'], p['b1'], p['w2'],
-                        torch.zeros(cfg.hidden_size, dtype=x.dtype,
-                                    device=x.device),
-                        mst, step, idx < sp.n_dense_mlp_single, generator,
-                        sp.route_s)
-    x = x + gate * (attn_out + mo.reshape(x.shape))
-    return x, ast, mst
+        o, ast = _attn_call(sp.attn_s, q, k, v, ast, step,
+                            idx < sp.n_dense_attn_single, generator,
+                            sp.ulysses)
+        attn_out = linear(p['o_proj'], _merge_heads(o))
+        mo, mst = _mlp_call(sp.mlp_s, x_mod.reshape(-1, x_mod.shape[-1]),
+                            p['w1t'], p['b1'], p['w2'],
+                            torch.zeros(cfg.hidden_size, dtype=x.dtype,
+                                        device=x.device),
+                            mst, step, idx < sp.n_dense_mlp_single, generator,
+                            sp.route_s)
+        x = x + gate * (attn_out + mo.reshape(x.shape))
+        return x, ast, mst
 
 
 def flux_embed(params: Dict, cfg: FluxModelConfig, img, txt, timesteps, y,
                guidance=None):
     """Input embedders: returns (img tokens, txt tokens, vec)."""
-    dt = cfg.dtype
-    vec = mlp_embedder(params['time_in'],
-                       timestep_embedding(timesteps, 256).to(dt))
-    if cfg.guidance_embed:
-        assert guidance is not None
-        vec = vec + mlp_embedder(params['guidance_in'],
-                                 timestep_embedding(guidance, 256).to(dt))
-    vec = vec + mlp_embedder(params['vector_in'], y.to(dt))
-    return (linear(params['img_in'], img.to(dt)),
-            linear(params['txt_in'], txt.to(dt)), vec)
+    with span('embed'):
+        dt = cfg.dtype
+        vec = mlp_embedder(params['time_in'],
+                           timestep_embedding(timesteps, 256).to(dt))
+        if cfg.guidance_embed:
+            assert guidance is not None
+            vec = vec + mlp_embedder(params['guidance_in'],
+                                     timestep_embedding(guidance, 256).to(dt))
+        vec = vec + mlp_embedder(params['vector_in'], y.to(dt))
+        return (linear(params['img_in'], img.to(dt)),
+                linear(params['txt_in'], txt.to(dt)), vec)
 
 
 def flux_final(params: Dict, cfg: FluxModelConfig, x, vec,
                n_txt: Optional[int] = None):
     """Final adaLN + projection of the image tokens of x (which holds
     ``n_txt`` text tokens, cfg.txt_len if None)."""
-    n_txt = cfg.txt_len if n_txt is None else n_txt
-    img = x[:, n_txt:] if cfg.txt_first else x[:, :x.shape[1] - n_txt]
-    shift, scale = linear(params['final_mod'], F.silu(vec))[:, None, :] \
-        .chunk(2, -1)
-    return linear(params['final_proj'], (1 + scale) * layernorm(img) + shift)
+    with span('final'):
+        n_txt = cfg.txt_len if n_txt is None else n_txt
+        img = x[:, n_txt:] if cfg.txt_first else x[:, :x.shape[1] - n_txt]
+        shift, scale = linear(params['final_mod'], F.silu(vec))[:, None, :] \
+            .chunk(2, -1)
+        return linear(params['final_proj'],
+                      (1 + scale) * layernorm(img) + shift)
 
 
 def flux_forward(params: Dict, cfg: FluxModelConfig, sp: FluxSparse,

@@ -25,12 +25,13 @@ import torch
 from ..config import ChipmunkConfig
 from ..device import DeviceLike, resolve_device
 from ..ops.patch import inverse_patch_order, patch_order
-from ..schedule import step_plan
+from ..schedule import step_plan, step_span
 from ..utils.offload import OffloadPolicy
+from ..utils.profiling import span
 from .flux import (FluxModelConfig, FluxSparse, FluxStep, flux_forward,
                    flux_rope_ids)
 from .layers import build_rope
-from .step_graphs import carry_state, compiled_euler, draws_keeps
+from .step_graphs import carry_state, compiled_euler
 from .streamed import StreamedFluxRunner, StreamedFluxState
 
 
@@ -154,23 +155,24 @@ class FluxSampler:
         this rank when sharded: the params, the latent patch-reordered in
         float32, txt, y, RoPE, the guidance vector, the generator (seed 0
         if None; this rank's when sharded) and the state (None unless
-        ``with_state``)."""
-        dev = self.device
-        if generator is None:
-            generator = torch.Generator(dev).manual_seed(0)
-        img = self.patchify_img(img.to(dev)).float()
-        # the state takes the whole batch; a sharded one keeps its rows
-        state = self.sp.init_state(self.cfg, img.shape[0], self.device) \
-            if with_state else None
-        params, img, txt, y, state = self._place(params, img, txt.to(dev),
-                                                 y.to(dev), state)
-        B = img.shape[0]
-        g = torch.full((B,), guidance, dtype=torch.float32, device=dev) \
-            if self.cfg.guidance_embed else None
-        if self.mesh_info is not None:
-            from ..parallel.comm import rank_generator
-            generator = rank_generator(generator, self.mesh_info[0])
-        return params, img, txt, y, self.rope(B), g, generator, state
+        ``with_state``), inside the span ``generate.setup``."""
+        with span('generate.setup'):
+            dev = self.device
+            if generator is None:
+                generator = torch.Generator(dev).manual_seed(0)
+            img = self.patchify_img(img.to(dev)).float()
+            # the state takes the whole batch; a sharded one keeps its rows
+            state = self.sp.init_state(self.cfg, img.shape[0],
+                                       self.device) if with_state else None
+            params, img, txt, y, state = self._place(
+                params, img, txt.to(dev), y.to(dev), state)
+            B = img.shape[0]
+            g = torch.full((B,), guidance, dtype=torch.float32,
+                           device=dev) if self.cfg.guidance_embed else None
+            if self.mesh_info is not None:
+                from ..parallel.comm import rank_generator
+                generator = rank_generator(generator, self.mesh_info[0])
+            return params, img, txt, y, self.rope(B), g, generator, state
 
     def _euler(self, img, timesteps, callback, predict) -> torch.Tensor:
         """Euler over the step plan: ``predict(img, t_vec, step)`` on each
@@ -183,14 +185,16 @@ class FluxSampler:
             kind = plan[i]
             dt = ts[i + 1] - ts[i]
             if kind.skip and pred is not None:
-                img = img + dt * pred
+                with span('step.skip'):
+                    img = img + dt * pred
                 if callback:
                     callback(i, skipped=True)
                 continue
-            t_vec = torch.full((B,), ts[i], dtype=torch.float32,
-                               device=self.device)
-            pred = predict(img, t_vec, FluxStep.of(kind, i))
-            img = img + dt * pred.float()
+            with span(step_span(self.ck, kind)):
+                t_vec = torch.full((B,), ts[i], dtype=torch.float32,
+                                   device=self.device)
+                pred = predict(img, t_vec, FluxStep.of(kind, i))
+                img = img + dt * pred.float()
             if callback:
                 callback(i, skipped=False)
         return self.unpatchify_img(img)
@@ -284,6 +288,5 @@ class FluxSampler:
             carry_state(state, new)
             return pred
 
-        lat = compiled_euler(step_plan(self.ck), timesteps, lat, predict,
-                             generator, draws_keeps(self.ck))
+        lat = compiled_euler(self.ck, timesteps, lat, predict, generator)
         return self._whole(self.unpatchify_img(lat), B)

@@ -46,7 +46,8 @@ import torch
 
 from ..config import ChipmunkConfig
 from ..kernels._build import LAUNCHES
-from ..schedule import fold_skip_steps
+from ..schedule import fold_skip_steps, step_plan, step_span
+from ..utils.profiling import paused, span
 from .flux import FluxStep
 
 # the last compiled loop's runner, as StepGraphs.stats gives it
@@ -182,16 +183,18 @@ class StepGraphs:
         t0 = time.perf_counter()
 
         def record():
-            graph.capture_begin(pool=self.pool)
-            try:
-                fn()
-            except BaseException:
+            # a capture launches nothing: no span records inside it
+            with paused():
+                graph.capture_begin(pool=self.pool)
                 try:
-                    graph.capture_end()
-                except RuntimeError:
-                    pass
-                raise
-            graph.capture_end()
+                    fn()
+                except BaseException:
+                    try:
+                        graph.capture_end()
+                    except RuntimeError:
+                        pass
+                    raise
+                graph.capture_end()
 
         try:
             self._on_side_stream(record)
@@ -216,25 +219,27 @@ class StepGraphs:
                 'pool_bytes': self.pool_bytes()}
 
 
-def compiled_euler(plan, timesteps, lat: torch.Tensor, predict,
-                   generator: torch.Generator, keeps: bool,
+def compiled_euler(ck: ChipmunkConfig, timesteps, lat: torch.Tensor,
+                   predict, generator: torch.Generator,
                    chunk: Optional[int] = None) -> torch.Tensor:
-    """The compiled Euler loop over a step plan: skipped steps folded into
-    the preceding computed step's increment (``schedule.fold_skip_steps``),
-    each computed step ``lat += dt * predict(lat, t_vec, step)`` in place,
-    through ``StepGraphs``.  ``lat`` [B, ...] float32 is the loop's latent
-    buffer; ``predict`` carries its state in place (``carry_state``) and
-    returns the prediction.  ``chunk``: see ``_windows``.  Returns
-    ``lat``."""
+    """The compiled Euler loop over the config's step plan: skipped steps
+    folded into the preceding computed step's increment
+    (``schedule.fold_skip_steps``), each computed step ``lat += dt *
+    predict(lat, t_vec, step)`` in place, through ``StepGraphs``, inside
+    its step span.  ``lat`` [B, ...] float32 is the loop's latent buffer;
+    ``predict`` carries its state in place (``carry_state``) and returns
+    the prediction.  ``chunk``: see ``_windows``.  Returns ``lat``."""
     dev, B = lat.device, lat.shape[0]
+    plan = step_plan(ck)
     ts = torch.as_tensor(timesteps, dtype=torch.float32).tolist()
     n = min(len(plan), len(ts) - 1)
-    _, sigs, t_c, t_e = fold_skip_steps(plan, ts, n)
+    idxs, sigs, t_c, t_e = fold_skip_steps(plan, ts, n)
+    names = [step_span(ck, plan[i]) for i in idxs]
     uniq = list(dict.fromkeys(sigs))
     windows = _windows([uniq.index(s) for s in sigs], chunk)
     t_vec = torch.zeros((B,), dtype=torch.float32, device=dev)
     dt = torch.zeros((), dtype=torch.float32, device=dev)
-    graphs = StepGraphs(dev, generator, keeps)
+    graphs = StepGraphs(dev, generator, draws_keeps(ck))
 
     def step(sig):
         pred = predict(lat, t_vec, FluxStep(*sig))
@@ -242,10 +247,12 @@ def compiled_euler(plan, timesteps, lat: torch.Tensor, predict,
 
     for start, length, _ in windows:
         for j in range(start, start + length):
-            t_vec.fill_(t_c[j])
-            # t_end covers this step and the skipped steps folded into it
-            dt.fill_(float(np.float32(t_e[j]) - np.float32(t_c[j])))
-            graphs.run(sigs[j], lambda s=sigs[j]: step(s))
+            with span(names[j]):
+                t_vec.fill_(t_c[j])
+                # t_end covers this step and the skipped steps folded
+                # into it
+                dt.fill_(float(np.float32(t_e[j]) - np.float32(t_c[j])))
+                graphs.run(sigs[j], lambda s=sigs[j]: step(s))
     GRAPH_STATS.clear()
     GRAPH_STATS.update(graphs.stats())
     return lat

@@ -22,11 +22,11 @@ from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
-from ..schedule import step_plan
+from ..schedule import step_plan, step_span
+from ..utils.profiling import span
 from .flux import FluxStep
 from .sampling import STREAMED_NO_MESH
-from .step_graphs import (carry_state, check_chunk, compiled_euler,
-                          draws_keeps)
+from .step_graphs import carry_state, check_chunk, compiled_euler
 
 
 def _placed(model, params, latents, arrays, states, generator):
@@ -66,10 +66,12 @@ def _euler(model, latents: torch.Tensor, timesteps, callback, predict
     pred = None
     for i in range(min(len(plan), len(ts) - 1)):
         skipped = plan[i].skip and pred is not None
-        if not skipped:
-            t_vec = torch.full((B,), ts[i], dtype=torch.float32, device=dev)
-            pred = predict(lat, t_vec, FluxStep.of(plan[i], i)).float()
-        lat = lat + (ts[i + 1] - ts[i]) * pred
+        with span('step.skip' if skipped else step_span(model.ck, plan[i])):
+            if not skipped:
+                t_vec = torch.full((B,), ts[i], dtype=torch.float32,
+                                   device=dev)
+                pred = predict(lat, t_vec, FluxStep.of(plan[i], i)).float()
+            lat = lat + (ts[i + 1] - ts[i]) * pred
         if callback:
             callback(i, skipped=skipped)
     return lat
@@ -200,9 +202,8 @@ def hunyuan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
         return pred
 
     return _whole(model, compiled_euler(
-        step_plan(model.ck), timesteps,
-        latents.to(dev, torch.float32, copy=True), predict,
-        generator, draws_keeps(model.ck), chunk), B0)
+        model.ck, timesteps, latents.to(dev, torch.float32, copy=True),
+        predict, generator, chunk), B0)
 
 
 def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
@@ -237,6 +238,5 @@ def wan_denoise_compiled(model, params: Dict, latents: torch.Tensor,
         return p[1] + guide_scale * (p[0] - p[1])
 
     return _whole(model, compiled_euler(
-        step_plan(model.ck), timesteps,
-        latents.to(dev, torch.float32, copy=True), predict,
-        generator, draws_keeps(model.ck), chunk), B0)
+        model.ck, timesteps, latents.to(dev, torch.float32, copy=True),
+        predict, generator, chunk), B0)

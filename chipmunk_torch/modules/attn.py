@@ -36,6 +36,7 @@ from ..device import DeviceLike, resolve_device
 from ..ops import fp8, indexing
 from ..ops.attn_ref import PAD_LSE
 from ..ops.bitpack import bitpack_rows, bitunpack_rows
+from ..utils.profiling import span
 
 
 class AttnState(NamedTuple):
@@ -272,10 +273,11 @@ class SparseDiffAttn:
                          generator: Optional[torch.Generator] = None
                          ) -> Tuple[torch.Tensor, AttnState]:
         o, cs, lse = self._colsum(q, k, v, state.lse)
-        mask = self._select_mask(cs, keep_mask, generator)
-        inds, counts = self._mask_to_inds(mask)
+        with span('attn.select'):
+            mask = self._select_mask(cs, keep_mask, generator)
+            inds, counts = self._mask_to_inds(mask)
+            state = self._store_selection(state, mask, inds, counts)
         o_sp = self._csp(q, k, v, inds, counts)
-        state = self._store_selection(state, mask, inds, counts)
         return o, state._replace(out_cache=self._delta_cache(o, o_sp, state),
                                  lse=lse)
 
@@ -304,16 +306,17 @@ class SparseDiffAttn:
                  ) -> Tuple[torch.Tensor, AttnState]:
         """keep_mask / generator: the random keep of a colsum step with
         compressed indices (injected, or drawn from the generator)."""
-        if not self.cfg.is_enabled or layer_is_dense or self.fully_dense:
-            return self.dense_step(q, k, v), state
-        if is_full:
-            if step_index == 0:
-                return self.full_step_first(q, k, v, state)
-            if is_colsum:
-                return self.full_step_colsum(q, k, v, state, keep_mask,
-                                             generator)
-            return self.full_step_plain(q, k, v, state)
-        return self.sparse_step(q, k, v, state)
+        with span('attn'):
+            if not self.cfg.is_enabled or layer_is_dense or self.fully_dense:
+                return self.dense_step(q, k, v), state
+            if is_full:
+                if step_index == 0:
+                    return self.full_step_first(q, k, v, state)
+                if is_colsum:
+                    return self.full_step_colsum(q, k, v, state, keep_mask,
+                                                 generator)
+                return self.full_step_plain(q, k, v, state)
+            return self.sparse_step(q, k, v, state)
 
     def init_state(self, B: int, H: int, D: int,
                    dtype: torch.dtype = torch.bfloat16,

@@ -27,6 +27,7 @@ from ..device import DeviceLike, resolve_device
 from ..kernels.csp_mlp import gelu_tanh
 from ..ops import fp8, indexing
 from ..ops.mlp_ref import block_mean
+from ..utils.profiling import span
 from ..utils.quant import QTensor, materialize
 from .mlp_fp8 import f8_input_matmul
 
@@ -124,36 +125,40 @@ class SparseDiffMlp:
         recompute would lose its score while its act cache stays stale).
         keep_mask: optional bool [M, N/neuron_block] random keep, used in
         place of the draw from ``generator``."""
-        mbm, bm, bn = self.cfg.mbm, self.cfg.bm, self.cfg.neuron_block
-        bmx = block_mean(x[None], mbm)[0]                   # [Mb, C]
-        bmfc1 = _fc1(self.cfg, bmx, w1t, b1)                # [Mb, N]
-        mdiff = (bmfc1 - state.bm_mid).float().abs()
-        r = bm // mbm
-        Mb = mdiff.shape[0]
-        mdiff = mdiff.reshape(Mb // r, r, -1).sum(1)         # [M, N]
-        scores = indexing.blockify_scores(mdiff, bn)
-        mask = indexing.topk_mask(scores, self.sel_blocks)
-        if self.cfg.random_keys > 0:
-            if keep_mask is None:
-                if generator is None:
-                    raise ValueError('mlp.random_keys > 0 needs a generator '
-                                     'or an injected keep_mask')
-                keep_mask = torch.rand(mask.shape, generator=generator,
-                                       device=mask.device) \
-                    < self.cfg.random_keys
-            mask = mask | keep_mask.to(mask.device)
-        mult_b = max(self.cfg.counts_multiple_of // bn, 1)
-        inds, counts = indexing.mask_to_indices_limited(mask, mult_b,
-                                                        self.jmax)
-        counts = counts.clamp(1, self.jmax)
-        M, nb = mask.shape
-        valid = torch.arange(self.jmax, device=mask.device) < counts[:, None]
-        surv = torch.zeros((M, nb + 1), dtype=torch.bool, device=mask.device)
-        surv.scatter_(1, torch.where(valid, inds.long(), nb), True)
-        surv = surv[:, :nb] & mask      # round-up padding ids are unmasked
-        sel_tok = surv.repeat_interleave(bn, -1).repeat_interleave(r, 0)
-        bm_mid = indexing.copy_indices(bmfc1, state.bm_mid, sel_tok)
-        return state._replace(inds=inds, counts=counts, bm_mid=bm_mid)
+        with span('mlp.select'):
+            mbm, bm, bn = self.cfg.mbm, self.cfg.bm, self.cfg.neuron_block
+            bmx = block_mean(x[None], mbm)[0]                   # [Mb, C]
+            bmfc1 = _fc1(self.cfg, bmx, w1t, b1)                # [Mb, N]
+            mdiff = (bmfc1 - state.bm_mid).float().abs()
+            r = bm // mbm
+            Mb = mdiff.shape[0]
+            mdiff = mdiff.reshape(Mb // r, r, -1).sum(1)         # [M, N]
+            scores = indexing.blockify_scores(mdiff, bn)
+            mask = indexing.topk_mask(scores, self.sel_blocks)
+            if self.cfg.random_keys > 0:
+                if keep_mask is None:
+                    if generator is None:
+                        raise ValueError('mlp.random_keys > 0 needs a '
+                                         'generator or an injected '
+                                         'keep_mask')
+                    keep_mask = torch.rand(mask.shape, generator=generator,
+                                           device=mask.device) \
+                        < self.cfg.random_keys
+                mask = mask | keep_mask.to(mask.device)
+            mult_b = max(self.cfg.counts_multiple_of // bn, 1)
+            inds, counts = indexing.mask_to_indices_limited(mask, mult_b,
+                                                            self.jmax)
+            counts = counts.clamp(1, self.jmax)
+            M, nb = mask.shape
+            valid = torch.arange(self.jmax, device=mask.device) \
+                < counts[:, None]
+            surv = torch.zeros((M, nb + 1), dtype=torch.bool,
+                               device=mask.device)
+            surv.scatter_(1, torch.where(valid, inds.long(), nb), True)
+            surv = surv[:, :nb] & mask      # round-up padding ids are unmasked
+            sel_tok = surv.repeat_interleave(bn, -1).repeat_interleave(r, 0)
+            bm_mid = indexing.copy_indices(bmfc1, state.bm_mid, sel_tok)
+            return state._replace(inds=inds, counts=counts, bm_mid=bm_mid)
 
     def sparse_step(self, x, w1t, b1, w2, state: MlpState, *,
                     recompute: bool, keep_mask: Optional[torch.Tensor] = None,
@@ -185,13 +190,14 @@ class SparseDiffMlp:
                  keep_mask: Optional[torch.Tensor] = None,
                  generator: Optional[torch.Generator] = None
                  ) -> Tuple[torch.Tensor, MlpState]:
-        if not self.cfg.is_enabled or layer_is_dense:
-            return self.dense(x, w1t, b1, w2, b2), state
-        if is_full:
-            return self.full_step(x, w1t, b1, w2, b2, state)
-        return self.sparse_step(x, w1t, b1, w2, state,
-                                recompute=recompute_mask,
-                                keep_mask=keep_mask, generator=generator)
+        with span('mlp'):
+            if not self.cfg.is_enabled or layer_is_dense:
+                return self.dense(x, w1t, b1, w2, b2), state
+            if is_full:
+                return self.full_step(x, w1t, b1, w2, b2, state)
+            return self.sparse_step(x, w1t, b1, w2, state,
+                                    recompute=recompute_mask,
+                                    keep_mask=keep_mask, generator=generator)
 
     def init_state(self, dtype: torch.dtype = torch.bfloat16,
                    device: DeviceLike = 'cuda') -> Optional[MlpState]:

@@ -71,6 +71,15 @@ def step_plan(cfg: ChipmunkConfig) -> Tuple[StepKind, ...]:
     )
 
 
+def step_span(cfg: ChipmunkConfig, kind: StepKind) -> str:
+    """The tracer's span of a computed step (``utils/profiling.py``):
+    ``step.sparse`` where an enabled attention or MLP takes its sparse
+    path, else ``step.full`` (a skipped step's is ``step.skip``)."""
+    sparse = (cfg.attn.is_enabled and not kind.full_attn) or \
+        (cfg.mlp.is_enabled and not kind.full_mlp)
+    return 'step.sparse' if sparse else 'step.full'
+
+
 def fold_skip_steps(plan, timesteps, n):
     """Collapse skipped steps into the preceding computed step's Euler
     increment: a computed step at t_i followed by skips through t_k

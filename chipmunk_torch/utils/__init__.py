@@ -1,6 +1,6 @@
 """Utilities of the port: quantized weight residency (``quant``), host
 offload (``offload``), layer-chunked streaming (``streaming``), the
-profiler region and step timer (``profiling``), checkpoints
+tracer, profiler region and step timer (``profiling``), checkpoints
 (``checkpoint``) and the host C++ library (``native``)."""
 from .checkpoint import load_pytree, save_pytree
 from .offload import (DoubleBufferedLoader, OffloadPolicy, fetch_to_device,
