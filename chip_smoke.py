@@ -17,8 +17,10 @@
    weights), both csp modes at kv_block 1, 2, 4, 8 and 16,
    ``dense_colsum_attn`` at score blocks of 1-32 keys (FLUX; 8, 16 and 32
    at 540p and 720p), the three kernels that take a query-group size at
-   qg 64 and 256 (FLUX) and 192 (540p), and the int8/bf16 GEMM probe
-   (on ``gemm_sm90_kernel``).  For the short rows
+   qg 64 and 256 (FLUX) and 192 (540p), the int8/bf16 GEMM probe
+   (on ``gemm_sm90_kernel``), and ``qkv_prologue`` at the FLUX double-
+   and single-block shapes against the blocks' eager op chain (the card
+   tests' rule, ``check_qkv``).  For the short rows
    (``csp_attn`` at FLUX, ``quant_rows``) and the MLP rows of the
    Hopper-template pairs it also gives the kernel's own device time from
    torch.profiler's kernel records (``device_ms``), since their ``ms``
@@ -215,12 +217,12 @@ PEAK_BF16_FLOPS = 989e12
 PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 SEED = 0
-BF16_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1',
-             'csp_mlp_mm2')
-QUANT_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'quant_rows',
-              'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')
-WQ_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn', 'csp_mlp_mm1_wq',
-           'csp_mlp_mm2_wq')
+BF16_PATH = ('qkv_prologue', 'dense_attn', 'dense_colsum_attn', 'csp_attn',
+             'csp_mlp_mm1', 'csp_mlp_mm2')
+QUANT_PATH = ('qkv_prologue', 'dense_attn', 'dense_colsum_attn', 'csp_attn',
+              'quant_rows', 'csp_mlp_mm1_a8', 'csp_mlp_mm2_a8')
+WQ_PATH = ('qkv_prologue', 'dense_attn', 'dense_colsum_attn', 'csp_attn',
+           'csp_mlp_mm1_wq', 'csp_mlp_mm2_wq')
 SPEC = ('int4', 'int4', 'int8', 'int4')    # QuantSpec of bench.py:62-67
 # loops (a), (b) and (c) run the first 10 + 19 of the 19 + 38 blocks:
 # the cuts that made room for the checkpoint phases; the is_fp8 loop runs
@@ -250,13 +252,14 @@ V_DEPTH = dict(depth_double=1, depth_single=2)
 V_FULL = {}
 STEPS_720 = 4
 LIB_HEADS = 4     # heads of the 540p scaled_dot_product_attention yardstick
-VIDEO_PATH = ('dense_attn', 'dense_colsum_attn', 'csp_attn_hbm')
-# the schedule's count (plan_launches): 25 computed steps; step 0 runs 3
-# dense layers; steps 1, 10, 40 run 2 dense (first_n_dense_layers) + 1
-# colsum (+ 1 csp); the 21 sparse steps run 2 dense layers, 1 csp and 1
-# dense tail
-VIDEO_LAUNCHES = {'dense_attn': 72, 'dense_colsum_attn': 3,
-                  'csp_attn_hbm': 24}
+VIDEO_PATH = ('qkv_prologue', 'dense_attn', 'dense_colsum_attn',
+              'csp_attn_hbm')
+# the schedule's count (plan_launches): 25 computed steps, each running
+# qkv_prologue once a block (3); step 0 runs 3 dense layers; steps 1, 10,
+# 40 run 2 dense (first_n_dense_layers) + 1 colsum (+ 1 csp); the 21
+# sparse steps run 2 dense layers, 1 csp and 1 dense tail
+VIDEO_LAUNCHES = {'qkv_prologue': 75, 'dense_attn': 72,
+                  'dense_colsum_attn': 3, 'csp_attn_hbm': 24}
 # Wan2.1-T2V-1.3B at 480x832x81 frames: latent (21, 60, 104), 32,760
 # tokens padded to 32,768, 12 heads, 30 layers (scripts/bench_wan.py)
 WAN_LATENT = dict(latent_t=21, latent_h=60, latent_w=104)
@@ -676,8 +679,94 @@ def kernel_phases(torch, mods):
               f"{mm_flops / r['device_ms'] / 1e9:.1f} TFLOP/s on the device "
               f"({r['device_ms']:.4f} ms)", flush=True)
     bf16_mlp_variants(torch, cm, ca, fp8, x, w1t, b1, w2, gen)
+    rows.append(qkv_prologue_row(torch, gen))
     print_rows(rows)
     return rows
+
+
+def check_qkv(torch, name, got, want):
+    """q, k, v of qkv_prologue against its plain version, by the card
+    tests' rule: v bit-equal; q and k at least 99.9% bit-equal, the rest
+    within two bf16 ulps of the rotated pair's norm plus one of the value
+    (the kernel sums the squares in another order; where that moves the
+    rsqrt across a bf16 boundary, the scale and the rotation carry the
+    step).  Returns the largest difference and the bit-equal shares of
+    q and k."""
+    if not torch.equal(got[2], want[2]):
+        fail(f'{name}: v differs from the plain version')
+    err, shares = 0.0, []
+    for tag, a, b in zip('qk', got[:2], want[:2]):
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        shares.append((diff == 0).float().mean().item())
+        if shares[-1] < 0.999:
+            fail(f'{name}: {tag} {shares[-1]:.6f} bit-equal, below 0.999')
+        pair = b.reshape(*b.shape[:-1], -1, 2).norm(dim=-1, keepdim=True)
+        tol = bf16_ulp(torch, torch.maximum(a.abs(), b.abs())) + 2 * bf16_ulp(
+            torch, pair.expand(*pair.shape[:-1], 2).reshape(b.shape))
+        if not bool((diff <= tol).all()):
+            fail(f'{name}: {tag} differs by more than the ulp rule (max '
+                 f'excess {(diff - tol).max().item():.3e})')
+        err = max(err, diff.max().item())
+    return err, shares
+
+
+def bf16_ulp(torch, mag):
+    """Spacing of bf16 at mag >= 0, taken at 2^-13 at least."""
+    return torch.exp2(torch.floor(torch.log2(mag.clamp(min=2.0 ** -13))) - 7)
+
+
+def qkv_prologue_row(torch, gen):
+    """qkv_prologue at the FLUX block shapes (the double block's txt 512 +
+    img 3840 in one launch, the single block's 4352 tokens; H 24, D 128,
+    with biases) against its plain version (the blocks' eager op chain)
+    on the same inputs.  The row is the double block's; the single
+    block's times are printed.  Bound: each of a token's 3 H D values
+    read and written once, and its cos / sin read."""
+    qp = importlib.import_module('chipmunk_torch.kernels.qkv_prologue')
+    W = 3 * H * D
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, generator=gen, device='cuda')
+                * scale).to(torch.bfloat16)
+
+    out = {}
+    for tag, sizes in (('double', (512, S - 512)), ('single', (S,))):
+        streams = [qp.QkvStream(randn(B, n, W), randn(W, scale=0.1),
+                                1 + randn(D, scale=0.1),
+                                1 + randn(D, scale=0.1)) for n in sizes]
+        ang = torch.rand((1, 1, S, D // 2), generator=gen,
+                         device='cuda') * 100
+        cos, sin = torch.cos(ang), torch.sin(ang)
+
+        def kernel():
+            return qp.qkv_prologue(streams, cos, sin, H)
+
+        def plain():
+            return qp.qkv_prologue_plain(streams, cos, sin, H)
+
+        got = kernel()
+        torch.cuda.synchronize()
+        err, shares = check_qkv(torch, f'qkv_prologue {tag}', got, plain())
+        dev, dev_name = device_ms(torch, kernel, 20)
+        if 'qkv_norm_rope_kernel' not in dev_name:
+            fail(f'qkv_prologue {tag}: the longest kernel is {dev_name}')
+        bnd, by = bound_ms(0.0, 2 * 2 * B * S * W + 2 * B * S * D // 2 * 4)
+        out[tag] = dict(
+            name='qkv_prologue',
+            source='chipmunk_torch/csrc/qkv_prologue.cu',
+            replaces=None,        # the reference leaves the chain to XLA
+            max_abs_err=err, ms=time_ms(torch, kernel, 20),
+            plain_ms=time_ms(torch, plain, 3), bound_ms=bnd, bound_by=by,
+            library_ms=None, device_ms=dev)
+        print(f"qkv_prologue (FLUX {tag}, {'+'.join(map(str, sizes))} "
+              f"tokens): device {dev * 1e3:.2f} us, {bnd / dev:.1%} of the "
+              f"HBM bound {bnd * 1e3:.2f} us; with the wrapper "
+              f"{out[tag]['ms'] * 1e3:.2f} us; the eager chain "
+              f"{out[tag]['plain_ms'] * 1e3:.1f} us; bit-equal q "
+              f"{shares[0]:.6f}, k {shares[1]:.6f}, v 1", flush=True)
+        del streams, got
+    return out['double']
 
 
 def block_mask(torch, pinds, counts, kv_block, nb, kv_valid=None):
@@ -2332,7 +2421,8 @@ def drive_video_path(torch, kern, tm, ck, text):
 
 def plan_launches(model, steps=None):
     """Each video kernel's launches over the computed steps of the model's
-    plan (its first ``steps`` only if given), from the layers' roles: a
+    plan (its first ``steps`` only if given), from the layers' roles:
+    every block runs qkv_prologue once a computed step; a
     dense layer runs dense_attn every step; a sparse layer dense_attn on
     step 0, dense_colsum_attn + csp on a colsum step, dense_attn + csp on
     a plain full step, csp (+ dense_attn on the dense tail) on a sparse
@@ -2348,6 +2438,7 @@ def plan_launches(model, steps=None):
         if kind.skip and computed:
             continue
         computed, k = True, n - dense
+        c['qkv_prologue'] += n
         c['dense_attn'] += dense
         if i == 0:
             c['dense_attn'] += k
@@ -3564,7 +3655,8 @@ class SeededStateDict(collections.abc.Mapping):
 def flux_launches(ck, model, mlp_kernels):
     """Every kernel's launches in one host loop of FluxSampler.denoise over
     the plan of ``ck`` at ``model``'s depth, counted from the modules'
-    rules: a dense layer (first_n_dense_layers) runs ``dense_attn`` on
+    rules: every block runs ``qkv_prologue`` once a computed step; a dense
+    layer (first_n_dense_layers) runs ``dense_attn`` on
     every computed step; a sparse one runs ``dense_attn`` on step 0,
     ``dense_colsum_attn`` + ``csp_attn`` on a colsum step, ``dense_attn``
     + ``csp_attn`` on another full step and ``csp_attn`` on a sparse step;
@@ -3580,11 +3672,13 @@ def flux_launches(ck, model, mlp_kernels):
     la = sparse_layers(ck.attn.first_n_dense_layers)
     lm = sparse_layers(ck.mlp.first_n_dense_layers) \
         if ck.mlp.is_enabled else 0
-    n = {'dense_attn': 0, 'dense_colsum_attn': 0, 'csp_attn': 0}
+    n = {'qkv_prologue': 0, 'dense_attn': 0, 'dense_colsum_attn': 0,
+         'csp_attn': 0}
     n.update({k: 0 for k in mlp_kernels})
     for i, kind in enumerate(step_plan(ck)):
         if kind.skip and i > 0:
             continue
+        n['qkv_prologue'] += depth + single
         n['dense_attn'] += depth + single - la
         if kind.full_attn and i == 0:
             n['dense_attn'] += la

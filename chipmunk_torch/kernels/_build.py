@@ -27,7 +27,8 @@ CSRC = Path(__file__).resolve().parent.parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build' / 'chipmunk_torch'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC']
-LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe')
+LIBRARIES = ('flash_attention', 'csp_attention', 'csp_mlp', 'int8_probe',
+             'qkv_prologue')
 GXX_FLAGS = ['-O3', '-shared', '-fPIC', '-pthread', '-std=c++17']
 
 # kernel launches per wrapper since the last reset
@@ -40,7 +41,8 @@ LAUNCHES: Dict[str, int] = {
     'quant_rows': 0, 'csp_mlp_mm1_a8': 0,            # int8 weights and x
     'csp_mlp_mm2_a8': 0,
     'csp_mlp_mm1_a8w4': 0, 'csp_mlp_mm2_a8w4': 0,    # int4 weights, int8 x
-    'int8_probe_s8': 0, 'int8_probe_bf16': 0}
+    'int8_probe_s8': 0, 'int8_probe_bf16': 0,
+    'qkv_prologue': 0}
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -62,6 +64,7 @@ _SIGNATURES = {
     'chipmunk_csp_mlp_mm2_a8': [_P] * 6 + [_I] * 8 + [_P],
     'chipmunk_int8_probe_s8': [_P] * 3 + [_I] * 3 + [_P],
     'chipmunk_int8_probe_bf16': [_P] * 3 + [_I] * 3 + [_P],
+    'chipmunk_qkv_prologue': [_P] * 13 + [_I] * 5 + [_P],
 }
 
 

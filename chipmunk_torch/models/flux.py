@@ -24,12 +24,13 @@ import torch.nn.functional as F
 from ..config import ChipmunkConfig
 from ..device import DeviceLike, resolve_device
 from ..kernels.csp_mlp import gelu_tanh
+from ..kernels.qkv_prologue import QkvStream, qkv_prologue
 from ..modules import AttnState, MlpState, SparseDiffAttn, SparseDiffMlp
 from ..schedule import StepKind
 from ..utils.profiling import span
 from ..utils.quant import QTensor, materialize
-from .layers import (apply_rope, layernorm, linear, mlp_embedder, modulation,
-                     rmsnorm, timestep_embedding)
+from .layers import (layernorm, linear, mlp_embedder, modulation,
+                     timestep_embedding)
 
 
 @dataclass(frozen=True)
@@ -334,6 +335,14 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, S, H * D)
 
 
+def _qkv_stream(p: Dict, prefix: str, x) -> QkvStream:
+    """A stream's qkv GEMM (its bias left to ``qkv_prologue``) and norm
+    scales: ``p[prefix + 'qkv']``, ``'qnorm'``, ``'knorm'``."""
+    lin = p[prefix + 'qkv']
+    return QkvStream(x @ materialize(lin['w'], x.dtype), lin.get('b'),
+                     p[prefix + 'qnorm'], p[prefix + 'knorm'])
+
+
 def _attn_call(mod: SparseDiffAttn, q, k, v, st, step: FluxStep,
                is_dense: bool, generator, ulysses=None):
     """One attention; with ``ulysses`` (parallel.TokenShards) q, k, v are
@@ -382,18 +391,10 @@ def double_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
         img_mod = (1 + im1[1]) * layernorm(img) + im1[0]
         txt_mod = (1 + tm1[1]) * layernorm(txt) + tm1[0]
 
-        iq, ik, iv = (_split_heads(z, H)
-                      for z in linear(p['img_qkv'], img_mod).chunk(3, -1))
-        tq, tk, tv = (_split_heads(z, H)
-                      for z in linear(p['txt_qkv'], txt_mod).chunk(3, -1))
-        iq = rmsnorm(iq, p['img_qnorm'])
-        ik = rmsnorm(ik, p['img_knorm'])
-        tq = rmsnorm(tq, p['txt_qnorm'])
-        tk = rmsnorm(tk, p['txt_knorm'])
-        first, second = ((tq, tk, tv), (iq, ik, iv)) if cfg.txt_first \
-            else ((iq, ik, iv), (tq, tk, tv))
-        q, k, v = (torch.cat([a, b], 2) for a, b in zip(first, second))
-        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        streams = (_qkv_stream(p, 'txt_', txt_mod),
+                   _qkv_stream(p, 'img_', img_mod))
+        q, k, v = qkv_prologue(streams if cfg.txt_first else streams[::-1],
+                               cos, sin, H)
 
         o, ast = _attn_call(sp.attn_d, q, k, v, ast, step,
                             idx < sp.n_dense_attn_double, generator,
@@ -437,10 +438,7 @@ def single_block(cfg: FluxModelConfig, sp: FluxSparse, p: Dict,
         H = cfg.num_heads
         ((sh, sc, gate),) = modulation(p['mod'], vec, 1)
         x_mod = (1 + sc) * layernorm(x) + sh
-        q, k, v = (_split_heads(z, H)
-                   for z in linear(p['qkv'], x_mod).chunk(3, -1))
-        q = apply_rope(rmsnorm(q, p['qnorm']), cos, sin)
-        k = apply_rope(rmsnorm(k, p['knorm']), cos, sin)
+        q, k, v = qkv_prologue((_qkv_stream(p, '', x_mod),), cos, sin, H)
 
         o, ast = _attn_call(sp.attn_s, q, k, v, ast, step,
                             idx < sp.n_dense_attn_single, generator,

@@ -8,6 +8,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..ops.norm_rope import apply_rope, rmsnorm  # noqa: F401 (re-exported)
 from ..utils.quant import materialize
 
 
@@ -25,13 +26,6 @@ def layernorm(x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     mu = xf.mean(-1, keepdim=True)
     var = xf.var(-1, keepdim=True, unbiased=False)
     return ((xf - mu) * torch.rsqrt(var + eps)).to(x.dtype)
-
-
-def rmsnorm(x: torch.Tensor, scale: torch.Tensor,
-            eps: float = 1e-6) -> torch.Tensor:
-    xf = x.float()
-    n = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
-    return (xf * n).to(x.dtype) * scale.to(x.dtype)
 
 
 def timestep_embedding(t: torch.Tensor, dim: int,
@@ -74,13 +68,3 @@ def build_rope(ids: torch.Tensor, axes_dim, theta: float
     ang = torch.cat([rope_angles(ids[..., i], d, theta)
                      for i, d in enumerate(axes_dim)], -1)
     return torch.cos(ang)[:, None], torch.sin(ang)[:, None]
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor
-               ) -> torch.Tensor:
-    """x: [B, H, S, D]; rotates the interleaved pairs (x[2i], x[2i+1])."""
-    xf = x.float()
-    x1, x2 = xf[..., 0::2], xf[..., 1::2]
-    r1 = x1 * cos - x2 * sin
-    r2 = x1 * sin + x2 * cos
-    return torch.stack([r1, r2], -1).reshape(x.shape).to(x.dtype)

@@ -2113,3 +2113,155 @@ def test_cuda_quantize_host_native_equals_quantize_on_the_card(gen, kind):
     view = torch.uint8 if kind == 'fp8' else card.q.dtype
     assert torch.equal(host.q.view(view), card.q.view(view).cpu())
     assert torch.equal(host.scale, card.scale.cpu())
+
+
+# ------------------------------------------- qkv prologue (attention inputs)
+
+QP = importlib.import_module('chipmunk_torch.kernels.qkv_prologue')
+QKV_H = 24      # FLUX's and HunyuanVideo's heads of 128
+
+
+def _qkv_case(gen, sizes, B, bias=True, cos_b=1, rotate=True):
+    """Streams of ``sizes`` tokens (sequence order) at the FLUX widths:
+    GEMM outputs of RMS ~1, biases ~0.1, norm scales ~1, RoPE tables of
+    angles up to 100 rad (without ``rotate``: unit scales, cos 1, sin 0,
+    so that the outputs are the normed values)."""
+    W = 3 * QKV_H * 128
+
+    def scale():
+        return 1 + randn(gen, 128, scale=0.1 if rotate else 0.0)
+
+    streams = [QP.QkvStream(
+        randn(gen, B, n, W), randn(gen, W, scale=0.1) if bias else None,
+        scale(), scale()) for n in sizes]
+    ang = torch.rand((cos_b, 1, sum(sizes), 64), generator=gen,
+                     device='cuda') * (100 if rotate else 0)
+    return streams, torch.cos(ang), torch.sin(ang)
+
+
+def _assert_qkv_close(got, want, rotate=True):
+    """v bit-equal; q and k at least 99.9% bit-equal.  The kernel sums the
+    squares in another order; where that moves the rsqrt across a bf16
+    boundary, a normed value differs by one bf16 ulp: without ``rotate``
+    (unit scales, no rotation) the rest within one ulp.  The scale's
+    rounding can carry that step to two ulps of the scaled value, and the
+    rotation into both values of its pair: with ``rotate`` the rest within
+    two ulps of the pair's norm plus one of the value (the rounding after
+    the rotation)."""
+    assert torch.equal(got[2], want[2])
+    for a, b in zip(got[:2], want[:2]):
+        if not b.numel():
+            continue
+        a, b = a.float(), b.float()
+        diff = (a - b).abs()
+        assert (diff == 0).float().mean().item() >= 0.999
+        tol = cache_ulp(torch.maximum(a.abs(), b.abs()), torch.bfloat16)
+        if rotate:
+            pair = b.reshape(*b.shape[:-1], -1, 2).norm(dim=-1, keepdim=True)
+            tol = tol + 2 * cache_ulp(pair.expand(*pair.shape[:-1], 2)
+                                      .reshape(b.shape), torch.bfloat16)
+        assert bool((diff <= tol).all()), (diff - tol).max()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('sizes,B,bias,cos_b,rotate', [
+    ((512, 3840), 1, True, 1, True),    # FLUX double block, txt first
+    ((4352,), 1, True, 1, True),        # FLUX single block
+    ((4352,), 1, True, 1, False),       # the same, unit scales, no RoPE
+    ((3840, 256), 1, True, 1, True),    # HunyuanVideo, image first
+    ((0, 1451), 1, True, 1, True),      # a Ulysses shard of 4352 over 3
+    ((345, 743), 1, False, 1, True),    # a shard holding both streams
+    ((512, 3840), 2, True, 1, True),    # B = 2, one RoPE table
+    ((4352,), 2, False, 2, True),       # B = 2, a table a row
+    ((0, 0), 1, True, 1, True),         # a shard with no tokens
+], ids=['flux_double', 'flux_single', 'identity', 'hunyuan', 'ulysses',
+        'ulysses_both', 'b2', 'b2_single', 'empty'])
+def test_cuda_qkv_prologue_matches_plain(gen, sizes, B, bias, cos_b, rotate):
+    """The kernel against the plain version on the card (the blocks' eager
+    op chain), one launch a call (none without tokens)."""
+    streams, cos, sin = _qkv_case(gen, sizes, B, bias, cos_b, rotate)
+    want = QP.qkv_prologue_plain(streams, cos, sin, QKV_H)
+    before = FA._build.LAUNCHES['qkv_prologue']
+    got = QP.qkv_prologue(streams, cos, sin, QKV_H)
+    torch.cuda.synchronize()
+    assert FA._build.LAUNCHES['qkv_prologue'] - before == int(sum(sizes) > 0)
+    for t in got:
+        assert t.shape == (B, QKV_H, sum(sizes), 128) and t.is_contiguous()
+    _assert_qkv_close(got, want, rotate)
+    again = QP.qkv_prologue(streams, cos, sin, QKV_H)
+    assert all(torch.equal(a, b) for a, b in zip(again, got))
+
+
+@pytest.mark.cuda
+def test_cuda_qkv_prologue_graph_replay_equals_eager(gen):
+    """Captured in a CUDA graph (FLUX double-block shapes): the replay
+    writes what the eager call returns."""
+    streams, cos, sin = _qkv_case(gen, (512, 3840), 1)
+    want = QP.qkv_prologue(streams, cos, sin, QKV_H)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        QP.qkv_prologue(streams, cos, sin, QKV_H)        # warm up
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        got = QP.qkv_prologue(streams, cos, sin, QKV_H)
+    for t in got:
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_cuda_qkv_prologue_raises(gen):
+    """What the kernel does not take: float32 outputs of the GEMM, a head
+    size other than 128, a strided stream, bf16 RoPE tables, a table of
+    another length, RoPE tables, a bias or norm scales in host memory."""
+    streams, cos, sin = _qkv_case(gen, (128, 256), 1)
+    y, s0 = streams[0].y, streams[0]
+    bad = [
+        ([s0._replace(y=y.float()), streams[1]], cos, sin, QKV_H),
+        (streams, cos, sin, QKV_H * 2),
+        ([s0._replace(y=y[:, ::2]), streams[1]], cos, sin, QKV_H),
+        (streams, cos.to(torch.bfloat16), sin, QKV_H),
+        (streams, cos[:, :, :100], sin[:, :, :100], QKV_H),
+        (streams, cos.cpu(), sin.cpu(), QKV_H),
+        (streams, cos, sin.cpu(), QKV_H),
+        ([s0._replace(bias=s0.bias.cpu()), streams[1]], cos, sin, QKV_H),
+        ([streams[0], streams[1]._replace(q_scale=streams[1].q_scale.cpu())],
+         cos, sin, QKV_H),
+        ([s0._replace(k_scale=s0.k_scale.cpu()), streams[1]], cos, sin,
+         QKV_H),
+    ]
+    for args in bad:
+        with pytest.raises(ValueError, match='qkv_prologue'):
+            QP.qkv_prologue(*args)
+
+
+@pytest.mark.cuda
+def test_cuda_flux_generation_launches_qkv_prologue_per_block(gen):
+    """A reduced-depth FLUX (the small FLUX at depth 2 + 3, 8 steps, one
+    skipped) through the host loop: one qkv_prologue launch a block of
+    every computed step, (2 + 3) x 7."""
+    import dataclasses
+
+    import chipmunk_torch.models as tm
+    from chipmunk_torch.schedule import step_plan
+    model, ck, _, img, txt, y = _small_flux()
+    model = dataclasses.replace(model, depth=2, depth_single_blocks=3)
+    params = tm.init_flux_params(torch.Generator().manual_seed(0), model,
+                                 'cpu')
+    sampler = tm.FluxSampler(cfg=model, ck=ck,
+                             sp=tm.FluxSparse.build(ck, model, 512),
+                             h_img=16, w_img=24)
+    computed = sum(1 for i, kind in enumerate(step_plan(ck))
+                   if not (kind.skip and i > 0))
+    assert computed == 7
+    FA._build.reset_launches()
+    out = sampler.denoise(_to_cuda(params), img.cuda(), txt.cuda(), y.cuda(),
+                          tm.get_schedule(8, 384),
+                          generator=torch.Generator('cuda').manual_seed(3))
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    assert FA._build.LAUNCHES['qkv_prologue'] == computed * (2 + 3)
